@@ -1,0 +1,92 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  It is
+compiled on first use for Hopper (``sm_90a``) into
+``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout;
+the hash covers the source and the flags, so an edited source rebuilds.
+Nothing here runs when the module is imported, and a failed build raises:
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc") or "",
+    ):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH); the CUDA kernels need the CUDA toolkit"
+    )
+
+
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` builds to (content-hashed file name)."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+@functools.lru_cache(maxsize=None)
+def build(name: str) -> tuple[str, str, float]:
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists.
+
+    Returns ``(library path, nvcc's output, build seconds)``; seconds is 0
+    and the output empty when the library was already built.
+    """
+    out = library_path(name)
+    if os.path.exists(out):
+        return out, "", 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
+    # build into a temporary file and rename: another process never
+    # sees (or loads) a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}) for {name}:\n"
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr, secs
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library ``name``."""
+    path, _, _ = build(name)
+    return ctypes.CDLL(path)

@@ -1,0 +1,258 @@
+"""Serving a trained pyramid: one rendered frame per camera pose.
+
+``PyramidRenderer`` is the counterpart of the JAX package's
+``SwrTrainer.render`` (its ``train/swr_step.py``) as
+``train.py``'s eval loop and ``scripts/eval_fps.py`` call it: it bakes the
+pyramid once, caches the grid, and renders each pose through
+:func:`taichi_nerfs_torch.render.swr.render_swr`.
+
+Precision: every fp32 matmul of the path (bake, sweep plain version, fold,
+pixel warp) runs in full fp32 on CUDA because
+``torch.backends.cuda.matmul.allow_tf32`` is False, PyTorch's default; the
+renderer refuses to run with it switched on.  The rgb MLP rounds its
+operands to bf16 and accumulates in fp32, as the JAX package does.
+
+Run as a module to render an orbit of a checkpoint written by the JAX
+package's ``train.py`` (``results/model_pyramid.npz``)::
+
+    python -m taichi_nerfs_torch.render.serve \\
+        --ckpt_path results/model_pyramid.npz --img_wh 800 800 \\
+        --n_views 4 --resample_kind cubic
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..models import pyramid as pyr
+from .swr import _host_f32, render_swr, sweep_axis
+
+_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10"
+
+
+def _require_fp32_matmul():
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on; the renderer "
+            "needs full-fp32 matmuls"
+        )
+
+
+class PyramidRenderer:
+    """Render frames of one pyramid model on one device.
+
+    Args:
+        params: the port's pyramid params (``utils/convert.py``).
+        cfg: its ``PyramidConfig``; must be deferred-shading and unsplit.
+        K, img_wh: default intrinsics and image size.
+        resample_kind: "linear" or "cubic"; must match the checkpoint's
+            training kind (the record model trains cubic).
+        sweep_impl: "auto" (the CUDA kernel on the card) or "reference"
+            (the plain PyTorch sweep).
+        cam_carve: camera-carving of the JAX trainer; only 0 is ported.
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: pyr.PyramidConfig,
+        K=None,
+        img_wh: Tuple[int, int] | None = None,
+        *,
+        resample_kind: str = "linear",
+        sweep_impl: str = "auto",
+        cam_carve: float = 0.0,
+    ):
+        if cam_carve:
+            raise NotImplementedError(f"cam_carve is {_TODO}")
+        exp = [(r, r, r, cfg.feat_of(i)) for i, r in enumerate(cfg.resolutions)]
+        got = [tuple(g.shape) for g in params["levels"]]
+        if exp != got:
+            raise ValueError(f"level shapes {got} != config {exp}")
+        self.params = params
+        self.cfg = cfg
+        self.K = K
+        self.img_wh = img_wh
+        self.resample_kind = resample_kind
+        self.sweep_impl = sweep_impl
+        self._grid = None
+
+    @property
+    def grid(self) -> torch.Tensor:
+        """The baked (R, R, R, F) grid, baked on first use."""
+        if self._grid is None:
+            _require_fp32_matmul()
+            with torch.no_grad():
+                self._grid = pyr.bake(self.params, self.cfg)
+        return self._grid
+
+    def render(
+        self,
+        pose,
+        K=None,
+        img_wh: Tuple[int, int] | None = None,
+        lat_cap="auto",
+        early_exit: float = 1e-4,
+        skip_empty: bool = True,
+    ) -> Dict[str, torch.Tensor]:
+        """Render one (3, 4) camera-to-world pose.
+
+        ``lat_cap="auto"`` caps the intermediate lattice at
+        ``int(1.25 * R) + 16`` (the interactive setting); ``None`` renders
+        uncapped (the quality-eval setting).  ``early_exit`` stops the
+        sweep once every pixel's transmittance is below it (0 sweeps all
+        chunks).  ``skip_empty`` is accepted and ignored, as on the JAX
+        package's kernel path.
+        """
+        _require_fp32_matmul()
+        cfg = self.cfg
+        if lat_cap == "auto":
+            lat_cap = int(1.25 * cfg.grid_res) + 16
+        pose_np = _host_f32(pose).reshape(3, 4)
+        a, _ = sweep_axis(pose_np)
+        if abs(float(pose_np[a, 3])) <= cfg.scale * 1.05:
+            raise NotImplementedError(f"inside cameras are {_TODO}")
+        K = self.K if K is None else K
+        img_wh = img_wh or self.img_wh
+        if K is None or img_wh is None:
+            raise ValueError("K and img_wh are needed (no defaults given)")
+        with torch.no_grad():
+            return render_swr(
+                self.params,
+                self.grid,
+                cfg,
+                pose_np,
+                K,
+                tuple(img_wh),
+                lat_cap=lat_cap,
+                n_chunks=min(16, cfg.grid_res),
+                white_bg=True,
+                skip_empty=skip_empty,
+                early_exit=float(early_exit),
+                resample_kind=self.resample_kind,
+                sweep_impl=self.sweep_impl,
+            )
+
+
+def record_config() -> pyr.PyramidConfig:
+    """The record model's configuration
+    (``docs/records/lego_proxy_cli.manifest.json``)."""
+    return pyr.PyramidConfig(
+        resolutions=(32, 64, 128, 256),
+        features=8,
+        level_features=(8, 8, 8, 8),
+        rgb_width=64,
+        rgb_depth=2,
+        scale=0.5,
+        sigma_bias=-2.0,
+        deferred=True,
+    )
+
+
+def config_for_params(params, base: pyr.PyramidConfig) -> pyr.PyramidConfig:
+    """``base`` with the resolutions and channel widths of ``params``'s
+    levels (as ``scripts/eval_fps.py`` derives them from a checkpoint)."""
+    import dataclasses
+
+    res = tuple(int(g.shape[0]) for g in params["levels"])
+    lf = tuple(int(g.shape[-1]) for g in params["levels"])
+    return dataclasses.replace(
+        base, resolutions=res, features=lf[0], level_features=lf
+    )
+
+
+def main(argv=None):
+    from ..data.cameras import intrinsics, orbit_poses
+    from ..utils.convert import load_pyramid_npz
+    from ..utils.viz import depth2img, write_png
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ckpt_path", required=True,
+                    help="model_pyramid.npz written by train.py")
+    ap.add_argument("--img_wh", type=int, nargs=2, default=(800, 800))
+    ap.add_argument("--n_views", type=int, default=4)
+    ap.add_argument("--resample_kind", default="linear",
+                    choices=("linear", "cubic"))
+    ap.add_argument("--lat_cap", default="auto",
+                    help="'auto' (int(1.25 R) + 16), 'none' or an integer")
+    ap.add_argument("--out_dir", default="results/serve")
+    ap.add_argument("--profile", action="store_true",
+                    help="render the orbit once more under torch.profiler: "
+                         "print the op/kernel table and the device busy "
+                         "share, write trace.json to --out_dir")
+    args = ap.parse_args(argv)
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    params = load_pyramid_npz(args.ckpt_path, device)
+    cfg = config_for_params(params, record_config())
+    w, h = args.img_wh
+    lat_cap = {"auto": "auto", "none": None}.get(args.lat_cap.lower())
+    if lat_cap is None and args.lat_cap.lower() != "none":
+        lat_cap = int(args.lat_cap)
+    rend = PyramidRenderer(
+        params, cfg, intrinsics(w, h), (w, h),
+        resample_kind=args.resample_kind,
+    )
+    os.makedirs(args.out_dir, exist_ok=True)
+    print(f"device={device} R={cfg.grid_res} F={cfg.features} {w}x{h} "
+          f"lat_cap={args.lat_cap} kind={args.resample_kind}", flush=True)
+    rend.grid  # bake (and move to the device) outside the frame timings
+    poses = orbit_poses(args.n_views)
+    for i, pose in enumerate(poses):
+        t0 = time.perf_counter()
+        out = rend.render(pose, lat_cap=lat_cap)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"frame {i}: {ms:.2f} ms", flush=True)
+        if i == 0:
+            rgb = out["rgb"].reshape(h, w, 3).clamp(0, 1).cpu().numpy()
+            write_png(os.path.join(args.out_dir, "rgb_000.png"),
+                      (rgb * 255).astype(np.uint8))
+            write_png(os.path.join(args.out_dir, "depth_000.png"),
+                      depth2img(out["depth"].reshape(h, w).cpu().numpy()))
+
+    if args.profile:
+        _profile(rend, poses, lat_cap, device, args.out_dir)
+
+
+def _profile(rend, poses, lat_cap, device, out_dir):
+    """One pass over ``poses`` under torch.profiler: the op table sorted by
+    self device time (self CPU time on the CPU), the device-busy share of
+    the pass's wall time, and a Chrome trace in ``out_dir``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for pose in poses:
+            rend.render(pose, lat_cap=lat_cap)
+        if cuda:
+            torch.cuda.synchronize(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    key = "self_device_time_total" if cuda else "self_cpu_time_total"
+    print(avgs.table(sort_by=key, row_limit=25), flush=True)
+    if cuda:
+        # kernel time only: the spans' device-side ranges (user
+        # annotations) would count their kernels twice
+        busy_us = sum(
+            e.self_device_time_total for e in avgs
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+        )
+        print(f"profile: {len(poses)} frames in {wall_us / 1e3:.3f} ms wall, "
+              f"device busy {busy_us / 1e3:.3f} ms "
+              f"({100.0 * busy_us / wall_us:.1f}%)", flush=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+if __name__ == "__main__":
+    main()

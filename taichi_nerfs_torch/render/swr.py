@@ -1,0 +1,592 @@
+"""Shear-warp frustum renderer — the dense pyramid's serving path.
+
+Port of the JAX package's ``render/swr.py`` restricted to the configuration
+that every served frame of the record model takes: a camera outside the
+scene cube, deferred shading, an unsplit grid and full-matrix slab
+resamples (``slab_window=0``), with linear or Catmull-Rom weights.  Each
+other option of the JAX renderer raises ``NotImplementedError`` naming its
+ROADMAP entry; none of them silently takes another path.
+
+One frame (see the JAX module's docstring for the geometry):
+
+1. the baked ``(R, R, R, F)`` grid is transposed so the dominant view axis
+   leads and cut into ``n_chunks`` chunks of ``dc`` slabs;
+2. per chunk, a lattice frame tightly covering the view frustum (and the
+   cube's shadow) on the chunk's mean slab plane, and per slab the affine
+   (start, step) of the resample onto it;
+3. the slab sweep (:func:`taichi_nerfs_torch.ops.swr_sweep.chunk_sweep`,
+   the CUDA kernel on the card) composites each chunk's slabs;
+4. the chunk frames fold front to back into one global frame on the cube's
+   centre plane;
+5. a two-pass band-matrix warp (or a bilinear gather) takes that frame to
+   pixels, and the rgb MLP shades each pixel once.
+
+Precision: the two 3x3 contractions that the JAX renderer runs at
+``Precision.HIGHEST`` (the corner directions and the per-pixel directions)
+are explicit elementwise fp32 sums here, so no TF32 setting reaches them.
+Every other fp32 matmul is a plain ``torch.matmul``/``bmm``, full fp32 on
+CUDA while ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's
+default; ``render/serve.py`` states and checks it).
+
+There is no per-chunk VMEM-budget dispatch as on the TPU: the sweep runs
+all chunks in one call, or one chunk per call in the early-exit loop.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..models import pyramid as pyr
+from ..ops.swr_sweep import chunk_sweep, chunk_sweep_reference
+from ..ops.warp import resample_matmul
+
+# profiler spans of the frame's stages (cheap while no profiler runs)
+_span = torch.profiler.record_function
+
+_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10"
+
+
+def _out_of_scope(cfg, grid, *, debug_frames, slab_window, resample_dtype,
+                  want_distortion, inside, resample_kind):
+    if inside:
+        raise NotImplementedError(f"inside cameras are {_TODO}")
+    if isinstance(grid, tuple) or cfg.split:
+        raise NotImplementedError(f"split sigma_res grids are {_TODO}")
+    if not cfg.deferred:
+        raise NotImplementedError(
+            f"per-sample (non-deferred) shading is {_TODO}"
+        )
+    if want_distortion:
+        raise NotImplementedError(f"the distortion loss is {_TODO}")
+    if slab_window:
+        raise NotImplementedError(
+            f"the windowed slab resample (slab_window > 0) is {_TODO}"
+        )
+    if debug_frames:
+        raise NotImplementedError(f"debug_frames is {_TODO}")
+    if resample_dtype != "float32":
+        raise NotImplementedError(
+            f"resample_dtype={resample_dtype!r}: only float32 operands are "
+            "ported; bf16 comes with the training slice (ROADMAP 'TPU "
+            "kernels to port')"
+        )
+    if resample_kind not in ("linear", "cubic"):
+        raise ValueError(f"unknown resample kind {resample_kind!r}")
+
+
+def _guard(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Sign-preserving division guard: |x| < eps becomes +-eps."""
+    return torch.where(
+        torch.abs(x) < eps,
+        torch.where(x >= 0, eps, -eps).to(x.dtype),
+        x,
+    )
+
+
+def _as_f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _host_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, np.float32)
+
+
+def _dirs(pose: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
+    """World directions ``pose[:, :3] @ cam`` for (..., 3) camera dirs, as
+    explicit fp32 sums (no matmul, so no TF32)."""
+    return (
+        cam[..., 0:1] * pose[:, 0]
+        + cam[..., 1:2] * pose[:, 1]
+        + cam[..., 2:3] * pose[:, 2]
+    )
+
+
+def render_swr_fixed_axis(
+    params,
+    grid: torch.Tensor,
+    cfg: pyr.PyramidConfig,
+    pose,  # (3, 4) camera-to-world
+    K,  # (3, 3) pinhole intrinsics
+    img_wh: Tuple[int, int],
+    axis: int,
+    flip: bool,
+    n_chunks: int = 16,
+    lat_pad: int = 16,
+    white_bg: bool = True,
+    debug_frames: bool = False,
+    slab_window: int = 0,
+    lat_size: int = 0,
+    resample_dtype: str = "float32",
+    skip_empty: bool = False,
+    warp: str = "matmul",
+    want_distortion: bool = False,
+    inside: bool = False,
+    sweep_impl: str = "auto",
+    early_exit: float = 0.0,
+    resample_kind: str = "linear",
+) -> Dict[str, torch.Tensor]:
+    """Render with a given sweep axis and direction.
+
+    Args mirror the JAX function.  ``grid`` is the baked fp32
+    ``(R, R, R, F)`` grid on the render device; ``pose`` and ``K`` may be
+    numpy arrays or tensors.  ``skip_empty`` is accepted and ignored, as on
+    the JAX package's Pallas path: the sweep composites every slab.
+    ``sweep_impl`` is "auto" (:func:`chunk_sweep`: the CUDA kernel for CUDA
+    tensors, the plain version on the CPU) or "reference" (the plain
+    PyTorch sweep on any device).  ``early_exit`` > 0 sweeps one chunk per
+    call, front to back, skipping empty chunks and stopping once every
+    pixel's transmittance is below it or no occupied chunk remains.
+
+    Returns ``rgb`` (H*W, 3), ``depth`` (H*W,) and ``opacity`` (H*W,).
+    """
+    del skip_empty
+    _out_of_scope(
+        cfg, grid, debug_frames=debug_frames, slab_window=slab_window,
+        resample_dtype=resample_dtype, want_distortion=want_distortion,
+        inside=inside, resample_kind=resample_kind,
+    )
+    if sweep_impl == "auto":
+        sweep = chunk_sweep
+    elif sweep_impl == "reference":
+        sweep = chunk_sweep_reference
+    else:
+        raise ValueError(f"unknown sweep_impl {sweep_impl!r}")
+    if warp not in ("matmul", "matmul_x", "gather"):
+        raise ValueError(f"unknown warp {warp!r}")
+    dev = grid.device
+    f32 = torch.float32
+    pose = _as_f32(pose, dev)
+    K = _as_f32(K, dev)
+    s = cfg.scale
+    R = cfg.grid_res
+    F = cfg.features
+    h = 2.0 * s / R
+    w_img, h_img = img_wh
+    nq = lat_size if lat_size else max(w_img, h_img) + lat_pad
+    acc_ch = F - 1
+    if R % n_chunks:
+        raise ValueError(f"n_chunks={n_chunks} must divide R={R}")
+
+    with _span("swr.setup"):
+        b_axis, c_axis = [d for d in range(3) if d != axis]
+        zs = -s + (torch.arange(R, dtype=f32, device=dev) + 0.5) * h
+        # vol: (D, F, Rb, Rc), the sweep axis leading, channels next
+        vol = grid.permute(axis, 3, b_axis, c_axis)
+        if flip:
+            vol = torch.flip(vol, dims=(0,))
+            zs = torch.flip(zs, dims=(0,))
+        vol = vol.contiguous()
+
+        o = pose[:, 3]
+        o_a, o_b, o_c = o[axis], o[b_axis], o[c_axis]
+
+        # frustum corner-ray slopes: q(z) = o_bc + (z - o_a) * slope
+        cu = torch.tensor([0.0, w_img - 1.0], dtype=f32, device=dev)
+        cv = torch.tensor([0.0, h_img - 1.0], dtype=f32, device=dev)
+        uu, vv = torch.meshgrid(cu, cv, indexing="xy")
+        corner_cam = torch.stack(
+            [
+                (uu - K[0, 2] + 0.5) / K[0, 0],
+                (vv - K[1, 2] + 0.5) / K[1, 1],
+                torch.ones_like(uu),
+            ],
+            dim=-1,
+        ).reshape(-1, 3)
+        corner_w = _dirs(pose, corner_cam)  # (4, 3)
+        # division guard only: large slopes are legitimate geometry
+        d_a_c = _guard(corner_w[:, axis], 1e-12)
+        slope_b = corner_w[:, b_axis] / d_a_c
+        slope_c = corner_w[:, c_axis] / d_a_c
+        sb_lo, sb_hi = slope_b.min(), slope_b.max()
+        sc_lo, sc_hi = slope_c.min(), slope_c.max()
+        # the corner-slope frustum interval is valid only when the sweep-axis
+        # direction component keeps one sign over the view
+        d_ac = corner_w[:, axis]
+        frustum_ok = (d_ac.min() > 0) | (d_ac.max() < 0)
+
+        def frame_at(z_ref):
+            """Lattice origin/spacing covering the frustum at plane z_ref,
+            intersected with the cube's central-projection shadow.  ``z_ref``
+            may be a vector (one frame per chunk)."""
+            za = z_ref - o_a
+            pos = za >= 0
+            b0 = o_b + za * torch.where(pos, sb_lo, sb_hi)
+            b1 = o_b + za * torch.where(pos, sb_hi, sb_lo)
+            c0 = o_c + za * torch.where(pos, sc_lo, sc_hi)
+            c1 = o_c + za * torch.where(pos, sc_hi, sc_lo)
+            # cube expanded by 2h: trilinear support + frame margin
+            sE = s + 2.0 * h
+            r_hi = za / _guard(sE - o_a, 1e-6)
+            r_lo = za / _guard(-sE - o_a, 1e-6)
+            qb = torch.stack(
+                [
+                    o_b + (sE - o_b) * r_hi,
+                    o_b + (sE - o_b) * r_lo,
+                    o_b + (-sE - o_b) * r_hi,
+                    o_b + (-sE - o_b) * r_lo,
+                ]
+            )
+            qc = torch.stack(
+                [
+                    o_c + (sE - o_c) * r_hi,
+                    o_c + (sE - o_c) * r_lo,
+                    o_c + (-sE - o_c) * r_hi,
+                    o_c + (-sE - o_c) * r_lo,
+                ]
+            )
+            # axis-0 reductions keep a vector z_ref per chunk
+            qb_lo, qb_hi = qb.amin(dim=0), qb.amax(dim=0)
+            qc_lo, qc_hi = qc.amin(dim=0), qc.amax(dim=0)
+            nb0 = torch.where(frustum_ok, torch.maximum(b0, qb_lo), qb_lo)
+            nb1 = torch.where(frustum_ok, torch.minimum(b1, qb_hi), qb_hi)
+            nc0 = torch.where(frustum_ok, torch.maximum(c0, qc_lo), qc_lo)
+            nc1 = torch.where(frustum_ok, torch.minimum(c1, qc_hi), qc_hi)
+            # empty intersection: any non-degenerate frame renders it right
+            b0 = nb0
+            b1 = torch.maximum(nb1, nb0 + 1e-5)
+            c0 = nc0
+            c1 = torch.maximum(nc1, nc0 + 1e-5)
+            db = (b1 - b0) / (nq - 1 - lat_pad)
+            dc = (c1 - c0) / (nq - 1 - lat_pad)
+            # centre the margin
+            return b0 - db * (lat_pad // 2), db, c0 - dc * (lat_pad // 2), dc
+
+        dc_slabs = R // n_chunks
+        zs_c = zs.reshape(n_chunks, dc_slabs)
+        vol_c = vol.reshape(n_chunks, dc_slabs, F, R, R)
+
+        # global frame on the cube-centre plane
+        z_g = torch.zeros((), dtype=f32, device=dev)
+        g_b0, g_db, g_c0, g_dc = frame_at(z_g)
+
+        # per-chunk reference planes + lattice frames, vectorised over chunks
+        z_ref_c = zs_c.mean(dim=1)  # (n_chunks,)
+        fb0_c, fdb_c, fc0_c, fdc_c = frame_at(z_ref_c)
+        # per-slab resample params (start_b, step_b, start_c, step_c)
+        rho = (z_ref_c[:, None] - o_a) / (zs_c - o_a)  # (n_chunks, dc)
+        rs_par = torch.stack(
+            [
+                (o_b + (fb0_c[:, None] - o_b) / rho + s) / h - 0.5,
+                fdb_c[:, None] / (rho * h),
+                (o_c + (fc0_c[:, None] - o_c) / rho + s) / h - 0.5,
+                fdc_c[:, None] / (rho * h),
+            ],
+            dim=-1,
+        ).contiguous()  # (n_chunks, dc, 4)
+        z_rel = (zs_c - o_a).contiguous()
+        ch_par = torch.stack(
+            [
+                fb0_c - o_b,
+                fdb_c,
+                fc0_c - o_c,
+                fdc_c,
+                z_ref_c - o_a,
+                torch.full_like(z_ref_c, h),
+            ],
+            dim=-1,
+        ).contiguous()  # (n_chunks, 6)
+
+    # global carry, channel-leading: acc (acc_ch, nq, nq), depth, T
+    acc_g = torch.zeros((acc_ch, nq, nq), dtype=f32, device=dev)
+    depth_g = torch.zeros((nq, nq), dtype=f32, device=dev)
+    t_g = torch.ones((nq, nq), dtype=f32, device=dev)
+
+    def fold(g, fr, acc_g, depth_g, t_g):
+        """Fold chunk g's frame into the global frame: the ray at global
+        lattice q_g crosses the chunk plane at o + (q_g - o) * rho_cg."""
+        packed = fr[: acc_ch + 2]
+        rho_cg = (z_ref_c[g] - o_a) / (z_g - o_a)
+        f_b0, f_db, f_c0, f_dc = fb0_c[g], fdb_c[g], fc0_c[g], fdc_c[g]
+        start_b = (o_b * (1 - rho_cg) + g_b0 * rho_cg - f_b0) / f_db
+        step_b = g_db * rho_cg / f_db
+        start_c = (o_c * (1 - rho_cg) + g_c0 * rho_cg - f_c0) / f_dc
+        step_c = g_dc * rho_cg / f_dc
+        packed = resample_matmul(
+            packed, start_b, step_b, nq, axis=1, kind=resample_kind
+        )
+        packed = resample_matmul(
+            packed, start_c, step_c, nq, axis=2, kind=resample_kind
+        )
+        acc_g = acc_g + t_g[None] * packed[:acc_ch]
+        depth_g = depth_g + t_g * packed[acc_ch]
+        # Catmull-Rom can overshoot the resampled opacity outside [0, 1]
+        # at hard silhouettes; clamp (a no-op for linear)
+        t_g = t_g * (1.0 - torch.clamp(packed[acc_ch + 1], 0.0, 1.0))
+        return acc_g, depth_g, t_g
+
+    if early_exit > 0.0:
+        # one chunk per call, front to back; empty chunks (max sigma
+        # <= 1e-4) are skipped, and the loop stops once no occupied chunk
+        # remains or every pixel's transmittance is below early_exit
+        occ_chunk = vol_c[:, :, 0].amax(dim=(1, 2, 3)) > 1e-4
+        occ = occ_chunk.tolist()  # one host read per frame
+        rem_occ = [any(occ[g:]) for g in range(n_chunks)]
+        for g in range(n_chunks):
+            if not rem_occ[g]:
+                break
+            if not occ[g]:
+                continue  # t_g is unchanged: no need to read it
+            if t_g.max().item() <= early_exit:  # one host read per chunk
+                break
+            with _span("swr.sweep"):
+                fr = sweep(
+                    vol_c[g : g + 1], rs_par[g : g + 1], z_rel[g : g + 1],
+                    ch_par[g : g + 1], nq, resample_kind,
+                )[0]
+            with _span("swr.fold"):
+                acc_g, depth_g, t_g = fold(g, fr, acc_g, depth_g, t_g)
+    else:
+        with _span("swr.sweep"):
+            frames = sweep(vol_c, rs_par, z_rel, ch_par, nq, resample_kind)
+        for g in range(n_chunks):
+            with _span("swr.fold"):
+                acc_g, depth_g, t_g = fold(g, frames[g], acc_g, depth_g, t_g)
+
+    with _span("swr.warp"):
+        # final projective warp: pixel -> global-frame lattice coords
+        u = torch.arange(w_img, dtype=f32, device=dev)
+        v = torch.arange(h_img, dtype=f32, device=dev)
+        uu, vv = torch.meshgrid(u, v, indexing="xy")  # (h, w)
+        dir_cam = torch.stack(
+            [
+                (uu - K[0, 2] + 0.5) / K[0, 0],
+                (vv - K[1, 2] + 0.5) / K[1, 1],
+                torch.ones_like(uu),
+            ],
+            dim=-1,
+        )  # (h, w, 3)
+        dir_w = _dirs(pose, dir_cam)
+        da = dir_w[..., axis]
+        # grazing rays cross the slab stack near-parallel: guard the division
+        # (sign-preserving) and mask them out
+        grazing = torch.abs(da) < 1e-6
+        t_hit = (z_g - o_a) / _guard(da, 1e-6)
+        pb = o_b + t_hit * dir_w[..., b_axis]
+        pc = o_c + t_hit * dir_w[..., c_axis]
+        li = torch.clamp((pb - g_b0) / g_db, -1.0, float(nq))
+        lj = torch.clamp((pc - g_c0) / g_dc, -1.0, float(nq))
+        behind = (t_hit <= 0.0) | grazing
+
+        # (C, nq, nq) global frame, C = acc_ch + 2
+        img = torch.cat([acc_g, depth_g[None], (1.0 - t_g)[None]], dim=0)
+
+        if warp == "gather":
+            i0 = torch.clamp(torch.floor(li).long(), 0, nq - 2)
+            j0 = torch.clamp(torch.floor(lj).long(), 0, nq - 2)
+            fi = torch.clamp(li - i0, 0.0, 1.0)
+            fj = torch.clamp(lj - j0, 0.0, 1.0)
+            pix = (
+                img[:, i0, j0] * ((1 - fi) * (1 - fj))
+                + img[:, i0, j0 + 1] * ((1 - fi) * fj)
+                + img[:, i0 + 1, j0] * (fi * (1 - fj))
+                + img[:, i0 + 1, j0 + 1] * (fi * fj)
+            )  # (C, h, w)
+        else:
+            # two-pass (Catmull-Smith) warp as batched band-matrix products;
+            # pass A solves each lattice row j for one camera-plane coordinate
+            # ("matmul": y, per column u; "matmul_x": x, per row v), pass B
+            # resamples along j.  Both passes use linear tents.
+            r = pose[:, :3]  # world = r @ cam
+            ra, rb, rc = r[axis], r[b_axis], r[c_axis]
+            xs_pix = (torch.arange(w_img, dtype=f32, device=dev) - K[0, 2]
+                      + 0.5) / K[0, 0]
+            ys_pix = (torch.arange(h_img, dtype=f32, device=dev) - K[1, 2]
+                      + 0.5) / K[1, 1]
+            j_ar = torch.arange(nq, dtype=f32, device=dev)
+            oa_rel = o_a - z_g
+            gam = o_c - g_c0 - j_ar * g_dc  # (J,)
+            if warp == "matmul_x":
+                fidx, sidx, free = 1, 0, ys_pix
+            else:
+                fidx, sidx, free = 0, 1, xs_pix
+            num = (oa_rel * rc[fidx] - gam[:, None] * ra[fidx]) * free[
+                None, :
+            ] + (oa_rel * rc[2] - gam[:, None] * ra[2])  # (J, N)
+            den = (
+                gam[:, None] * ra[sidx] - oa_rel * rc[sidx]
+                + torch.zeros_like(num)
+            )
+            sol = num / torch.where(torch.abs(den) < 1e-12, 1e-12, den)
+            if warp == "matmul_x":
+                x_p, y_p = sol, free[None, :] + torch.zeros_like(sol)
+            else:
+                x_p, y_p = free[None, :] + torch.zeros_like(sol), sol
+            da_j = ra[0] * x_p + ra[1] * y_p + ra[2]  # (J, N)
+            db_j = rb[0] * x_p + rb[1] * y_p + rb[2]
+            posA = ((o_b - g_b0) * da_j - oa_rel * db_j) / (
+                g_db * torch.where(torch.abs(da_j) < 1e-12, 1e-12, da_j)
+            )  # (J, N): source-i position for (row j, output line n)
+            posA = torch.where(torch.isfinite(posA), posA, -1e9)
+            i_ar = torch.arange(nq, dtype=f32, device=dev)
+            WA = torch.clamp(
+                1.0 - torch.abs(i_ar[None, :, None] - posA[:, None, :]), min=0.0
+            )  # (J, I, N)
+            # inter[j, c, n] = sum_i img[c, i, j] * WA[j, i, n]
+            inter = torch.bmm(img.permute(2, 0, 1), WA)  # (J, C, N)
+            posB = lj if warp == "matmul_x" else lj.T  # (N', N)
+            posB = torch.where(torch.isfinite(posB), posB, -1e9)
+            WB = torch.clamp(
+                1.0 - torch.abs(j_ar[None, :, None] - posB[:, None, :]), min=0.0
+            )  # (N, J, N')
+            # pixT[n, c, n'] = sum_j inter[j, c, n] * WB[n, j, n']
+            pixT = torch.bmm(inter.permute(2, 1, 0), WB)  # (N, C, N')
+            if warp == "matmul_x":
+                pix = pixT.permute(1, 0, 2)  # (C, H, W)
+            else:
+                pix = pixT.permute(1, 2, 0)  # (C, H, W)
+        pix = torch.where(behind[None], 0.0, pix)
+
+    with _span("swr.shade"):
+        depth = pix[acc_ch]
+        opacity = pix[acc_ch + 1]
+        # deferred shading: shade the opacity-normalised features once per
+        # pixel and re-premultiply, so transparent pixels stay black
+        dirs_pix = dir_w / torch.linalg.norm(dir_w, dim=-1, keepdim=True)
+        feat_avg = pix[:acc_ch].permute(1, 2, 0) / torch.clamp(
+            opacity, min=1e-6
+        )[..., None]
+        rgb = pyr.rgb_from_features(params, cfg, feat_avg, dirs_pix)
+        rgb = rgb * opacity[..., None]
+        if white_bg:
+            rgb = rgb + (1.0 - opacity)[..., None]
+    return {
+        "rgb": rgb.reshape(h_img * w_img, 3),
+        "depth": depth.reshape(h_img * w_img),
+        "opacity": opacity.reshape(h_img * w_img),
+    }
+
+
+def _pixel_slopes(pose, K, img_wh, axis, n_grid: int = 17):
+    """Host helper: ray slopes (d_b/d_a, d_c/d_a) on a pixel grid."""
+    w, h = img_wh
+    u = np.linspace(0.0, w - 1.0, n_grid)
+    v = np.linspace(0.0, h - 1.0, n_grid)
+    uu, vv = np.meshgrid(u, v, indexing="xy")
+    K = np.asarray(K, np.float64)
+    cam = np.stack(
+        [
+            (uu - K[0, 2] + 0.5) / K[0, 0],
+            (vv - K[1, 2] + 0.5) / K[1, 1],
+            np.ones_like(uu),
+        ],
+        axis=-1,
+    )
+    world = cam @ np.asarray(pose, np.float64)[:, :3].T
+    b_axis, c_axis = [d for d in range(3) if d != axis]
+    sb = world[..., b_axis] / world[..., axis]
+    sc = world[..., c_axis] / world[..., axis]
+    return sb, sc
+
+
+def _matmul_solve_choice(
+    pose, axis: int, sc_lo: float, sc_hi: float, tol: float = 1e-3
+) -> str:
+    """Host: pick the matmul warp's pass-A solve coordinate.
+
+    The pass-A denominator for solve coordinate ``s`` is proportional to
+    ``rc[s] - slope_c * ra[s]`` over the lattice's slope_c range; a zero
+    crossing inside the range sends that row's solve to infinity.  Returns
+    "matmul" (solve for camera y) when its denominator stays away from zero
+    over ``[sc_lo, sc_hi]``, else "matmul_x", else "gather".
+    """
+    r = np.asarray(pose, np.float64)[:, :3]
+    c_axis = [d for d in range(3) if d != axis][1]
+    ra, rc = r[axis], r[c_axis]
+    pad = 0.05 * max(sc_hi - sc_lo, 0.1)
+    lo, hi = sc_lo - pad, sc_hi + pad
+    for s, name in ((1, "matmul"), (0, "matmul_x")):
+        e0 = rc[s] - lo * ra[s]
+        e1 = rc[s] - hi * ra[s]
+        if e0 * e1 > 0 and min(abs(e0), abs(e1)) > tol:
+            return name
+    return "gather"
+
+
+def pick_warp(
+    pose,
+    K,
+    img_wh: Tuple[int, int],
+    axis: int,
+    face_sign: float | None = None,
+    crop_xy: Tuple[int, int] = (0, 0),
+    n_grid: int = 7,
+) -> str:
+    """Host: final-warp mode for one (pose, face[, crop]).
+
+    Samples ray slopes on an ``n_grid`` x ``n_grid`` pixel grid of the
+    (cropped) view; ``face_sign`` (+-1) restricts to the pixels a cubemap
+    face owns, and delegates the conditioning test to
+    :func:`_matmul_solve_choice`.
+    """
+    pose = np.asarray(pose, np.float64).reshape(3, 4)
+    K = np.asarray(K, np.float64)
+    w, h = img_wh
+    u = crop_xy[0] + np.linspace(0.0, w - 1.0, n_grid)
+    v = crop_xy[1] + np.linspace(0.0, h - 1.0, n_grid)
+    uu, vv = np.meshgrid(u, v, indexing="xy")
+    cam = np.stack(
+        [
+            (uu - K[0, 2] + 0.5) / K[0, 0],
+            (vv - K[1, 2] + 0.5) / K[1, 1],
+            np.ones_like(uu),
+        ],
+        axis=-1,
+    )
+    d = cam @ pose[:, :3].T
+    c_axis = [x for x in range(3) if x != axis][1]
+    da = d[..., axis]
+    if face_sign is not None:
+        dom = np.argmax(np.abs(d), axis=-1)
+        m = (dom == axis) & (face_sign * da > 0)
+        if not m.any():
+            return "matmul"
+        sc = d[..., c_axis][m] / da[m]
+    else:
+        sc = d[..., c_axis] / np.where(np.abs(da) < 1e-12, 1e-12, da)
+    return _matmul_solve_choice(
+        pose, axis, float(sc.min()), float(sc.max())
+    )
+
+
+def sweep_axis(pose) -> Tuple[int, bool]:
+    """Host: the dominant view axis of ``pose`` and whether the sweep runs
+    descending (camera on the +axis side), as ``render_swr`` picks them."""
+    pose = np.asarray(pose, np.float32).reshape(3, 4)
+    axis = int(np.argmax(np.abs(pose[:, 2])))
+    return axis, bool(pose[axis, 3] > 0)
+
+
+def render_swr(
+    params,
+    grid: torch.Tensor,
+    cfg: pyr.PyramidConfig,
+    pose,
+    K,
+    img_wh: Tuple[int, int],
+    lat_cap: int | None = None,
+    **kw,
+) -> Dict[str, torch.Tensor]:
+    """Host wrapper: picks the dominant sweep axis from the concrete pose.
+
+    ``lat_cap`` bounds the intermediate-lattice side (the final warp
+    magnifies); e.g. ``int(1.25 * cfg.grid_res)`` for fast high-resolution
+    renders.
+    """
+    pose = _host_f32(pose).reshape(3, 4)
+    K = _host_f32(K)
+    axis, flip = sweep_axis(pose)
+    lat_pad = kw.get("lat_pad", 16)
+    if lat_cap and max(img_wh) + lat_pad > lat_cap:
+        kw["lat_size"] = lat_cap
+    if "warp" not in kw:
+        kw["warp"] = pick_warp(pose, K, tuple(img_wh), axis)
+    return render_swr_fixed_axis(
+        params, grid, cfg, pose, K, tuple(img_wh), axis, flip, **kw
+    )
