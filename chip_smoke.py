@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives the port's serving path (``taichi_nerfs_torch``) through the
-record model's configuration at full width on the card, in phases:
+Drives the port's serving and training paths (``taichi_nerfs_torch``)
+through the record model's configuration at full width on the card, in
+phases:
 
 1. device: the ``nvidia-smi`` name and power limit; no CUDA device is a
    failure (never a CPU run);
-2. build: compile every kernel of the path from ``taichi_nerfs_torch/csrc``;
+2. build: compile every kernel from ``taichi_nerfs_torch/csrc``, one
+   ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   random ragged shapes and at the serving shapes, with timings;
-4. slice: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
-   uncapped, with cubic resampling; the outputs are checked, the kernel's
-   launch count during those frames must be > 0, and one view is rendered
-   again through the plain sweep and compared.
+   random ragged shapes, at the serving shapes (forward) and at the three
+   training shapes (backward), with timings;
+4. serve: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
+   uncapped, with cubic resampling; the outputs are checked, the forward
+   kernel's launch count during those frames must be > 0, and one view is
+   rendered again through the plain sweep and compared;
+5. train: ``SwrTrainer`` trains the record configuration for 24 steps
+   through all three coarse-to-fine phases on procedural lego views made on
+   the card; every loss must be finite and the loss must fall, both
+   kernels' launch counts during the steps must be > 0, one full-depth
+   step's gradient through the kernels is compared with the one through
+   the plain sweep, and one test view is rendered uncapped.
 
 Prints one JSON line with the kernels' numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0).
@@ -37,6 +46,22 @@ KERNEL_TOL = 1e-4
 # the pixel warp and the bf16-operand MLP)
 RENDER_TOL = 1e-3
 RECORD_WH = (800, 800)
+# backward kernel against autograd of the plain sweep, elementwise abs +
+# rel: the kernel sums taps where autograd runs the transposed dense fp32
+# matmuls (another summation order), and the sums run over more terms
+BWD_TOL = 2e-4
+# one full-depth training step's level gradients, kernels vs plain sweep,
+# relative norm per level (the loss runs both sweeps, the fold, the warp
+# and the bf16-operand MLP)
+GRAD_TOL = 1e-3
+# the record training recipe's sweep shapes (n_chunks=16, F=8, crop 256):
+# (R, dc, nq) per coarse-to-fine phase; nq is the capped lattice
+# int(1.25 R) + 16 while it is below crop + 16, else crop + 16
+TRAIN_SHAPES = ((64, 4, 96), (128, 8, 176), (256, 16, 272))
+TRAIN_STEPS, PROG_STEPS = 24, (4, 4)
+# the loss must fall: on 4 fixed crops (with fixed backgrounds), the loss
+# after training below this share of the loss of the initial params
+LOSS_FALL = 0.95
 
 
 def _median(xs):
@@ -152,6 +177,129 @@ def phase_kernels(torch):
     return worst, timing
 
 
+def phase_bwd_kernels(torch):
+    """``swr_sweep_bwd`` against autograd of the plain sweep: ragged
+    shapes for F in {4, 8, 16} and both kinds, the clamp-binding inputs,
+    and the three training shapes (cubic, timed)."""
+    import numpy as np
+
+    from taichi_nerfs_torch.ops.swr_sweep import (
+        chunk_sweep,
+        chunk_sweep_bwd,
+        chunk_sweep_reference,
+    )
+
+    rng = np.random.default_rng(1)
+    cases = [
+        (f"ragged F={F}", dict(nc=2, dc=3, F=F, R=40, nq=37,
+                               realistic=False), ("linear", "cubic"))
+        for F in (4, 8, 16)
+    ] + [("clamp-binding", None, ("linear", "cubic"))] + [
+        (f"training R={R} nq={nq}", dict(nc=16, dc=dc, F=8, R=R, nq=nq,
+                                         realistic=True), ("cubic",))
+        for R, dc, nq in TRAIN_SHAPES
+    ]
+    worst = 0.0
+    timing = {}
+    for label, shp, kinds in cases:
+        if shp is None:
+            args, nq = _clamp_case(torch), 8
+        else:
+            nq = shp["nq"]
+            args = _rand_sweep_inputs(torch, rng, **shp)
+            if shp["realistic"]:
+                _keep_off_the_gate(torch, rng, args, nq)
+        nc, _, F = args[0].shape[:3]
+        g = torch.randn((nc, F + 2, nq, nq), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        for kind in kinds:
+            frames = chunk_sweep(*args, nq, kind)
+            got = chunk_sweep_bwd(*args, frames, g, nq, kind)
+            # the plain backward: autograd through the plain sweep
+            v = args[0].clone().requires_grad_(True)
+            out = chunk_sweep_reference(v, *args[1:], nq, kind)
+            (want,) = torch.autograd.grad(out, v, g, retain_graph=True)
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            max_abs = float(d.max())
+            max_rel = max_abs / max(float(want.abs().max()), 1e-30)
+            ok = bool(torch.all(d <= BWD_TOL + BWD_TOL * want.abs()))
+            ok = ok and bool(torch.isfinite(got).all())
+            print(f"kernel swr_sweep_bwd {label} {kind}: "
+                  f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"swr_sweep_bwd disagrees with the plain backward "
+                    f"({label}, {kind}): max_abs={max_abs:.3e} > "
+                    f"{BWD_TOL} (+{BWD_TOL} rel)"
+                )
+            worst = max(worst, max_abs)
+            if label.startswith("training"):
+                k_ms = _time_ms(torch, lambda: chunk_sweep_bwd(
+                    *args, frames, g, nq, kind), 10)
+                p_ms = _time_ms(torch, lambda: torch.autograd.grad(
+                    out, v, g, retain_graph=True), 5)
+                timing[(nq, kind)] = (k_ms, p_ms)
+                print(f"  time R={args[0].shape[-1]} nq={nq} {kind}: "
+                      f"kernel {k_ms:.4f} ms, plain backward {p_ms:.4f} ms "
+                      f"(median, CUDA events)", flush=True)
+            del out, v
+    torch.cuda.synchronize()
+    return worst, timing
+
+
+def _keep_off_the_gate(torch, rng, args, nq):
+    """Make the resampled sigma stay above 0 at every lattice point: sigma
+    voxels in [0.5, 1.5] (a baked grid's channel 0 is >= 0) and a lattice
+    inside [2, R - 3], so no tap falls in the zero padding.
+
+    The backward's gradient jumps where resampled sigma crosses 0 (the
+    clamp gate); there the kernel's tap sum and the plain version's matmul
+    can round to opposite signs, and both are right.  Measured on the card
+    with inputs that reach the border: 1-9 voxels of 16.8 M, all in the
+    sigma channel, all cubic.  The gate itself is held by the
+    clamp-binding case."""
+    vol, rs = args[0], args[1]
+    nc, dc, _, R, _ = vol.shape
+    vol[:, :, 0] = torch.as_tensor(
+        rng.uniform(0.5, 1.5, (nc, dc, R, R)).astype("float32"),
+        device=vol.device)
+    span = (R - 5.0) / (nq - 1)
+    for k in (0, 2):  # (start, step) of the b and c axes
+        rs[..., k] = torch.as_tensor(
+            rng.uniform(2.0, 2.5, (nc, dc)).astype("float32"),
+            device=vol.device)
+        rs[..., k + 1] = torch.as_tensor(
+            (span * rng.uniform(0.95, 1.0, (nc, dc))).astype("float32"),
+            device=vol.device)
+
+
+def _clamp_case(torch):
+    """The seed-3 sweep inputs of tests/test_swr_pallas.py, under which
+    Catmull-Rom undershoot drives resampled sigma below 0 (the test pins
+    it on the CPU): the backward's clamp gate is exercised."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    nc, dc, F, Rb, Rc = 2, 3, 4, 8, 8
+    vol = rng.normal(0.3, 1.0, (nc, dc, F, Rb, Rc)).astype(np.float32)
+    vol[np.abs(vol[:, :, 0:1].repeat(F, 2)) < 0.05] += 0.1
+    rs = np.stack(
+        [rng.uniform(-1.0, 1.0, (nc, dc)), rng.uniform(0.7, 1.3, (nc, dc)),
+         rng.uniform(-1.0, 1.0, (nc, dc)), rng.uniform(0.7, 1.3, (nc, dc))],
+        axis=-1,
+    ).astype(np.float32)
+    z_rel = np.linspace(1.0, 2.0, nc * dc, dtype=np.float32).reshape(nc, dc)
+    ch = np.stack(
+        [rng.uniform(-0.5, 0.0, nc), rng.uniform(0.01, 0.05, nc),
+         rng.uniform(-0.5, 0.0, nc), rng.uniform(0.01, 0.05, nc),
+         np.full(nc, 1.5), np.full(nc, 0.1)],
+        axis=-1,
+    ).astype(np.float32)
+    return [torch.as_tensor(a, device="cuda") for a in (vol, rs, z_rel, ch)]
+
+
 def _record_params(torch, cfg, seed, device):
     """Seeded random record-config params plus a density blob on the finest
     level, so rays see structure and saturate."""
@@ -252,6 +400,169 @@ def phase_slice(torch, ckpt_path, seed):
     return launches, frame_ms
 
 
+def phase_train(torch, seed, device="cuda"):
+    """Train the record configuration on procedural lego views made on the
+    card, through all three coarse-to-fine phases."""
+    import dataclasses
+
+    import numpy as np
+
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.render.serve import record_config
+    from taichi_nerfs_torch.train.metrics import psnr
+    from taichi_nerfs_torch.train.swr_step import (
+        SwrTrainConfig,
+        SwrTrainer,
+        make_swr_loss,
+        tree_leaves,
+    )
+
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    spec = f"synthetic://lego?views=8&res={RECORD_WH[0]}"
+    train = SyntheticSphereDataset(spec, split="train", device=device)
+    test = SyntheticSphereDataset(variant="lego", n_images=2,
+                                  img_wh=RECORD_WH, split="test",
+                                  device=device)
+    torch.cuda.synchronize()
+    print(f"train: {len(train)} train + {len(test)} test lego views at "
+          f"{train.img_wh} made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    mcfg = record_config()
+    tcfg = SwrTrainConfig(
+        crop=256, lr=1e-2, max_steps=TRAIN_STEPS, n_chunks=16,
+        resample_kind="cubic", alpha_w=0.2, random_bg=True, tv_w=5e-4,
+        sigma_l1=1e-5, prog_steps=PROG_STEPS,
+    )
+    trainer = SwrTrainer(mcfg, tcfg, train.rays, train.poses, train.K,
+                         train.img_wh, seed=seed, alphas=train.alphas,
+                         device=device)
+    evals = _fixed_crops(torch, trainer, seed)
+    loss0 = _fixed_loss(torch, trainer, evals)
+    torch.cuda.synchronize()
+
+    chunk_sweep.launches = 0
+    chunk_sweep_bwd.launches = 0
+    losses, step_ms, levels = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.run_step()
+        loss = float(m["loss"])  # waits for the step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        levels.append(len(trainer.state.params["levels"]))
+        print(f"train step {trainer.step - 1}: {levels[-1]} "
+              f"levels (R={trainer.cur_mcfg.grid_res}, lattice "
+              f"{trainer.lat_size or tcfg.crop + 16}) loss={loss:.6f} "
+              f"psnr={float(m['psnr']):.3f} {step_ms[-1]:.2f} ms", flush=True)
+    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    print(f"train: launches during the {TRAIN_STEPS} steps: swr_sweep_fwd "
+          f"{launches[0]}, swr_sweep_bwd {launches[1]}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if set(levels) != {2, 3, 4}:
+        raise AssertionError(f"phases not all run: levels {levels}")
+    if min(launches) <= 0:
+        raise AssertionError(f"a sweep kernel never launched: {launches}")
+    loss1 = _fixed_loss(torch, trainer, evals)
+    print(f"train: loss on {len(evals)} fixed crops, initial {loss0:.6f}, "
+          f"after {TRAIN_STEPS} steps {loss1:.6f} (ratio "
+          f"{loss1 / loss0:.4f}, must be < {LOSS_FALL}); training-step "
+          f"losses, mean of the first 4 {np.mean(losses[:4]):.6f}, of the "
+          f"last 4 {np.mean(losses[-4:]):.6f}", flush=True)
+    if not loss1 < LOSS_FALL * loss0:
+        raise AssertionError(f"the loss did not fall: {loss0} -> {loss1}")
+    # step times: the first step of each phase builds its state; the rest
+    # are steady
+    starts = {0, PROG_STEPS[0], PROG_STEPS[0] + PROG_STEPS[1]}
+    steady = [(lv, ms) for k, (lv, ms) in enumerate(zip(levels, step_ms))
+              if k not in starts]
+    by_phase = {lv: [ms for l2, ms in steady if l2 == lv] for lv in (2, 3, 4)}
+    for lv, ms in by_phase.items():
+        print(f"train: {lv} levels (R={mcfg.resolutions[lv - 1]}), steady "
+              f"step times {[round(x, 3) for x in ms]} ms, median "
+              f"{_median(ms):.3f} ms", flush=True)
+
+    # one full-depth step's gradient, kernels vs plain sweep, on one crop,
+    # background and TV window
+    i, crop_xy, bg, tv_starts = trainer.draw()
+    axis, flip = trainer._axis_flip[i]
+    from taichi_nerfs_torch.render.swr import pick_warp
+
+    warp = pick_warp(trainer.poses_np[i], trainer.K, (256, 256), axis,
+                     crop_xy=crop_xy)
+    grads = {}
+    for impl in ("auto", "reference"):
+        loss_fn = make_swr_loss(
+            trainer.images[i], trainer.poses_np[i], trainer.K, crop_xy,
+            trainer.cur_mcfg, dataclasses.replace(tcfg, sweep_impl=impl),
+            axis, flip, bg, tv_starts, trainer.lat_size, warp,
+        )
+        loss, _ = loss_fn(trainer.state.params)
+        grads[impl] = torch.autograd.grad(
+            loss, trainer.state.params["levels"])
+    torch.cuda.synchronize()
+    worst_grad = 0.0
+    for lv, (a, b) in enumerate(zip(grads["auto"], grads["reference"])):
+        rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        worst_grad = max(worst_grad, rel)
+        print(f"train: level {lv} gradient, kernels vs plain sweep: "
+              f"relative norm {rel:.3e}", flush=True)
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"level {lv} gradient differs by {rel} > "
+                                 f"{GRAD_TOL}")
+    del grads
+
+    t0 = time.perf_counter()
+    out = trainer.render(test.poses[0], lat_cap=None)
+    torch.cuda.synchronize()
+    rgb = out["rgb"]
+    if not bool(torch.isfinite(rgb).all()) or tuple(rgb.shape) != (
+            RECORD_WH[0] * RECORD_WH[1], 3):
+        raise AssertionError("the uncapped test render is not finite")
+    p = float(psnr(rgb, torch.as_tensor(test.rays[0], device=device)))
+    print(f"train: uncapped test view in {(time.perf_counter() - t0) * 1e3:.2f}"
+          f" ms, psnr {p:.3f} dB after {TRAIN_STEPS} steps", flush=True)
+    return launches, by_phase, worst_grad
+
+
+def _fixed_crops(torch, trainer, seed, n=4):
+    """``n`` training inputs (image, crop, background, TV start 0): the
+    centre crop of the first ``n`` training views, where the object is
+    (an off-centre crop is mostly background, whose loss is ~0 for a
+    transparent model), with backgrounds drawn from their own generator so
+    the trainer's draws are untouched."""
+    gen = torch.Generator(trainer.device).manual_seed(seed + 1)
+    w, h = trainer.img_wh
+    c = trainer.tcfg.crop
+    xy = ((w - c) // 2, (h - c) // 2)
+    return [(i, xy, torch.rand((c * c, 3), generator=gen,
+                               device=trainer.device)) for i in range(n)]
+
+
+def _fixed_loss(torch, trainer, evals):
+    """Mean training loss of the current params over ``evals``."""
+    from taichi_nerfs_torch.render.swr import pick_warp
+    from taichi_nerfs_torch.train.swr_step import make_swr_loss
+
+    c = trainer.tcfg.crop
+    total = 0.0
+    with torch.no_grad():
+        for i, xy, bg in evals:
+            axis, flip = trainer._axis_flip[i]
+            warp = pick_warp(trainer.poses_np[i], trainer.K, (c, c), axis,
+                             crop_xy=xy)
+            loss, _ = make_swr_loss(
+                trainer.images[i], trainer.poses_np[i], trainer.K, xy,
+                trainer.cur_mcfg, trainer.tcfg, axis, flip, bg, (0,),
+                trainer.lat_size, warp,
+            )(trainer.state.params)
+            total += float(loss)
+    return total / len(evals)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ckpt_path", default="",
@@ -275,32 +586,55 @@ def main(argv=None):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+
     from taichi_nerfs_torch.ops import _build
 
-    path, log, secs = _build.build("swr_sweep_fwd")
-    _build.load("swr_sweep_fwd")
-    built = f"in {secs:.2f} s" if log else "(already built)"
-    print(f"build: {os.path.relpath(path)} {built}", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    names = ("swr_sweep_fwd", "swr_sweep_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        builds = list(pool.map(_build.build, names))
+    for name, (path, log, secs) in zip(names, builds):
+        _build.load(name)
+        built = f"in {secs:.2f} s" if log else "(already built)"
+        print(f"build: {os.path.relpath(path)} {built}", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
 
     worst, timing = phase_kernels(torch)
-    launches, frame_ms = phase_slice(torch, args.ckpt_path, args.seed)
+    worst_bwd, bwd_timing = phase_bwd_kernels(torch)
+    serve_launches, frame_ms = phase_slice(torch, args.ckpt_path, args.seed)
     print(f"slice: 800x800 cubic frame median: capped "
           f"{frame_ms['capped']:.3f} ms, uncapped "
           f"{frame_ms['uncapped']:.3f} ms", flush=True)
+    (fwd_n, bwd_n), step_ms, worst_grad = phase_train(torch, args.seed)
+    print(f"train: median steady full-depth step "
+          f"{_median(step_ms[4]):.3f} ms, first phase (R=64) "
+          f"{_median(step_ms[2]):.3f} ms; worst level-gradient difference "
+          f"{worst_grad:.3e}", flush=True)
 
     k_ms, p_ms = timing[(816, "cubic")]
+    kb_ms, pb_ms = bwd_timing[(TRAIN_SHAPES[-1][2], "cubic")]
     print(json.dumps({"kernels": [{
         "name": "swr_sweep_fwd",
         "route": "cuda",
         "source": "taichi_nerfs_torch/csrc/swr_sweep_fwd.cu",
         "replaces": "taichi_nerfs_tpu/ops/swr_pallas.py:116",
-        "launches": launches,
+        "launches": fwd_n,
+        "launches_by_path": {"serve": serve_launches, "train": fwd_n},
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "swr_sweep_bwd",
+        "route": "cuda",
+        "source": "taichi_nerfs_torch/csrc/swr_sweep_bwd.cu",
+        "replaces": "taichi_nerfs_tpu/ops/swr_pallas.py:178",
+        "launches": bwd_n,
+        "launches_by_path": {"train": bwd_n},
+        "max_abs_err": worst_bwd,
+        "ms": kb_ms,
+        "plain_ms": pb_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

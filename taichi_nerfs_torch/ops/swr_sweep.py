@@ -1,4 +1,4 @@
-"""Fused shear-warp chunk sweep (forward): CUDA kernel and plain version.
+"""Fused shear-warp chunk sweep: CUDA kernels and plain version.
 
 Counterpart of the JAX package's ``ops/swr_pallas.py``.  The sweep
 composites every chunk's ``dc`` slabs front to back into a per-chunk frame:
@@ -15,8 +15,9 @@ with channels ``[acc features (F-1) | depth | opacity | tau]``.
   the straight-line oracle ``_ref_sweep`` in ``tests/test_swr_pallas.py``.
 * :func:`chunk_sweep` launches the hand-written kernel
   ``csrc/swr_sweep_fwd.cu`` for CUDA tensors, and uses the plain version
-  only for CPU tensors.  The kernel is forward only: the backward kernel
-  comes with the training slice (ROADMAP, "TPU kernels to port", item 2).
+  only for CPU tensors.  On CUDA it is a ``torch.autograd.Function`` whose
+  backward is the hand-written ``csrc/swr_sweep_bwd.cu``
+  (:func:`chunk_sweep_bwd`; plain version :func:`chunk_sweep_bwd_reference`).
 """
 
 from __future__ import annotations
@@ -69,7 +70,9 @@ def chunk_sweep_reference(
         wc = interp_T(sc, stc, Rc)  # (nc, nq, Rc)
         x1 = torch.matmul(wb[:, None], vol_cs[:, s].float())  # (nc, F, nq, Rc)
         x2 = torch.matmul(x1, wc[:, None].transpose(-1, -2))  # (nc, F, nq, nq)
-        sigma = torch.clamp(x2[:, 0], min=0.0)
+        # relu, not clamp: no gradient at x2 == 0, as the kernels gate
+        # d sigma on x2 > 0
+        sigma = torch.relu(x2[:, 0])
         sdt = sigma * dt
         a = 1.0 - torch.exp(-sdt)
         w = a * torch.exp(-tau)
@@ -103,8 +106,9 @@ def _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind):
                              f"{vol_cs.device}")
         if t.dtype != torch.float32:
             raise TypeError(
-                f"{name} is {t.dtype}; the sweep kernel takes float32 "
-                "operands only (bf16 comes with the training slice)"
+                f"{name} is {t.dtype}; the sweep kernels take float32 "
+                "operands only (the bf16 variant: ROADMAP 'TPU kernels to "
+                "port')"
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -115,16 +119,120 @@ def _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind):
         raise ValueError("empty sweep")
 
 
+def _check_bwd_args(vol_cs, frames, g, nq):
+    nc, _, F = vol_cs.shape[:3]
+    for name, t in (("frames", frames), ("g", g)):
+        if tuple(t.shape) != (nc, F + 2, nq, nq):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{(nc, F + 2, nq, nq)}")
+        if t.device != vol_cs.device or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on {vol_cs.device}, "
+                            f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _kernel_fn(name: str):
     from ._build import load
 
-    fn = load("swr_sweep_fwd").swr_sweep_fwd
+    fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    # pointers, then (n_chunks, dc, F, Rb, Rc, nq, kind), then the stream
+    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 8}[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     return fn
+
+
+def _launch(name: str, device, *args) -> None:
+    fn = _kernel_fn(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind):
+    nc, dc, F, Rb, Rc = vol_cs.shape
+    out = torch.empty(
+        (nc, F + 2, nq, nq), dtype=torch.float32, device=vol_cs.device
+    )
+    _launch(
+        "swr_sweep_fwd", vol_cs.device,
+        vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
+        ch_par.data_ptr(), out.data_ptr(),
+        nc, dc, F, Rb, Rc, nq, _KINDS[kind],
+    )
+    chunk_sweep.launches += 1
+    return out
+
+
+def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
+                              kind="linear"):
+    """Plain PyTorch backward: autograd of :func:`chunk_sweep_reference`,
+    ``d<g, frames>/d vol_cs``."""
+    with torch.enable_grad():
+        v = vol_cs.detach().requires_grad_(True)
+        out = chunk_sweep_reference(v, rs_par, z_rel, ch_par, nq, kind)
+        (dvol,) = torch.autograd.grad(out, v, g)
+    return dvol
+
+
+def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
+                    kind="linear"):
+    """``d<g, frames>/d vol_cs`` of the sweep whose forward gave ``frames``.
+
+    On a CUDA tensor it launches ``csrc/swr_sweep_bwd.cu`` on the current
+    stream (two launches, counted once in ``chunk_sweep_bwd.launches``) or
+    raises; on a CPU tensor it runs :func:`chunk_sweep_bwd_reference`
+    (``frames`` unused there).
+    """
+    if vol_cs.device.type == "cpu":
+        return chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g,
+                                         nq, kind)
+    if vol_cs.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {vol_cs.device}")
+    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind)
+    # the kernel indexes g[c, ch, i, j] directly: a cotangent that reaches
+    # here as a strided view of the fold's frame slices is copied once
+    g = g.contiguous()
+    _check_bwd_args(vol_cs, frames, g, nq)
+    nc, dc, F, Rb, Rc = vol_cs.shape
+    dx2 = torch.empty((nc, dc, F, nq, nq), dtype=torch.float32,
+                      device=vol_cs.device)
+    dvol = torch.empty_like(vol_cs)
+    _launch(
+        "swr_sweep_bwd", vol_cs.device,
+        vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
+        ch_par.data_ptr(), frames.data_ptr(), g.data_ptr(), dx2.data_ptr(),
+        dvol.data_ptr(),
+        nc, dc, F, Rb, Rc, nq, _KINDS[kind],
+    )
+    chunk_sweep_bwd.launches += 1
+    return dvol
+
+
+class _ChunkSweep(torch.autograd.Function):
+    """Forward and backward kernels as one differentiable op.  Only
+    ``vol_cs`` gets a gradient: the camera parameters ``rs_par``, ``z_rel``
+    and ``ch_par`` get ``None``, as the JAX VJP returns zeros for them."""
+
+    @staticmethod
+    def forward(ctx, vol_cs, rs_par, z_rel, ch_par, nq, kind):
+        frames = _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind)
+        ctx.save_for_backward(vol_cs, rs_par, z_rel, ch_par, frames)
+        ctx.nq, ctx.kind = nq, kind
+        return frames
+
+    @staticmethod
+    def backward(ctx, g):
+        vol_cs, rs_par, z_rel, ch_par, frames = ctx.saved_tensors
+        dvol = chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g,
+                               ctx.nq, ctx.kind)
+        return dvol, None, None, None, None, None
 
 
 def chunk_sweep(
@@ -139,36 +247,18 @@ def chunk_sweep(
 
     Returns (n_chunks, F+2, nq, nq) fp32 frames with channels
     ``[acc features (F-1) | depth | opacity | tau]``.  On a CUDA tensor it
-    launches ``csrc/swr_sweep_fwd.cu`` on the current stream (and counts
-    the launch in ``chunk_sweep.launches``) or raises; on a CPU tensor it
-    runs :func:`chunk_sweep_reference`.
+    launches ``csrc/swr_sweep_fwd.cu`` on the current stream (counted in
+    ``chunk_sweep.launches``) or raises, and a gradient asked of ``vol_cs``
+    runs :func:`chunk_sweep_bwd`'s kernel; on a CPU tensor it runs
+    :func:`chunk_sweep_reference` under autograd.
     """
     if vol_cs.device.type == "cpu":
         return chunk_sweep_reference(vol_cs, rs_par, z_rel, ch_par, nq, kind)
     if vol_cs.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {vol_cs.device}")
-    if torch.is_grad_enabled() and vol_cs.requires_grad:
-        raise NotImplementedError(
-            "the CUDA sweep is forward-only: its backward kernel comes with "
-            "the training slice (ROADMAP, 'TPU kernels to port', item 2)"
-        )
     _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind)
-    nc, dc, F, Rb, Rc = vol_cs.shape
-    fn = _kernel_fn()
-    out = torch.empty(
-        (nc, F + 2, nq, nq), dtype=torch.float32, device=vol_cs.device
-    )
-    with torch.cuda.device(vol_cs.device):
-        stream = torch.cuda.current_stream(vol_cs.device).cuda_stream
-        rc = fn(
-            vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
-            ch_par.data_ptr(), out.data_ptr(),
-            nc, dc, F, Rb, Rc, nq, _KINDS[kind], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"swr_sweep_fwd launch failed: cudaError {rc}")
-    chunk_sweep.launches += 1
-    return out
+    return _ChunkSweep.apply(vol_cs, rs_par, z_rel, ch_par, nq, kind)
 
 
 chunk_sweep.launches = 0
+chunk_sweep_bwd.launches = 0

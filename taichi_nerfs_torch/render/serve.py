@@ -226,7 +226,6 @@ def _profile(rend, poses, lat_cap, device, out_dir):
     """One pass over ``poses`` under torch.profiler: the op table sorted by
     self device time (self CPU time on the CPU), the device-busy share of
     the pass's wall time, and a Chrome trace in ``out_dir``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cuda = device.type == "cuda"
@@ -238,6 +237,16 @@ def _profile(rend, poses, lat_cap, device, out_dir):
         if cuda:
             torch.cuda.synchronize(device)
         wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, f"{len(poses)} frames", cuda, out_dir)
+
+
+def report_profile(prof, wall_us: float, what: str, cuda: bool,
+                   out_dir: str) -> None:
+    """Print a finished profile's op table (by self device time on the
+    card, self CPU time otherwise) and, on the card, the device-busy share
+    of ``wall_us``; write ``trace.json`` to ``out_dir``."""
+    from torch.autograd import DeviceType
+
     avgs = prof.key_averages()
     key = "self_device_time_total" if cuda else "self_cpu_time_total"
     print(avgs.table(sort_by=key, row_limit=25), flush=True)
@@ -248,9 +257,10 @@ def _profile(rend, poses, lat_cap, device, out_dir):
             e.self_device_time_total for e in avgs
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
         )
-        print(f"profile: {len(poses)} frames in {wall_us / 1e3:.3f} ms wall, "
+        print(f"profile: {what} in {wall_us / 1e3:.3f} ms wall, "
               f"device busy {busy_us / 1e3:.3f} ms "
               f"({100.0 * busy_us / wall_us:.1f}%)", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 

@@ -70,8 +70,8 @@ def _out_of_scope(cfg, grid, *, debug_frames, slab_window, resample_dtype,
     if resample_dtype != "float32":
         raise NotImplementedError(
             f"resample_dtype={resample_dtype!r}: only float32 operands are "
-            "ported; bf16 comes with the training slice (ROADMAP 'TPU "
-            "kernels to port')"
+            "ported; the bf16 variant is queued in ROADMAP 'TPU kernels to "
+            "port'"
         )
     if resample_kind not in ("linear", "cubic"):
         raise ValueError(f"unknown resample kind {resample_kind!r}")

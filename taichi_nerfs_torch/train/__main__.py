@@ -1,0 +1,252 @@
+"""Train the dense pyramid on the shear-warp renderer, then evaluate it.
+
+The port's counterpart of the pyramid branch of the repository's
+``train.py`` (``--model_name pyramid``) for one device and cameras outside
+the scene cube.  It parses the same flags with ``opt.get_opts``, so a
+record manifest's argv runs unchanged after the module name::
+
+    python -m taichi_nerfs_torch.train \\
+        --root_dir 'synthetic://lego?views=100&res=800' \\
+        --dataset_name synthetic --model_name pyramid \\
+        --pyramid_levels 32,64,128,256 --features 8 --level_features 8,8,8,8 \\
+        --bake_dtype float32 --lr 1e-2 --alpha_w 0.2 --random_bg \\
+        --tv_w 5e-4 --sigma_l1 1e-5 --resample_kind cubic \\
+        --max_steps 10000 --exp_name lego_proxy
+
+It trains (on the card when there is one), writes ``model_pyramid.npz``
+(read by both packages), renders every test view uncapped for PSNR / SSIM,
+writes ``rgb_000.png`` and ``depth_000.png``, and writes
+``model_pyramid.manifest.json`` in ``train.py``'s schema.  With
+``--profile_dir DIR`` the last 3 steps run under ``torch.profiler``: the op
+table, the device-busy share and ``DIR/trace.json``.  Options the port does
+not run raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..data.synthetic import SyntheticSphereDataset
+from ..models.pyramid import PyramidConfig
+from ..utils.convert import save_pyramid_npz
+from ..utils.viz import depth2img, write_png
+from .metrics import psnr as psnr_fn
+from .metrics import ssim as ssim_fn
+from .swr_step import SwrTrainConfig, SwrTrainer
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _check_scope(hp):
+    todo = "not ported yet; see ROADMAP 'Modules to port' item {}"
+    if hp.model_name != "pyramid":
+        raise NotImplementedError(
+            f"--model_name {hp.model_name}: the sample-gather path is "
+            + todo.format(11))
+    if hp.dataset_name != "synthetic":
+        raise NotImplementedError(
+            f"--dataset_name {hp.dataset_name}: the file loaders are "
+            + todo.format(7))
+    if hp.num_devices > 1:
+        raise NotImplementedError("multi-device training is " + todo.format(12))
+    for flag, on in (("--gui", hp.gui), ("--deployment", hp.deployment)):
+        if on:
+            raise NotImplementedError(f"{flag} is " + todo.format(12))
+
+
+def configs(hp, train_dataset):
+    """``(PyramidConfig, SwrTrainConfig)`` from the flags, as ``train.py``
+    builds them."""
+    levels = tuple(int(x) for x in hp.pyramid_levels.split(",") if x) or (
+        32, 64, 128, 256)
+    if hp.level_features:
+        level_features = tuple(
+            int(x) for x in hp.level_features.split(",") if x)
+    elif hp.fine_features:
+        level_features = (hp.features,) * (len(levels) - 1) + (
+            hp.fine_features,)
+    else:
+        level_features = ()
+    mcfg = PyramidConfig(
+        resolutions=levels,
+        scale=hp.scale,
+        deferred=hp.shading == "deferred",
+        sigma_res=hp.sigma_res,
+        features=hp.features,
+        level_features=level_features,
+    )
+    if mcfg.split:
+        prog = ()  # split-resolution configs cannot truncate
+    elif hp.prog_steps == "auto":
+        # the coarse-to-fine split train.py uses, scaled to --max_steps
+        prog = ((max(hp.max_steps * 3 // 16, 1),
+                 max(hp.max_steps * 9 // 40, 1))
+                if hp.max_steps >= 800 else ())
+    elif hp.prog_steps:
+        prog = tuple(int(x) for x in hp.prog_steps.split(",") if x)
+    else:
+        prog = ()
+    w0, h0 = train_dataset.img_wh
+    tcfg = SwrTrainConfig(
+        crop=min(256, w0, h0),
+        lr=hp.lr,
+        max_steps=hp.max_steps,
+        white_bg=hp.scale <= 0.5,
+        distortion_w=hp.distortion_loss_w,
+        prog_steps=prog,
+        near=hp.near_margin,
+        random_bg=hp.random_bg,
+        cam_carve=hp.cam_carve,
+        bake_dtype=hp.bake_dtype,
+        adam_mu_bf16=hp.bake_dtype == "bfloat16",
+        tv_w=hp.tv_w,
+        sigma_l1=hp.sigma_l1,
+        alpha_w=hp.alpha_w,
+        resample_kind=hp.resample_kind,
+    )
+    return mcfg, tcfg
+
+
+def _fit(trainer, max_steps, profile_dir, device, n_prof=3):
+    """``trainer.fit(max_steps)``; with ``profile_dir``, the last
+    ``n_prof`` steps run under ``torch.profiler`` (op table, device-busy
+    share, ``trace.json`` in ``profile_dir``)."""
+    if not profile_dir:
+        return trainer.fit(max_steps)
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..render.serve import report_profile
+
+    n = min(n_prof, max_steps)
+    if max_steps > n:
+        trainer.fit(max_steps - n)
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            m = trainer.run_step()
+        float(m["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, f"{n} training steps", cuda, profile_dir)
+    return m
+
+
+def _git_commit() -> str:
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            cwd=_REPO,
+        ).stdout.strip()
+    except OSError:
+        return ""
+
+
+def main(argv=None):
+    # opt.py (the flags shared with train.py) sits at the repository root
+    if _REPO not in sys.path:
+        sys.path.insert(0, _REPO)
+    from opt import get_opts
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    hp = get_opts(argv)
+    _check_scope(hp)
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    val_dir = ("results/" if hp.exp_name in ("exp", "lego_proxy")
+               else os.path.join("results", hp.exp_name))
+    kw = dict(root_dir=hp.root_dir, downsample=hp.downsample, device=device)
+    train_dataset = SyntheticSphereDataset(split=hp.split, **kw)
+    test_dataset = SyntheticSphereDataset(split="test", **kw)
+    mcfg, tcfg = configs(hp, train_dataset)
+    trainer = SwrTrainer(
+        mcfg, tcfg, train_dataset.rays, train_dataset.poses, train_dataset.K,
+        train_dataset.img_wh,
+        alphas=(train_dataset.alphas
+                if tcfg.alpha_w > 0 or tcfg.random_bg else None),
+        device=device,
+    )
+    if hp.ckpt_path:
+        trainer.load_npz(hp.ckpt_path)
+        print(f"loaded pyramid checkpoint from {hp.ckpt_path}")
+    train_wall = 0.0
+    if not hp.val_only:
+        tic = time.time()
+        m = _fit(trainer, hp.max_steps, hp.profile_dir, device)
+        if m is not None:
+            float(m["loss"])  # wait for the queued device steps
+        train_wall = time.time() - tic
+        print(f"training done in {train_wall:.1f}s on {device}")
+
+    os.makedirs(val_dir, exist_ok=True)
+    save_pyramid_npz(os.path.join(val_dir, "model_pyramid.npz"),
+                     trainer.state.params)
+    # eval needs params only: free the Adam moments
+    trainer.state = trainer.state._replace(opt_state=None)
+
+    w, h = test_dataset.img_wh
+    psnrs, ssims = [], []
+    n_eval = hp.eval_views or len(test_dataset)
+    for i in range(min(len(test_dataset), n_eval)):
+        sample = test_dataset[i]
+        # quality eval renders uncapped (the lattice cap is the
+        # interactive-rate setting)
+        out = trainer.render(sample["pose"], K=None, img_wh=(w, h),
+                             lat_cap=None)
+        rgb = out["rgb"]
+        gt = torch.as_tensor(sample["rgb"], device=rgb.device)
+        psnrs.append(float(psnr_fn(rgb, gt)))
+        ssims.append(float(ssim_fn(rgb.reshape(h, w, 3),
+                                   gt.reshape(h, w, 3))))
+        if i == 0:
+            img = rgb.reshape(h, w, 3).clamp(0, 1).cpu().numpy()
+            write_png(os.path.join(val_dir, "rgb_000.png"),
+                      (img * 255).astype(np.uint8))
+            write_png(os.path.join(val_dir, "depth_000.png"),
+                      depth2img(out["depth"].reshape(h, w).cpu().numpy()))
+    if not psnrs:
+        return
+    print(f"evaluation: psnr_avg={np.mean(psnrs):.4f} | "
+          f"ssim_avg={np.mean(ssims):.4f}")
+
+    def _cfg_dict(c):
+        return {k: list(v) if isinstance(v, tuple) else v
+                for k, v in dataclasses.asdict(c).items()}
+
+    cfg_blob = json.dumps(
+        {"mcfg": _cfg_dict(mcfg), "tcfg": _cfg_dict(trainer.tcfg),
+         "spec": hp.root_dir},
+        sort_keys=True,
+    )
+    manifest = {
+        "eval_psnr": round(float(np.mean(psnrs)), 3),
+        "eval_ssim": round(float(np.mean(ssims)), 4),
+        "per_view_psnr": [round(p, 2) for p in psnrs],
+        "views_finite": int(np.sum(np.isfinite(psnrs))),
+        "train_wall_s": round(train_wall, 1),
+        "steps": int(hp.max_steps),
+        "seed": trainer.seed,
+        "argv": ["python", "-m", "taichi_nerfs_torch.train"] + argv,
+        "config_sha1": hashlib.sha1(cfg_blob.encode()).hexdigest()[:12],
+        "config": cfg_blob,
+        "git_commit": _git_commit(),
+        "date": time.strftime("%Y-%m-%d %H:%M:%S"),
+    }
+    mpath = os.path.join(val_dir, "model_pyramid.manifest.json")
+    with open(mpath, "w") as f:
+        json.dump(manifest, f, indent=2)
+    print(f"saved {mpath}")
+    return manifest
+
+
+if __name__ == "__main__":
+    main()

@@ -151,6 +151,9 @@ def test_kernel_matches_reference_on_card(cuda_device, kind, F):
     torch.cuda.synchronize()
     assert tsw.chunk_sweep.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        tsw.chunk_sweep(args[0].clone().requires_grad_(True), *args[1:], nq,
-                        kind)
+    # with a gradient asked for, the same kernel runs under autograd (its
+    # backward is tested in tests/test_torch_swr_sweep_bwd.py)
+    diff = tsw.chunk_sweep(args[0].clone().requires_grad_(True), *args[1:],
+                           nq, kind)
+    assert diff.grad_fn is not None
+    assert torch.equal(diff.detach(), got)

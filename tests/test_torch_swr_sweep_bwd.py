@@ -1,0 +1,197 @@
+"""Port parity: the backward of the shear-warp chunk sweep.
+
+The port's ``chunk_sweep`` under autograd (on the CPU: the plain sweep,
+``chunk_sweep_reference``) and its ``chunk_sweep_bwd`` wrapper against the
+VJP of the JAX package's ``chunk_sweep`` with ``interpret=True`` (the
+Pallas reverse sweep in interpret mode), on the inputs of
+``tests/test_swr_pallas.py``.  Tolerance 2e-4, as the JAX package's own
+gradient tests.  The CUDA kernel ``csrc/swr_sweep_bwd.cu`` is held against
+the plain version's autograd in the ``cuda``-marked tests, which skip
+without a card and run on one with::
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_swr_sweep_bwd.py
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch_port_helpers import np32, rand_sweep_inputs, t32
+
+from taichi_nerfs_torch.ops import swr_sweep as tsw
+from taichi_nerfs_torch.ops.warp import interp_kernel
+
+KINDS = ["linear", "cubic"]
+TOL = 2e-4
+
+
+def _jax_vjp(vol, rs, z_rel, ch, nq, kind, g):
+    import jax
+    import jax.numpy as jnp
+
+    from taichi_nerfs_tpu.ops.swr_pallas import chunk_sweep as j_chunk_sweep
+
+    _, vjp = jax.vjp(
+        lambda v: j_chunk_sweep(v, jnp.asarray(rs), jnp.asarray(z_rel),
+                                jnp.asarray(ch), nq, jnp.float32, True, kind),
+        jnp.asarray(vol),
+    )
+    (dvol,) = vjp(jnp.asarray(g))
+    return np.asarray(dvol)
+
+
+def _cotangent(vol, nq, seed=9):
+    return np.random.default_rng(seed).normal(
+        size=(vol.shape[0], vol.shape[2] + 2, nq, nq)
+    ).astype(np.float32)
+
+
+def _port_grad(vol, rs, z_rel, ch, nq, kind, g):
+    vt = t32(vol).requires_grad_(True)
+    out = tsw.chunk_sweep(vt, t32(rs), t32(z_rel), t32(ch), nq, kind)
+    out.backward(t32(g))
+    return np32(vt.grad)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize(
+    "shape",
+    [dict(seed=0), dict(seed=3), dict(seed=11, nc=1, dc=4, Rb=10, Rc=7,
+                                      nq=13)],
+    ids=["rand0", "clamp_binds", "ragged"],
+)
+def test_grad_matches_pallas_vjp_all_channels(kind, shape):
+    """Random cotangent on all F+2 channels, tau included."""
+    vol, rs, z_rel, ch, nq = rand_sweep_inputs(**shape)
+    g = _cotangent(vol, nq)
+    want = _jax_vjp(vol, rs, z_rel, ch, nq, kind, g)
+    np.testing.assert_allclose(_port_grad(vol, rs, z_rel, ch, nq, kind, g),
+                               want, rtol=TOL, atol=TOL)
+
+
+def test_cubic_clamp_binds():
+    """The seed-3 inputs drive cubic-resampled sigma below 0, so the clamp
+    case above is exercised (tests/test_swr_pallas.py:157-176)."""
+    vol, rs, _, _, nq = rand_sweep_inputs(seed=3)
+    nc, dc, F, Rb, Rc = vol.shape
+    lat = torch.arange(nq, dtype=torch.float32)
+    n_neg = 0
+    for c in range(nc):
+        for s in range(dc):
+            sb, stb, sc, stc = (float(v) for v in rs[c, s])
+            wb = interp_kernel(torch.arange(Rb)[None] - (sb + lat[:, None]
+                                                         * stb), "cubic")
+            wc = interp_kernel(torch.arange(Rc)[None] - (sc + lat[:, None]
+                                                         * stc), "cubic")
+            x2 = wb @ t32(vol[c, s, 0]) @ wc.T
+            n_neg += int((x2 < -1e-3).sum())
+    assert n_neg > 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_zero_density_gets_no_sigma_gradient(kind):
+    """Resampled sigma exactly 0 everywhere: the Pallas backward gates
+    d sigma on x2 > 0, so the plain version must give 0 there too (a
+    ``clamp`` would pass the tau cotangent through)."""
+    vol, rs, z_rel, ch, nq = rand_sweep_inputs(seed=2)
+    vol[:, :, 0] = 0.0
+    g = _cotangent(vol, nq, seed=4)
+    got = _port_grad(vol, rs, z_rel, ch, nq, kind, g)
+    want = _jax_vjp(vol, rs, z_rel, ch, nq, kind, g)
+    assert np.all(want[:, :, 0] == 0.0)
+    np.testing.assert_array_equal(got[:, :, 0], 0.0)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_tau_only_cotangent():
+    """d tau / d sigma_k = dt: a tau-only cotangent gives a nonzero density
+    gradient and exactly zero feature gradients."""
+    vol, rs, z_rel, ch, nq = rand_sweep_inputs(seed=5)
+    F = vol.shape[2]
+    g = np.zeros((vol.shape[0], F + 2, nq, nq), np.float32)
+    g[:, F + 1] = 1.0
+    got = _port_grad(vol, rs, z_rel, ch, nq, "linear", g)
+    assert np.abs(got[:, :, 0]).max() > 1e-3
+    np.testing.assert_array_equal(got[:, :, 1:], 0.0)
+    np.testing.assert_allclose(
+        got, _jax_vjp(vol, rs, z_rel, ch, nq, "linear", g), rtol=TOL,
+        atol=TOL,
+    )
+
+
+def test_chunk_sweep_bwd_on_cpu_is_the_reference():
+    vol, rs, z_rel, ch, nq = rand_sweep_inputs(seed=1)
+    args = [t32(a) for a in (vol, rs, z_rel, ch)]
+    g = t32(_cotangent(vol, nq))
+    frames = tsw.chunk_sweep(*args, nq, "cubic")
+    before = tsw.chunk_sweep_bwd.launches
+    got = tsw.chunk_sweep_bwd(*args, frames, g, nq, "cubic")
+    want = tsw.chunk_sweep_bwd_reference(*args, g, nq, "cubic")
+    assert torch.equal(got, want)
+    assert tsw.chunk_sweep_bwd.launches == before  # no kernel launched
+
+
+@pytest.mark.parametrize(
+    "over,exc",
+    [
+        (lambda a: dict(g=a["g"][:, :-1].contiguous()), ValueError),
+        (lambda a: dict(frames=a["frames"].double()), TypeError),
+        (lambda a: dict(frames=a["frames"].transpose(2, 3)), ValueError),
+    ],
+    ids=["g_shape", "frames_f64", "frames_noncontiguous"],
+)
+def test_bwd_arg_checks(over, exc):
+    vol, _, _, _, nq = rand_sweep_inputs(seed=2, F=8)
+    a = dict(vol_cs=t32(vol), frames=torch.zeros(2, 10, nq, nq),
+             g=torch.zeros(2, 10, nq, nq), nq=nq)
+    a.update(over(a))
+    with pytest.raises(exc):
+        tsw._check_bwd_args(**a)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the sweep kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _card_case(device, **shape):
+    vol, rs, z_rel, ch, nq = rand_sweep_inputs(**shape)
+    args = [torch.as_tensor(a, device=device) for a in (vol, rs, z_rel, ch)]
+    g = torch.as_tensor(_cotangent(vol, nq), device=device)
+    return args, g, nq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("F", [4, 8, 16])
+def test_kernel_grad_matches_reference_on_card(cuda_device, kind, F):
+    """Gradient through ``chunk_sweep`` on the card (forward and backward
+    kernels) against the plain version's autograd, ragged shapes.
+    Elementwise 2e-4 abs + 2e-4 rel: the kernels sum taps where the plain
+    version runs dense fp32 matmuls (another summation order)."""
+    args, g, nq = _card_case(cuda_device, seed=4, nc=3, dc=5, Rb=40, Rc=33,
+                             F=F, nq=37)
+    vol = args[0].clone().requires_grad_(True)
+    f0, b0 = tsw.chunk_sweep.launches, tsw.chunk_sweep_bwd.launches
+    tsw.chunk_sweep(vol, *args[1:], nq, kind).backward(g)
+    want = tsw.chunk_sweep_bwd_reference(*args, g, nq, kind)
+    torch.cuda.synchronize()
+    assert tsw.chunk_sweep.launches == f0 + 1
+    assert tsw.chunk_sweep_bwd.launches == b0 + 1
+    torch.testing.assert_close(vol.grad, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_grad_clamp_binds_on_card(cuda_device, kind):
+    args, g, nq = _card_case(cuda_device, seed=3)
+    frames = tsw.chunk_sweep(*args, nq, kind)
+    got = tsw.chunk_sweep_bwd(*args, frames, g, nq, kind)
+    want = tsw.chunk_sweep_bwd_reference(*args, g, nq, kind)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    # no atomics: the same inputs give the same bits
+    again = tsw.chunk_sweep_bwd(*args, frames, g, nq, kind)
+    assert torch.equal(got, again)
