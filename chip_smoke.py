@@ -21,7 +21,17 @@ phases:
    the card; every loss must be finite and the loss must fall, both
    kernels' launch counts during the steps must be > 0, one full-depth
    step's gradient through the kernels is compared with the one through
-   the plain sweep, and one test view is rendered uncapped.
+   the plain sweep, and one test view is rendered uncapped;
+6. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
+   (brick encoder, 128^3 occupancy grid, batch 8192) trains 320 steps with
+   ``Trainer`` on 8 checker views made on the card (past the 256-step
+   warmup, so the sparse grid refresh runs); every loss must be finite and
+   the mean of the last 16 below half the first.  One ``render_train`` on
+   4,096 rays runs on the card and on the CPU from identical params,
+   bitfield and draws (equal counts on >= 99.9 % of rays, rgb within
+   2e-2); ``render_image`` renders an 800x800 test view (finite, opacity in
+   [0, 1]); 3 steady steps run under ``torch.profiler``.  This path has no
+   hand-written kernel (the JAX package has no TPU kernel on it).
 
 Prints one JSON line with the kernels' numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0).
@@ -62,6 +72,15 @@ TRAIN_STEPS, PROG_STEPS = 24, (4, 4)
 # the loss must fall: on 4 fixed crops (with fixed backgrounds), the loss
 # after training below this share of the loss of the initial params
 LOSS_FALL = 0.95
+# the NGP phase: steps (the density grid warms up over all cells for 256),
+# the mean of the last 16 losses below this share of the first, and the
+# card / CPU cross-check of one render_train: rays, the share of rays with
+# equal sample counts (a float tie at a cell boundary may move a sample)
+# and rgb (bf16-operand MLPs, summed in another order on each device)
+NGP_STEPS, NGP_WARMUP = 320, 256
+NGP_LOSS_FALL = 0.5
+NGP_CHECK_RAYS, NGP_COUNT_SHARE, NGP_RGB_TOL = 4096, 0.999, 2e-2
+NGP_TEST_WH = (800, 800)
 
 
 def _median(xs):
@@ -563,6 +582,173 @@ def _fixed_loss(torch, trainer, evals):
     return total / len(evals)
 
 
+def _occupied_share(torch, bitfield):
+    words = bitfield.long() & 0xFFFFFFFF
+    bits = (words[:, None] >> torch.arange(32, device=words.device)) & 1
+    return float(bits.sum()) / (32 * bitfield.numel())
+
+
+def phase_ngp(torch, seed):
+    """Train the flagship NGP configuration, cross-check one render with the
+    CPU, render an 800x800 test view and profile 3 steady steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from taichi_nerfs_torch.config import config_for_scene
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.ops.rays import get_rays
+    from taichi_nerfs_torch.render.renderer import render_image, render_train
+    from taichi_nerfs_torch.render.serve import report_profile
+    from taichi_nerfs_torch.train.loop import Trainer
+    from taichi_nerfs_torch.train.metrics import psnr
+    from taichi_nerfs_torch.train.state import tree_map
+    from taichi_nerfs_torch.train.step import draw_step, sample_batch
+
+    device = torch.device("cuda")
+    cfg = config_for_scene(0.5)
+    t0 = time.perf_counter()
+    train = SyntheticSphereDataset(n_images=8, img_wh=(256, 256),
+                                   variant="checker", device=device)
+    test = SyntheticSphereDataset(n_images=1, img_wh=NGP_TEST_WH,
+                                  variant="checker", split="test",
+                                  device=device)
+    torch.cuda.synchronize()
+    print(f"ngp: 8 checker views at 256x256 and one at "
+          f"{NGP_TEST_WH[0]}x{NGP_TEST_WH[1]} made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train.as_batch(device), train.K, train.img_wh,
+                      device=device)
+    torch.cuda.synchronize()
+    print(f"ngp: trainer (visibility marking of {cfg.model.grid_size}^3 "
+          f"cells) in {time.perf_counter() - t0:.2f} s; encoder "
+          f"{cfg.model.pos_encoder_type} {cfg.model.brick.levels}x"
+          f"{cfg.model.brick.feature_per_level}, batch "
+          f"{cfg.train.batch_size}", flush=True)
+
+    losses, step_ms = [], []
+    for i in range(NGP_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.run_step()
+        losses.append(float(m["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i % 32 == 0 or i == NGP_STEPS - 1:
+            print(f"ngp step {i}: loss={losses[-1]:.6f} "
+                  f"psnr={float(m['psnr']):.3f} S={trainer.sample_cap} "
+                  f"pack={trainer.pack_cap} "
+                  f"rm_s={float(m['rm_samples']) / cfg.train.batch_size:.1f}"
+                  f" {step_ms[-1]:.2f} ms", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ngp: non-finite loss: {losses}")
+    last = float(np.mean(losses[-16:]))
+    print(f"ngp: loss first {losses[0]:.6f}, mean of the last 16 {last:.6f} "
+          f"(ratio {last / losses[0]:.4f}, must be < {NGP_LOSS_FALL})",
+          flush=True)
+    if not last < NGP_LOSS_FALL * losses[0]:
+        raise AssertionError(f"ngp: the loss did not fall: {losses[0]} -> "
+                             f"{last}")
+    warm = _median(step_ms[16:NGP_WARMUP])
+    steady = _median(step_ms[NGP_WARMUP:])
+    interval = cfg.train.update_interval
+    refresh = _median(step_ms[NGP_WARMUP::interval])
+    occ = _occupied_share(torch, trainer.state.occupancy.bitfield)
+    print(f"ngp: median step, warmup (steps 16-{NGP_WARMUP - 1}) "
+          f"{warm:.3f} ms, after it {steady:.3f} ms = "
+          f"{cfg.train.batch_size / steady * 1e3:.0f} rays/s (the steps "
+          f"after it that refresh the grid: {refresh:.3f} ms); final "
+          f"sample_cap {trainer.sample_cap}, pack_cap {trainer.pack_cap}; "
+          f"occupied cells {100.0 * occ:.2f}%", flush=True)
+
+    # one render_train on the card and on the CPU, same inputs
+    gen = torch.Generator(device).manual_seed(seed + 7)
+    draws = draw_step(cfg, trainer.data, gen)
+    sl = slice(0, NGP_CHECK_RAYS)
+    _, pose, direction = sample_batch(trainer.data, draws.img_idxs[sl],
+                                      draws.pix_idxs[sl])
+    rays_o, rays_d = get_rays(direction, pose)
+    cap, pack = trainer.sample_cap, trainer.pack_cap
+    params = trainer.state.params
+    bitfield = trainer.state.occupancy.bitfield
+    outs = []
+    with torch.no_grad():
+        for dev in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            outs.append(render_train(
+                tree_map(lambda p, d=dev: p.detach().to(d), params),
+                cfg.model, cfg.render, bitfield.to(dev), rays_o.to(dev),
+                rays_d.to(dev), cap, pack, t_noise=draws.t_noise[sl].to(dev)))
+            torch.cuda.synchronize()
+            print(f"ngp: render_train of {NGP_CHECK_RAYS} rays on "
+                  f"{dev.type} in {(time.perf_counter() - t0) * 1e3:.1f} ms",
+                  flush=True)
+    a, b = outs
+    same = (a["counts"].cpu() == b["counts"]).numpy()
+    d_rgb = (a["rgb"].cpu() - b["rgb"]).abs().max(dim=1).values.numpy()
+    worst = float(d_rgb[same].max())
+    print(f"ngp: card vs CPU render_train: equal counts on "
+          f"{100.0 * same.mean():.3f}% of rays (must be >= "
+          f"{100 * NGP_COUNT_SHARE}%), rgb max_abs {worst:.3e} on them "
+          f"(must be <= {NGP_RGB_TOL}), {float(d_rgb.max()):.3e} on all; "
+          f"samples {int(a['rm_samples'])} / {int(b['rm_samples'])}",
+          flush=True)
+    if same.mean() < NGP_COUNT_SHARE or not worst <= NGP_RGB_TOL:
+        raise AssertionError("ngp: the card and the CPU disagree")
+
+    # the test-time renderer, 800x800
+    rays_o, rays_d = get_rays(
+        torch.as_tensor(test.directions, device=device),
+        torch.as_tensor(test.poses[0], device=device))
+    frame_ms = []
+    for _ in range(2):  # the first frame warms the allocator
+        t0 = time.perf_counter()
+        out = render_image(params, cfg, bitfield, rays_o, rays_d)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    rgb, op = out["rgb"], out["opacity"]
+    n_px = NGP_TEST_WH[0] * NGP_TEST_WH[1]
+    if tuple(rgb.shape) != (n_px, 3) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError("ngp: the test frame is not finite")
+    lo, hi = float(op.min()), float(op.max())
+    if lo < -1e-6 or hi > 1.0 + 1e-6:
+        raise AssertionError(f"ngp: opacity in [{lo}, {hi}]")
+    p = float(psnr(rgb, torch.as_tensor(test.rays[0], device=device)))
+    print(f"ngp: {NGP_TEST_WH[0]}x{NGP_TEST_WH[1]} test frame in "
+          f"{frame_ms[1]:.2f} ms (first {frame_ms[0]:.2f} ms), "
+          f"{out['rounds']} rounds, {out['host_reads']} host reads, "
+          f"{int(out['total_samples'])} samples, psnr {p:.3f} dB after "
+          f"{NGP_STEPS} steps", flush=True)
+
+    # 3 steady steps under the profiler, none of them a grid refresh (one
+    # step in update_interval; its cost is the refresh steps' median above)
+    while any((trainer.step + i) % interval == 0 for i in range(3)):
+        trainer.run_step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m = trainer.run_step()
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = report_profile(prof, wall_us, "3 steady ngp steps", True, None)
+    from torch.autograd import DeviceType
+
+    kern = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+        key=lambda e: -e.self_device_time_total)
+    spans = {e.key: e.device_time_total for e in prof.key_averages()
+             if e.key.startswith("ngp.")}
+    print("ngp: top kernels by device time per step: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 3e3:.3f} ms"
+        for e in kern[:8]), flush=True)
+    print("ngp: spans, device time per step: " + "; ".join(
+        f"{k} {v / 3e3:.3f} ms" for k, v in sorted(spans.items())),
+        flush=True)
+    return {"warm_ms": warm, "steady_ms": steady, "frame_ms": frame_ms[1],
+            "busy": busy_us / wall_us, "occupied": occ}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ckpt_path", default="",
@@ -612,6 +798,11 @@ def main(argv=None):
           f"{_median(step_ms[4]):.3f} ms, first phase (R=64) "
           f"{_median(step_ms[2]):.3f} ms; worst level-gradient difference "
           f"{worst_grad:.3e}", flush=True)
+    ngp = phase_ngp(torch, args.seed)
+    print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
+          f"{ngp['warm_ms']:.3f} ms, 800x800 frame {ngp['frame_ms']:.2f} ms,"
+          f" device busy {100.0 * ngp['busy']:.1f}% of 3 profiled steps",
+          flush=True)
 
     k_ms, p_ms = timing[(816, "cubic")]
     kb_ms, pb_ms = bwd_timing[(TRAIN_SHAPES[-1][2], "cubic")]

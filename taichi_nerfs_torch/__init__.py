@@ -6,6 +6,10 @@ its counterpart's path and name, so a test can hold one against the other.
 It imports ``torch`` and ``numpy`` only.  Hand-written CUDA kernels live in
 ``csrc/`` and are built on first use by :mod:`taichi_nerfs_torch.ops._build`.
 
-Ported so far: the pyramid model's serving path (bake, shear-warp sweep,
-fold, pixel warp, deferred shading) — see ``render/serve.py``.
+Ported so far: the pyramid model on the shear-warp renderer, serving
+(``render/serve.py``) and training (``train/swr_step.py``), and the
+sample-gather Instant-NGP path (hash and brick encoders, occupancy grid,
+marching, compositing, ``train/loop.py:Trainer`` and the test-time
+renderer ``render/renderer.py``), both behind ``python -m
+taichi_nerfs_torch.train``.
 """

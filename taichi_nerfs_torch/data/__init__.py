@@ -1,1 +1,2 @@
-"""Camera rigs (numpy)."""
+"""Datasets: the base class, the procedural synthetic scenes and camera
+rigs."""

@@ -27,6 +27,7 @@ import urllib.parse
 import numpy as np
 import torch
 
+from .base import BaseDataset
 from .cameras import look_at
 
 _INSIDE_TODO = (
@@ -323,10 +324,11 @@ def parse_synthetic_spec(root_dir: str):
     return out
 
 
-class SyntheticSphereDataset:
+class SyntheticSphereDataset(BaseDataset):
     """The procedural rig: ``poses`` (N, 3, 4), ``rays`` (N, H*W, 3) GT
-    rgb, ``alphas`` (N, H*W) GT opacity, ``K`` and ``img_wh``, as numpy
-    arrays.  GT images are rendered on ``device``."""
+    rgb, ``alphas`` (N, H*W) GT opacity, ``K``, ``img_wh`` and the camera
+    ``directions`` (H*W, 3), as numpy arrays.  GT images are rendered on
+    ``device``."""
 
     def __init__(
         self,
@@ -355,7 +357,7 @@ class SyntheticSphereDataset:
             n_images = max(8, min(25, n_images // 4))
         if spec and downsample != 1.0:
             img_wh = (int(img_wh[0] * downsample), int(img_wh[1] * downsample))
-        self.root_dir, self.split, self.downsample = root_dir, split, downsample
+        super().__init__(root_dir, split, downsample)
         self.variant = variant
         w, h = img_wh
         focal = 0.9 * w
@@ -395,12 +397,4 @@ class SyntheticSphereDataset:
         self.poses = np.stack(poses)
         self.rays = np.stack(rays)
         self.alphas = np.stack(alphas)
-
-    def __len__(self) -> int:
-        return len(self.poses)
-
-    def __getitem__(self, idx: int):
-        """Full-image item for eval loops."""
-        return {"pose": self.poses[idx], "img_idxs": idx,
-                "rgb": self.rays[idx][:, :3]}
-
+        self._set_directions()

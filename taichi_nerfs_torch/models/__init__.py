@@ -1,1 +1,2 @@
-"""Model parameterisations (MLP, TruncExp, dense feature pyramid)."""
+"""Model parameterisations: MLP, the dense feature pyramid, the NGP field,
+its occupancy grid and the model registry."""

@@ -1,1 +1,2 @@
-"""Tensor ops: resampling, SH encoding and the shear-warp sweep kernel."""
+"""Tensor ops: resampling, SH encoding, the shear-warp sweep kernel, and
+the NGP path's bit math, rays, encoders, marching and compositing."""

@@ -241,15 +241,17 @@ def _profile(rend, poses, lat_cap, device, out_dir):
 
 
 def report_profile(prof, wall_us: float, what: str, cuda: bool,
-                   out_dir: str) -> None:
+                   out_dir: str | None) -> float:
     """Print a finished profile's op table (by self device time on the
     card, self CPU time otherwise) and, on the card, the device-busy share
-    of ``wall_us``; write ``trace.json`` to ``out_dir``."""
+    of ``wall_us``; write ``trace.json`` to ``out_dir`` (if given).
+    Returns the device-busy microseconds (0 off the card)."""
     from torch.autograd import DeviceType
 
     avgs = prof.key_averages()
     key = "self_device_time_total" if cuda else "self_cpu_time_total"
     print(avgs.table(sort_by=key, row_limit=25), flush=True)
+    busy_us = 0.0
     if cuda:
         # kernel time only: the spans' device-side ranges (user
         # annotations) would count their kernels twice
@@ -260,8 +262,10 @@ def report_profile(prof, wall_us: float, what: str, cuda: bool,
         print(f"profile: {what} in {wall_us / 1e3:.3f} ms wall, "
               f"device busy {busy_us / 1e3:.3f} ms "
               f"({100.0 * busy_us / wall_us:.1f}%)", flush=True)
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    return busy_us
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Training-side helpers (image metrics so far)."""
+"""Training: the shear-warp trainer, the NGP trainer (state, step, loop,
+eval), the shared Adam and the image metrics."""

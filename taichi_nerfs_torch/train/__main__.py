@@ -1,9 +1,22 @@
-"""Train the dense pyramid on the shear-warp renderer, then evaluate it.
+"""Train a model, then evaluate it: the port's counterpart of ``train.py``.
 
-The port's counterpart of the pyramid branch of the repository's
-``train.py`` (``--model_name pyramid``) for one device and cameras outside
-the scene cube.  It parses the same flags with ``opt.get_opts``, so a
-record manifest's argv runs unchanged after the module name::
+Two branches, on one device, parsing ``train.py``'s flags with
+``opt.get_opts`` (so a record manifest's argv runs unchanged after the
+module name):
+
+* ``--model_name ngp`` (the default): the sample-gather Instant-NGP path,
+  configured by ``config.py:config_from_opts``.  It trains with
+  ``train/loop.py:Trainer``, writes ``model.npz`` (params and occupancy,
+  the JAX checkpoint's key names), renders every test view with the
+  test-time renderer, writes ``rgb_000.png`` and ``depth_000.png`` and
+  prints ``evaluation: psnr_avg=... | ssim_avg=...``::
+
+    python -m taichi_nerfs_torch.train \
+        --root_dir 'synthetic://lego?views=100&res=800' \
+        --dataset_name synthetic --model_name ngp --max_steps 20000
+
+* ``--model_name pyramid``: the dense pyramid on the shear-warp renderer
+  for cameras outside the scene cube::
 
     python -m taichi_nerfs_torch.train \\
         --root_dir 'synthetic://lego?views=100&res=800' \\
@@ -13,13 +26,15 @@ record manifest's argv runs unchanged after the module name::
         --tv_w 5e-4 --sigma_l1 1e-5 --resample_kind cubic \\
         --max_steps 10000 --exp_name lego_proxy
 
-It trains (on the card when there is one), writes ``model_pyramid.npz``
-(read by both packages), renders every test view uncapped for PSNR / SSIM,
-writes ``rgb_000.png`` and ``depth_000.png``, and writes
-``model_pyramid.manifest.json`` in ``train.py``'s schema.  With
-``--profile_dir DIR`` the last 3 steps run under ``torch.profiler``: the op
-table, the device-busy share and ``DIR/trace.json``.  Options the port does
-not run raise ``NotImplementedError`` naming their ROADMAP item.
+  It trains, writes ``model_pyramid.npz`` (read by both packages),
+  renders every test view uncapped for PSNR / SSIM, writes
+  ``rgb_000.png`` and ``depth_000.png``, and writes
+  ``model_pyramid.manifest.json`` in ``train.py``'s schema.
+
+Both train on the card when there is one.  With ``--profile_dir DIR`` the
+last 3 steps run under ``torch.profiler``: the op table, the device-busy
+share and ``DIR/trace.json``.  Options the port does not run raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,12 +50,16 @@ import time
 import numpy as np
 import torch
 
+from ..config import config_from_opts
 from ..data.synthetic import SyntheticSphereDataset
 from ..models.pyramid import PyramidConfig
-from ..utils.convert import save_pyramid_npz
+from ..utils.convert import load_ngp_npz, save_ngp_npz, save_pyramid_npz
 from ..utils.viz import depth2img, write_png
 from .metrics import psnr as psnr_fn
 from .metrics import ssim as ssim_fn
+from .eval import evaluate
+from .loop import Trainer
+from .state import TrainState, make_optimizer, trainable
 from .swr_step import SwrTrainConfig, SwrTrainer
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -49,9 +68,12 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def _check_scope(hp):
     todo = "not ported yet; see ROADMAP 'Modules to port' item {}"
-    if hp.model_name != "pyramid":
+    if hp.model_name == "svox":
         raise NotImplementedError(
-            f"--model_name {hp.model_name}: the sample-gather path is "
+            "--model_name svox: the voxel_grid model is " + todo.format(11))
+    if hp.model_name == "ngp" and hp.encoder_type == "triplane":
+        raise NotImplementedError(
+            "--encoder_type triplane: the tri-plane encoder is "
             + todo.format(11))
     if hp.dataset_name != "synthetic":
         raise NotImplementedError(
@@ -142,6 +164,35 @@ def _fit(trainer, max_steps, profile_dir, device, n_prof=3):
     return m
 
 
+def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
+    """``train.py``'s NGP branch: fit, ``model.npz``, evaluate."""
+    cfg = config_from_opts(hp)
+    trainer = Trainer(cfg, train_dataset.as_batch(device), train_dataset.K,
+                      train_dataset.img_wh, device=device)
+    if hp.ckpt_path:
+        # params and occupancy; Adam restarts with zero moments while the
+        # schedule resumes at the saved step (the JAX moments layout is
+        # ROADMAP 'Modules to port' item 8)
+        params, occ, step = load_ngp_npz(hp.ckpt_path, device)
+        params = trainable(params)
+        trainer.state = TrainState(
+            params, make_optimizer(cfg).init(params, sched_count=step), occ)
+        trainer.step = step
+        print(f"loaded NGP checkpoint from {hp.ckpt_path} (step {step})")
+    if not hp.val_only:
+        tic = time.time()
+        m = _fit(trainer, hp.max_steps, hp.profile_dir, device)
+        float(m["loss"])  # wait for the queued device steps
+        print(f"training done in {time.time() - tic:.1f}s on {device}")
+    os.makedirs(val_dir, exist_ok=True)
+    save_ngp_npz(os.path.join(val_dir, "model.npz"), trainer.state.params,
+                 trainer.state.occupancy, trainer.step)
+    return evaluate(trainer.state.params, cfg,
+                    trainer.state.occupancy.bitfield, test_dataset,
+                    save_dir=val_dir,
+                    max_images=hp.eval_views or None)
+
+
 def _git_commit() -> str:
     try:
         return subprocess.run(
@@ -167,6 +218,8 @@ def main(argv=None):
     kw = dict(root_dir=hp.root_dir, downsample=hp.downsample, device=device)
     train_dataset = SyntheticSphereDataset(split=hp.split, **kw)
     test_dataset = SyntheticSphereDataset(split="test", **kw)
+    if hp.model_name == "ngp":
+        return _train_ngp(hp, train_dataset, test_dataset, val_dir, device)
     mcfg, tcfg = configs(hp, train_dataset)
     trainer = SwrTrainer(
         mcfg, tcfg, train_dataset.rays, train_dataset.poses, train_dataset.K,

@@ -16,15 +16,9 @@ both packages pick the same crops), the background from a
 ``torch.Generator`` on the training device and the TV window from one on
 the host.
 
-Adam.  The update is written out here rather than taken from
-``torch.optim``: the JAX optimizer (Adam, eps 1e-15, on a cosine schedule
-that decays to ``lr * lr_final_ratio``) keeps ONE step count for Adam's
-bias correction and one for the schedule.  After :func:`grow_swr_state` a
-new level's zero moments are bias-corrected with the carried count, and the
-light :meth:`SwrTrainer.load_state` restarts Adam's count at 0 while it
-fast-forwards the schedule's.  ``torch.optim.Adam`` keeps a count per
-parameter and would update new levels differently from the first step of
-each phase.  Parameters and moments are updated in place.
+Adam is ``train/state.py:Adam`` (one count for bias correction, one for
+the cosine schedule, as the JAX optimizer keeps them), shared with the NGP
+trainer.
 
 Out of scope (each raises ``NotImplementedError`` naming its ROADMAP item):
 linear-resample training (the JAX trainer then runs the windowed slab
@@ -36,9 +30,8 @@ per-sample (non-deferred) shading, and a device mesh.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +45,8 @@ from ..render.swr import (
     render_swr_fixed_axis,
 )
 from ..utils.convert import load_pyramid_npz
+from .state import Adam, AdamState, tree_leaves, tree_map
+from .state import trainable as _trainable
 
 _MODULES_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10"
 
@@ -113,21 +108,6 @@ def _check_scope(tcfg: SwrTrainConfig) -> None:
 # ---------------------------------------------------------------- params
 
 
-def tree_map(fn, tree):
-    """Map over a params-structured dict ``{"levels": [...], "rgb_mlp":
-    {...}}``."""
-    return {
-        "levels": [fn(g) for g in tree["levels"]],
-        "rgb_mlp": {k: fn(v) for k, v in tree["rgb_mlp"].items()},
-    }
-
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves in the JAX tree order: levels, then rgb_mlp by sorted key."""
-    return list(tree["levels"]) + [tree["rgb_mlp"][k]
-                                   for k in sorted(tree["rgb_mlp"])]
-
-
 def _grow_like_params(old, new):
     """Shared levels and the rgb MLP keep ``old``; newly added levels keep
     ``new``."""
@@ -138,73 +118,13 @@ def _grow_like_params(old, new):
     }
 
 
-# ---------------------------------------------------------------- adam
-
-
-@dataclasses.dataclass
-class AdamState:
-    """``count``: Adam's bias-correction count; ``sched_count``: the cosine
-    schedule's count (the two differ after a light resume)."""
-
-    count: int
-    sched_count: int
-    mu: Dict[str, Any]
-    nu: Dict[str, Any]
-
-
-class SwrAdam:
-    """Adam (b1 0.9, b2 0.999, eps 1e-15) on a cosine schedule from ``lr``
-    to ``lr * lr_final_ratio`` over ``max_steps``, in fp32, updating
-    parameters and moments in place."""
-
-    b1, b2, eps = 0.9, 0.999, 1e-15
-
-    def __init__(self, cfg: SwrTrainConfig):
-        self.cfg = cfg
-
-    def lr(self, count: int) -> float:
-        c = min(float(count), float(self.cfg.max_steps))
-        cos = 0.5 * (1.0 + math.cos(math.pi * c / self.cfg.max_steps))
-        a = self.cfg.lr_final_ratio
-        return self.cfg.lr * ((1.0 - a) * cos + a)
-
-    def init(self, params, sched_count: int = 0) -> AdamState:
-        def zeros(p):
-            return torch.zeros_like(p, dtype=torch.float32,
-                                    requires_grad=False)
-
-        return AdamState(0, sched_count, tree_map(zeros, params),
-                         tree_map(zeros, params))
-
-    @torch.no_grad()
-    def update(self, grads, state: AdamState, params) -> AdamState:
-        """Apply one step: ``grads`` and ``params`` are params-structured."""
-        count = state.count + 1
-        # fp32 host scalars, as the JAX optimizer computes them
-        f32 = np.float32
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
-        step = float(f32(-self.lr(state.sched_count)))
-        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
-                              tree_leaves(state.nu), tree_leaves(params)):
-            m.copy_((1.0 - self.b1) * g + self.b1 * m)
-            v.copy_((1.0 - self.b2) * (g * g) + self.b2 * v)
-            p.add_(step * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)))
-        return AdamState(count, state.sched_count + 1, state.mu, state.nu)
-
-
-def make_optimizer(cfg: SwrTrainConfig) -> SwrAdam:
-    return SwrAdam(cfg)
+def make_optimizer(cfg: SwrTrainConfig) -> Adam:
+    return Adam(cfg.lr, cfg.max_steps, cfg.lr_final_ratio)
 
 
 class SwrTrainState(NamedTuple):
     params: Any
     opt_state: AdamState
-
-
-def _trainable(params):
-    return tree_map(lambda p: p.detach().float().requires_grad_(True),
-                    params)
 
 
 def create_swr_state(

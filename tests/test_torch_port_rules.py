@@ -135,3 +135,71 @@ def test_renderer_refuses_tf32(tiny, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="tf32"):
         PyramidRenderer(params, cfg, K, (16, 16)).render(pose)
+
+
+# ------------------------------------------------------------ train entry
+
+_NGP_ARGV = ["--root_dir", "synthetic://sphere?views=4&res=24",
+             "--dataset_name", "synthetic", "--model_name", "ngp"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--model_name", "svox"],
+    ["--encoder_type", "triplane"],
+    ["--deployment"],
+    ["--gui"],
+    ["--num_devices", "2"],
+    ["--dataset_name", "nsvf"],
+], ids=["svox", "triplane", "deployment", "gui", "num_devices", "nsvf"])
+def test_train_entry_out_of_scope_raises(extra):
+    from taichi_nerfs_torch.train.__main__ import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(_NGP_ARGV + extra)
+
+
+def test_ngp_registry_and_trainer_mesh_raise():
+    from taichi_nerfs_torch.models.registry import get_model
+    from taichi_nerfs_torch.train.loop import Trainer
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("svox")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(None, None, None, None, mesh=object())
+
+
+def test_train_entry_ngp_cpu_run(tmp_path, monkeypatch):
+    """One CPU run of ``python -m taichi_nerfs_torch.train --model_name
+    ngp`` at a tiny size: it trains, writes model.npz and the PNGs, and
+    reports the evaluation."""
+    import dataclasses
+
+    import taichi_nerfs_torch.train.__main__ as entry
+    from taichi_nerfs_torch.utils.convert import load_ngp_npz
+
+    real = entry.config_from_opts
+
+    def tiny(hp):
+        cfg = real(hp)
+        return cfg.replace(
+            model=cfg.model.replace(
+                grid_size=16, xyz_net_width=16, rgb_net_width=16,
+                brick=dataclasses.replace(cfg.model.brick, levels=2,
+                                          log2_rows=10, max_res=32)),
+            render=dataclasses.replace(cfg.render, train_sample_cap=64,
+                                       test_chunk_samples=16),
+            train=dataclasses.replace(cfg.train, warmup_steps=4,
+                                      update_interval=2),
+        )
+
+    monkeypatch.setattr(entry, "config_from_opts", tiny)
+    monkeypatch.chdir(tmp_path)
+    res = entry.main(_NGP_ARGV + ["--max_steps", "6", "--batch_size", "128",
+                                  "--exp_name", "tiny", "--eval_views", "2"])
+    out = tmp_path / "results" / "tiny"
+    for name in ("model.npz", "rgb_000.png", "depth_000.png"):
+        assert (out / name).exists(), name
+    assert len(res["psnr"]) == 2 and np.all(np.isfinite(res["psnr"]))
+    params, occ, step = load_ngp_npz(str(out / "model.npz"))
+    assert step == 7 and set(params) == {"brick", "rgb_mlp", "xyz_mlp"}
+    assert occ.bitfield.shape == (16**3 // 32,)
