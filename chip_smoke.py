@@ -10,8 +10,13 @@ phases:
 2. build: compile every kernel from ``taichi_nerfs_torch/csrc``, one
    ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   random ragged shapes, at the serving shapes (forward) and at the three
-   training shapes (backward), with timings;
+   random ragged shapes, at edge cases of the forward (a negative step, a
+   step >= 3 and non-finite positions, which take the kernel's tap-by-tap
+   path from device memory, a lattice partly outside the source; F in
+   {4, 8, 16}), at the serving and training shapes (forward) and at the
+   three training shapes (backward); the forward is
+   timed warm and cold (after 128 MB written to evict the L2), each time
+   beside its bound and its share of it;
 4. serve: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
    uncapped, with cubic resampling; the outputs are checked, the forward
    kernel's launch count during those frames must be > 0, and one view is
@@ -68,6 +73,16 @@ GRAD_TOL = 1e-3
 # (R, dc, nq) per coarse-to-fine phase; nq is the capped lattice
 # int(1.25 R) + 16 while it is below crop + 16, else crop + 16
 TRAIN_SHAPES = ((64, 4, 96), (128, 8, 176), (256, 16, 272))
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): device
+# memory rate, and fp32 outside the tensor cores; a kernel's bound is the
+# larger of bytes / rate and flops / peak
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# bytes written between cold-timed launches: more than the 50 MB L2
+FLUSH_BYTES = 128 << 20
+# the spin queued before each timed run: ~0.5 ms at the H100's clocks,
+# longer than the host takes to queue one launch of a kernel
+SPIN_CYCLES = 1_000_000
 TRAIN_STEPS, PROG_STEPS = 24, (4, 4)
 # the loss must fall: on 4 fixed crops (with fixed backgrounds), the loss
 # after training below this share of the loss of the initial params
@@ -88,23 +103,30 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
-def _rand_sweep_inputs(torch, rng, nc, dc, F, R, nq, realistic):
+def _rand_sweep_inputs(torch, rng, nc, dc, F, R, nq, realistic,
+                       start=None, step=None):
     """Random sweep operands in the style of tests/test_swr_pallas.py.
 
     ``realistic`` spreads the lattice over the whole source slab as the
-    renderer does (step ~ R / (nq - 16), h = 1 / R)."""
+    renderer does (step ~ R / (nq - 16), h = 1 / R).  ``start`` and
+    ``step``, given as ``(low, high)``, draw the lattice's start and step
+    on both axes from those ranges instead."""
     import numpy as np
 
     vol = rng.normal(0.3, 1.0, (nc, dc, F, R, R)).astype(np.float32)
     if realistic:
-        step = R / (nq - 16)
+        step0 = R / (nq - 16)
         starts = rng.uniform(-10.0, 0.0, (nc, dc, 2))
-        steps = step * rng.uniform(0.9, 1.1, (nc, dc, 2))
+        steps = step0 * rng.uniform(0.9, 1.1, (nc, dc, 2))
         d_lat, h = 1.0 / (nq - 16), 1.0 / R
     else:
         starts = rng.uniform(-1.0, 1.0, (nc, dc, 2))
         steps = rng.uniform(0.7, 1.3, (nc, dc, 2))
         d_lat, h = 0.03, 0.1
+    if start is not None:
+        starts = rng.uniform(*start, (nc, dc, 2))
+    if step is not None:
+        steps = rng.uniform(*step, (nc, dc, 2))
     rs = np.stack(
         [starts[..., 0], steps[..., 0], starts[..., 1], steps[..., 1]], -1
     ).astype(np.float32)
@@ -124,23 +146,111 @@ def _rand_sweep_inputs(torch, rng, nc, dc, F, R, nq, realistic):
     return [torch.as_tensor(a, device=dev) for a in (vol, rs, z_rel, ch)]
 
 
-def _time_ms(torch, fn, reps):
-    """Median device time of ``fn()`` over ``reps`` runs (CUDA events)."""
+def _time_ms(torch, fn, reps, flush=None):
+    """Median device time of ``fn()`` over ``reps`` runs (CUDA events).
+
+    Each run is queued behind a spin of the card (``torch.cuda._sleep``),
+    so the host has queued the events and the launch before the card
+    reaches them and the host's launch cost is not timed.  With ``flush``
+    (a CUDA tensor larger than the L2) the tensor is written before each
+    run, outside the events, so ``fn`` finds its inputs in device memory
+    and not in the L2 (a cold time); without, ``fn`` finds what its last
+    run left in the L2 (a warm time)."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    events = []
     for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
         b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return _median(times)
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return _median([a.elapsed_time(b) for a, b in events])
+
+
+def _bound_ms(nbytes, flops):
+    """``(bound ms, "bytes" or "operations")``: the larger of the bytes over
+    the device memory rate and the flops over the fp32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _resample_flops(nc, dc, F, Rc, nq, kind):
+    """Flops of the separable resample of every slab and channel onto the
+    lattice: a multiply-add (2 flops) per tap, NT taps (2 linear, 4 cubic)
+    per output of the pass along b (nq x Rc) and along c (nq x nq)."""
+    nt = 2 if kind == "linear" else 4
+    return 2 * nt * nc * dc * F * (nq * Rc + nq * nq)
+
+
+def sweep_fwd_bound(nc, dc, F, Rb, Rc, nq, kind):
+    """The forward's bound: each input read once (vol, rs_par, z_rel,
+    ch_par) and the frames written once; the separable resample plus the
+    composite's 2 (F - 1) + 10 flops per lattice point and slab."""
+    nbytes = 4 * (nc * dc * F * Rb * Rc + nc * dc * 5 + nc * 6
+                  + nc * (F + 2) * nq * nq)
+    flops = (_resample_flops(nc, dc, F, Rc, nq, kind)
+             + nc * dc * nq * nq * (2 * (F - 1) + 10))
+    return (*_bound_ms(nbytes, flops), nbytes, flops)
+
+
+def sweep_bwd_bound(nc, dc, F, Rb, Rc, nq, kind):
+    """The backward's bound: vol, the parameters, the frames' tau channel
+    (the only one it reads) and g read once, dvol written once; the
+    forward's resample again, its transpose (the same count) and the
+    reverse composite's 4 (F - 1) + 20 flops per lattice point and slab."""
+    nbytes = 4 * (2 * nc * dc * F * Rb * Rc + nc * dc * 5 + nc * 6
+                  + nc * nq * nq + nc * (F + 2) * nq * nq)
+    flops = (2 * _resample_flops(nc, dc, F, Rc, nq, kind)
+             + nc * dc * nq * nq * (4 * (F - 1) + 20))
+    return (*_bound_ms(nbytes, flops), nbytes, flops)
+
+
+# the forward's edge cases, each for F in {4, 8, 16}: the lattice runs
+# backwards; the step is >= 3 on a 256-voxel source, so the window of every
+# full 64-column tile spans more than the kernel's 160 shared-memory columns
+# and its warps read their taps from device memory (the ragged last tile's
+# window fits); some slabs' positions are not finite (read tap by tap, or
+# skipped, with all weights 0); the lattice starts and ends outside the
+# source (and nq is no multiple of the tile); whole tiles lie outside the
+# source, as the serving lattice's do
+FWD_EDGE_CASES = (
+    ("negative step", dict(nc=2, dc=4, R=64, nq=90, start=(60.0, 70.0),
+                           step=(-0.9, -0.6))),
+    ("step >= 3", dict(nc=2, dc=3, R=256, nq=70, start=(-5.0, 0.0),
+                       step=(3.0, 3.5))),
+    ("non-finite", dict(nc=2, dc=3, R=64, nq=70, start=(-2.0, 0.0),
+                        step=(0.9, 1.1))),
+    ("partly outside", dict(nc=2, dc=3, R=48, nq=101, start=(-40.0, -30.0),
+                            step=(0.9, 1.1))),
+    ("far outside", dict(nc=1, dc=2, R=48, nq=200, start=(-150.0, -140.0),
+                         step=(0.95, 1.05))),
+)
+# the "non-finite" case's (chunk, slab, rs_par entry, value): a NaN column
+# start, an infinite column step, a NaN row start.  Cubic only: the plain
+# linear tent, clamp(1 - |x|), turns a NaN distance into a NaN weight where
+# the kernel (and the plain Catmull-Rom) gives it weight 0
+NON_FINITE_RS = ((0, 1, 2, float("nan")), (1, 0, 3, float("inf")),
+                 (1, 1, 0, float("nan")))
+# the forward's timed shapes (n_chunks, dc, F, R, nq): one chunk of the
+# record model's 800x800 frame, uncapped and capped, and the full-depth
+# training step's 16 chunks
+FWD_TIMED = (("serving nq=816", (1, 16, 8, 256, 816)),
+             ("serving nq=336", (1, 16, 8, 256, 336)),
+             ("training nq=272", (16, 16, 8, 256, 272)))
 
 
 def phase_kernels(torch):
+    """``swr_sweep_fwd`` against the plain sweep: ragged shapes and the
+    edge cases for F in {4, 8, 16}, and the timed shapes, linear and cubic.
+    The timed shapes run warm (the chunk in the L2 from the last launch)
+    and cold (the L2 flushed before each launch)."""
     import numpy as np
 
     from taichi_nerfs_torch.ops.swr_sweep import (
@@ -155,14 +265,22 @@ def phase_kernels(torch):
         (f"ragged F={F}", dict(nc=2, dc=3, F=F, R=40, nq=37, realistic=False))
         for F in (4, 8, 16)
     ] + [
-        (f"serving nq={nq}", dict(nc=1, dc=16, F=8, R=256, nq=nq,
-                                  realistic=True))
-        for nq in (816, 336)
+        (f"{label} F={F}", dict(shp, F=F, realistic=False))
+        for label, shp in FWD_EDGE_CASES for F in (4, 8, 16)
+    ] + [
+        (label, dict(nc=nc, dc=dc, F=F, R=R, nq=nq, realistic=True))
+        for label, (nc, dc, F, R, nq) in FWD_TIMED
     ]
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     for label, shp in cases:
         nq = shp["nq"]
         args = _rand_sweep_inputs(torch, rng, **shp)
-        for kind in ("linear", "cubic"):
+        kinds = ("linear", "cubic")
+        if label.startswith("non-finite"):
+            for c, s, k, v in NON_FINITE_RS:
+                args[1][c, s, k] = v
+            kinds = ("cubic",)
+        for kind in kinds:
             got = chunk_sweep(*args, nq, kind)
             want = chunk_sweep_reference(*args, nq, kind)
             torch.cuda.synchronize()
@@ -181,19 +299,35 @@ def phase_kernels(torch):
                     f"{KERNEL_TOL} (+{KERNEL_TOL} rel)"
                 )
             worst = max(worst, max_abs)
-            if label.startswith("serving"):
-                k_ms = _time_ms(
-                    torch, lambda: chunk_sweep(*args, nq, kind), 20
-                )
-                p_ms = _time_ms(
-                    torch, lambda: chunk_sweep_reference(*args, nq, kind), 10
-                )
-                timing[(nq, kind)] = (k_ms, p_ms)
-                print(f"  time nq={nq} {kind}: kernel {k_ms:.4f} ms, "
-                      f"plain {p_ms:.4f} ms (median, CUDA events)",
-                      flush=True)
+            if shp["realistic"]:
+                del got, want
+                timing[(nq, kind)] = _time_fwd(
+                    torch, label, args, nq, kind, flush)
+        del args
     torch.cuda.synchronize()
     return worst, timing
+
+
+def _time_fwd(torch, label, args, nq, kind, flush):
+    """The forward kernel's warm and cold medians beside its bound, and the
+    plain version's warm median; printed and returned as a dict."""
+    from taichi_nerfs_torch.ops.swr_sweep import (
+        chunk_sweep,
+        chunk_sweep_reference,
+    )
+
+    nc, dc, F, Rb, Rc = args[0].shape
+    warm = _time_ms(torch, lambda: chunk_sweep(*args, nq, kind), 20)
+    cold = _time_ms(torch, lambda: chunk_sweep(*args, nq, kind), 20, flush)
+    plain = _time_ms(torch, lambda: chunk_sweep_reference(*args, nq, kind),
+                     3 if nc > 1 else 10)
+    bound, by, nbytes, flops = sweep_fwd_bound(nc, dc, F, Rb, Rc, nq, kind)
+    print(f"  time {label} {kind}: kernel warm {warm:.4f} ms, cold "
+          f"{cold:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB,"
+          f" {flops / 1e9:.3f} GFLOP), share warm {bound / warm:.1%}, cold "
+          f"{bound / cold:.1%}; plain {plain:.4f} ms (medians, CUDA events)",
+          flush=True)
+    return dict(warm=warm, cold=cold, plain=plain, bound=bound, by=by)
 
 
 def phase_bwd_kernels(torch):
@@ -259,10 +393,15 @@ def phase_bwd_kernels(torch):
                     *args, frames, g, nq, kind), 10)
                 p_ms = _time_ms(torch, lambda: torch.autograd.grad(
                     out, v, g, retain_graph=True), 5)
-                timing[(nq, kind)] = (k_ms, p_ms)
+                bound, by, nbytes, flops = sweep_bwd_bound(
+                    *args[0].shape, nq, kind)
+                timing[(nq, kind)] = dict(warm=k_ms, plain=p_ms,
+                                          bound=bound, by=by)
                 print(f"  time R={args[0].shape[-1]} nq={nq} {kind}: "
                       f"kernel {k_ms:.4f} ms, plain backward {p_ms:.4f} ms "
-                      f"(median, CUDA events)", flush=True)
+                      f"(median, CUDA events); bound {bound:.4f} ms ({by}: "
+                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
+                      f"share {bound / k_ms:.1%}", flush=True)
             del out, v
     torch.cuda.synchronize()
     return worst, timing
@@ -749,6 +888,29 @@ def phase_ngp(torch, seed):
             "busy": busy_us / wall_us, "occupied": occ}
 
 
+def ptxas_summary(log):
+    """One line per kernel of nvcc's ``-Xptxas -v`` output: the kernel with
+    its template arguments, its registers and, if any, its spills."""
+    import re
+
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(swr_[a-z_]+)I"
+                      r"((?:Li\d+E)+)E", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            name = f"{m.group(1)}<{', '.join(args)}>"
+        elif "spill" in line and not line.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores"):
+            spill = "; " + line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers"
+                       + spill)
+            name, spill = "?", ""
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ckpt_path", default="",
@@ -783,9 +945,8 @@ def main(argv=None):
         _build.load(name)
         built = f"in {secs:.2f} s" if log else "(already built)"
         print(f"build: {os.path.relpath(path)} {built}", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+        for line in ptxas_summary(log):
+            print(f"  ptxas: {line}", flush=True)
 
     worst, timing = phase_kernels(torch)
     worst_bwd, bwd_timing = phase_bwd_kernels(torch)
@@ -796,16 +957,17 @@ def main(argv=None):
     (fwd_n, bwd_n), step_ms, worst_grad = phase_train(torch, args.seed)
     print(f"train: median steady full-depth step "
           f"{_median(step_ms[4]):.3f} ms, first phase (R=64) "
-          f"{_median(step_ms[2]):.3f} ms; worst level-gradient difference "
-          f"{worst_grad:.3e}", flush=True)
+          f"{_median(step_ms[2]):.3f} ms; worst level-gradient "
+          f"difference {worst_grad:.3e}", flush=True)
     ngp = phase_ngp(torch, args.seed)
     print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
-          f"{ngp['warm_ms']:.3f} ms, 800x800 frame {ngp['frame_ms']:.2f} ms,"
-          f" device busy {100.0 * ngp['busy']:.1f}% of 3 profiled steps",
-          flush=True)
+          f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
+          f"{ngp['frame_ms']:.2f} ms, device busy "
+          f"{100.0 * ngp['busy']:.1f}% of 3 profiled steps", flush=True)
 
-    k_ms, p_ms = timing[(816, "cubic")]
-    kb_ms, pb_ms = bwd_timing[(TRAIN_SHAPES[-1][2], "cubic")]
+
+    fwd = timing[(816, "cubic")]
+    bwd = bwd_timing[(TRAIN_SHAPES[-1][2], "cubic")]
     print(json.dumps({"kernels": [{
         "name": "swr_sweep_fwd",
         "route": "cuda",
@@ -814,8 +976,15 @@ def main(argv=None):
         "launches": fwd_n,
         "launches_by_path": {"serve": serve_launches, "train": fwd_n},
         "max_abs_err": worst,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        # one chunk of the uncapped 800x800 frame, cubic, warm
+        "ms": fwd["warm"],
+        "plain_ms": fwd["plain"],
+        "bound_ms": fwd["bound"],
+        "bound_by": fwd["by"],
+        "library_ms": None,  # no single PyTorch call computes the sweep
+        "ms_by_shape": {f"nq={nq} {kind}": {k: t[k] for k in
+                                            ("warm", "cold", "bound")}
+                        for (nq, kind), t in sorted(timing.items())},
     }, {
         "name": "swr_sweep_bwd",
         "route": "cuda",
@@ -824,15 +993,20 @@ def main(argv=None):
         "launches": bwd_n,
         "launches_by_path": {"train": bwd_n},
         "max_abs_err": worst_bwd,
-        "ms": kb_ms,
-        "plain_ms": pb_ms,
+        # the full-depth training shape, cubic, warm
+        "ms": bwd["warm"],
+        "plain_ms": bwd["plain"],
+        "bound_ms": bwd["bound"],
+        "bound_by": bwd["by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

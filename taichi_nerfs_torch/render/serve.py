@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models import pyramid as pyr
+from ..utils.device import resolve_device
 from .swr import _host_f32, render_swr, sweep_axis
 
 _TODO = "not ported yet; see ROADMAP 'Modules to port' item 10"
@@ -186,9 +187,12 @@ def main(argv=None):
                     help="render the orbit once more under torch.profiler: "
                          "print the op/kernel table and the device busy "
                          "share, write trace.json to --out_dir")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the default; raises without a card) or "
+                         "'cpu'")
     args = ap.parse_args(argv)
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device, "--device cpu")
     params = load_pyramid_npz(args.ckpt_path, device)
     cfg = config_for_params(params, record_config())
     w, h = args.img_wh

@@ -31,10 +31,12 @@ module name):
   ``rgb_000.png`` and ``depth_000.png``, and writes
   ``model_pyramid.manifest.json`` in ``train.py``'s schema.
 
-Both train on the card when there is one.  With ``--profile_dir DIR`` the
-last 3 steps run under ``torch.profiler``: the op table, the device-busy
-share and ``DIR/trace.json``.  Options the port does not run raise
-``NotImplementedError`` naming their ROADMAP item.
+Both train on the card: ``--device cuda`` is the default, and it raises
+when there is no card; ``--device cpu`` asks for the CPU (the flag is the
+port's own, taken out before ``opt.get_opts`` parses the rest).  With
+``--profile_dir DIR`` the last 3 steps run under ``torch.profiler``: the op
+table, the device-busy share and ``DIR/trace.json``.  Options the port does
+not run raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..config import config_from_opts
 from ..data.synthetic import SyntheticSphereDataset
 from ..models.pyramid import PyramidConfig
 from ..utils.convert import load_ngp_npz, save_ngp_npz, save_pyramid_npz
+from ..utils.device import resolve_device
 from ..utils.viz import depth2img, write_png
 from .metrics import psnr as psnr_fn
 from .metrics import ssim as ssim_fn
@@ -193,6 +196,26 @@ def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
                     max_images=hp.eval_views or None)
 
 
+def _split_device(argv):
+    """``(device, the other flags)``: ``--device X`` or ``--device=X``
+    (default ``"cuda"``) taken out of ``argv``, since ``opt.get_opts``
+    does not know the flag."""
+    device, rest, k = "cuda", [], 0
+    while k < len(argv):
+        a = argv[k]
+        if a == "--device":
+            if k + 1 == len(argv):
+                raise SystemExit("--device needs a value: cuda or cpu")
+            device, k = argv[k + 1], k + 2
+            continue
+        if a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+        k += 1
+    return device, rest
+
+
 def _git_commit() -> str:
     try:
         return subprocess.run(
@@ -210,9 +233,10 @@ def main(argv=None):
     from opt import get_opts
 
     argv = sys.argv[1:] if argv is None else list(argv)
-    hp = get_opts(argv)
+    device, opts_argv = _split_device(argv)
+    hp = get_opts(opts_argv)
     _check_scope(hp)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device, "--device cpu")
     val_dir = ("results/" if hp.exp_name in ("exp", "lego_proxy")
                else os.path.join("results", hp.exp_name))
     kw = dict(root_dir=hp.root_dir, downsample=hp.downsample, device=device)

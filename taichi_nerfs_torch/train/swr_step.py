@@ -45,6 +45,7 @@ from ..render.swr import (
     render_swr_fixed_axis,
 )
 from ..utils.convert import load_pyramid_npz
+from ..utils.device import resolve_device
 from .state import Adam, AdamState, tree_leaves, tree_map
 from .state import trainable as _trainable
 
@@ -310,7 +311,8 @@ class SwrTrainer:
     ):
         """``alphas``: optional (N, H*W) GT opacity, packed as a 4th uint8
         image channel (alpha-correct ``random_bg`` and ``alpha_w``).
-        ``device``: where the model trains (the card if there is one)."""
+        ``device``: where the model trains; ``None`` means ``"cuda"``,
+        which raises when there is no card (pass ``"cpu"`` for the CPU)."""
         if mesh is not None:
             raise NotImplementedError(
                 "crop-parallel training over a mesh is not ported yet; see "
@@ -321,9 +323,7 @@ class SwrTrainer:
             raise NotImplementedError(
                 f"per-sample (non-deferred) shading is {_MODULES_TODO}"
             )
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "device='cpu'")
         self.mcfg, self.tcfg = mcfg, tcfg
         self.seed = seed
         w, h = img_wh

@@ -195,7 +195,8 @@ def test_train_entry_ngp_cpu_run(tmp_path, monkeypatch):
     monkeypatch.setattr(entry, "config_from_opts", tiny)
     monkeypatch.chdir(tmp_path)
     res = entry.main(_NGP_ARGV + ["--max_steps", "6", "--batch_size", "128",
-                                  "--exp_name", "tiny", "--eval_views", "2"])
+                                  "--exp_name", "tiny", "--eval_views", "2",
+                                  "--device", "cpu"])
     out = tmp_path / "results" / "tiny"
     for name in ("model.npz", "rgb_000.png", "depth_000.png"):
         assert (out / name).exists(), name
@@ -203,3 +204,102 @@ def test_train_entry_ngp_cpu_run(tmp_path, monkeypatch):
     params, occ, step = load_ngp_npz(str(out / "model.npz"))
     assert step == 7 and set(params) == {"brick", "rgb_mlp", "xyz_mlp"}
     assert occ.bitfield.shape == (16**3 // 32,)
+
+
+# ------------------------------------------------- no silent CPU fallback
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """A machine without a CUDA device, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_ckpt(tmp_path):
+    from taichi_nerfs_torch.utils.convert import save_pyramid_npz
+
+    path = str(tmp_path / "model_pyramid.npz")
+    save_pyramid_npz(path, pyramid_params_from_numpy(
+        numpy_pyramid_params((8, 16), (4, 4), 16, 2, seed=0)))
+    return path
+
+
+def _serve(tmp_path, extra, monkeypatch):
+    from taichi_nerfs_torch.render import serve
+
+    serve.main(["--ckpt_path", _tiny_ckpt(tmp_path), "--img_wh", "16", "16",
+                "--n_views", "1", "--out_dir", str(tmp_path / "serve")]
+               + extra)
+    return (tmp_path / "serve" / "rgb_000.png").is_file()
+
+
+def _train(tmp_path, extra, monkeypatch):
+    import taichi_nerfs_torch.train.__main__ as entry
+
+    monkeypatch.chdir(tmp_path)
+    entry.main(["--root_dir", "synthetic://sphere?views=4&res=16",
+                "--dataset_name", "synthetic", "--model_name", "pyramid",
+                "--pyramid_levels", "8,16", "--features", "4",
+                "--resample_kind", "cubic", "--max_steps", "2",
+                "--exp_name", "tiny", "--eval_views", "1"] + extra)
+    return (tmp_path / "results" / "tiny" / "model_pyramid.npz").is_file()
+
+
+def _trainer(tmp_path, extra, monkeypatch):
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
+
+    ds = SyntheticSphereDataset("synthetic://sphere?views=2&res=16",
+                                split="train", device="cpu")
+    trainer = SwrTrainer(
+        tpyr.PyramidConfig(resolutions=(8, 16), features=4, deferred=True),
+        SwrTrainConfig(crop=16, n_chunks=4, resample_kind="cubic"),
+        ds.rays, ds.poses, ds.K, ds.img_wh, **extra)
+    return trainer.device == torch.device("cpu")
+
+
+_ENTRIES = {  # how each entry point runs, and how it asks for the CPU
+    "serve": (_serve, [], ["--device", "cpu"]),
+    "train": (_train, [], ["--device=cpu"]),
+    "SwrTrainer": (_trainer, {}, {"device": "cpu"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRIES))
+def test_entry_points_raise_without_a_card_by_default(name, no_card,
+                                                      tmp_path, monkeypatch):
+    """Without a CUDA device, the entry points refuse to start unless the
+    CPU is asked for, and the message says how to ask."""
+    run, default, _ = _ENTRIES[name]
+    with pytest.raises(RuntimeError, match="no CUDA device.*cpu"):
+        run(tmp_path, default, monkeypatch)
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRIES))
+def test_entry_points_run_on_the_cpu_when_asked(name, no_card, tmp_path,
+                                                monkeypatch):
+    run, _, cpu = _ENTRIES[name]
+    assert run(tmp_path, cpu, monkeypatch)
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], ("cuda", [])),
+    (["--device", "cpu", "--lr", "1"], ("cpu", ["--lr", "1"])),
+    (["--lr", "1", "--device=cpu"], ("cpu", ["--lr", "1"])),
+    (["--device", "cuda:1"], ("cuda:1", [])),
+], ids=["default", "spaced", "equals", "index"])
+def test_train_entry_takes_device_out_of_argv(argv, want):
+    from taichi_nerfs_torch.train.__main__ import _split_device
+
+    assert _split_device(argv) == want
+
+
+def test_package_has_no_cpu_fallback():
+    """No module picks the CPU because the card is missing."""
+    offenders = []
+    for path in _package_files():
+        with open(path, encoding="utf-8") as f:
+            for n, line in enumerate(f, 1):
+                if "is_available() else" in line:
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{n}")
+    assert not offenders, offenders

@@ -157,3 +157,103 @@ def test_kernel_matches_reference_on_card(cuda_device, kind, F):
                            nq, kind)
     assert diff.grad_fn is not None
     assert torch.equal(diff.detach(), got)
+
+
+# the kernel's edge cases: (seed, nc, dc, R, nq, start range, step range).
+# A negative step; a step >= 3 on a 256-voxel source, whose full 64-column
+# tiles have slab windows wider than the kernel's shared-memory rows, so
+# their warps read the taps from device memory; positions that are not
+# finite (NON_FINITE_RS), read tap by tap or skipped with all weights 0; a
+# lattice that starts and ends outside the source; whole tiles outside the
+# source (rows and columns that reach no voxel skip the resample); an nq
+# that is no multiple of the tiles (4 x 64 cubic, 8 x 32 linear)
+EDGE_CASES = {
+    "negative_step": (5, 2, 4, 64, 90, (60.0, 70.0), (-0.9, -0.6)),
+    "step_ge_3": (6, 2, 3, 256, 70, (-5.0, 0.0), (3.0, 3.5)),
+    "non_finite": (10, 2, 3, 64, 70, (-2.0, 0.0), (0.9, 1.1)),
+    "partly_outside": (7, 2, 3, 48, 101, (-40.0, -30.0), (0.9, 1.1)),
+    "far_outside": (9, 1, 2, 48, 200, (-150.0, -140.0), (0.95, 1.05)),
+    "ragged_tile": (8, 1, 5, 96, 107, (-6.0, 0.0), (0.8, 1.0)),
+}
+# (chunk, slab, rs_par entry, value): a NaN column start, an infinite
+# column step, a NaN row start
+NON_FINITE_RS = ((0, 1, 2, np.nan), (1, 0, 3, np.inf), (1, 1, 0, np.nan))
+# the widest slab window (source columns) the cubic kernel resamples from
+# shared memory, and its tile width (csrc/swr_sweep_fwd.cu: kRowCols, Tile)
+ROW_COLS, TILE_J = 160, 64
+
+
+def _edge_inputs(case, F):
+    seed, nc, dc, R, nq, start, step = EDGE_CASES[case]
+    vol, rs, z_rel, ch, nq = rand_sweep_inputs(seed=seed, nc=nc, dc=dc,
+                                               Rb=R, Rc=R, F=F, nq=nq)
+    rng = np.random.default_rng(seed)
+    rs[..., 0::2] = rng.uniform(*start, (nc, dc, 2))
+    rs[..., 1::2] = rng.uniform(*step, (nc, dc, 2))
+    if case == "non_finite":
+        for c, s, k, v in NON_FINITE_RS:
+            rs[c, s, k] = v
+    return vol, rs, z_rel, ch, nq
+
+
+def _tap_path_warps(rs, nq, R):
+    """How many (chunk, slab, lattice row, tile) warps the cubic kernel
+    resamples tap by tap from device memory: those whose row reaches the
+    source and whose tile's column window is not finite or wider than
+    ROW_COLS.  A mirror of the kernel's warp_taps / axis_window in fp32."""
+    f32 = np.float32
+    j0 = np.arange(0, nq, TILE_J)
+    j1 = np.minimum(j0 + TILE_J, nq) - 1
+    with np.errstate(invalid="ignore", over="ignore"):
+        # rows: a row is in when a tap of it lies in [0, R)
+        pb = rs[..., 0:1] + f32(np.arange(nq)) * rs[..., 1:2]
+        near = (pb > -4) & (pb < R + 4)
+        m0 = np.floor(np.where(near, pb, 0)) - 1
+        rows_in = (near & (m0 + 3 >= 0) & (m0 < R)).sum(-1)
+        # columns: the window of each tile's first and last live column
+        pa = rs[..., 2:3] + f32(j0) * rs[..., 3:4]
+        pz = rs[..., 2:3] + f32(j1) * rs[..., 3:4]
+        finite = np.isfinite(pa) & np.isfinite(pz)
+        p_lo = np.clip(np.fmin(pa, pz), -8, R + 8)
+        p_hi = np.clip(np.fmax(pa, pz), -8, R + 8)
+        lo, hi = np.floor(p_lo) - 1, np.floor(p_hi) + 2
+        first = np.maximum(lo - 1, 0)
+        ncol = np.where((hi < 0) | (lo >= R), 0,
+                        np.minimum(hi + 1, R - 1) - first + 1)
+    taps = (~finite | (ncol > ROW_COLS)).sum(-1)
+    return int((rows_in * taps).sum())
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_edge_cases_reach_the_tap_path(case):
+    """The step >= 3 and non-finite cases, and only they, have cubic warps
+    that read their taps from device memory, so the card test below runs
+    both of the kernel's resample paths."""
+    _, rs, _, _, nq = _edge_inputs(case, 4)
+    R = EDGE_CASES[case][3]
+    want = case in ("step_ge_3", "non_finite")
+    assert (_tap_path_warps(rs, nq, R) > 0) == want
+
+
+# non-finite positions cubic only: the plain linear tent, clamp(1 - |x|),
+# turns a NaN distance into a NaN weight where the kernel (and the plain
+# Catmull-Rom) gives it weight 0; linear never takes the shared-memory path
+EDGE_RUNS = [(case, kind) for case in sorted(EDGE_CASES) for kind in KINDS
+             if (case, kind) != ("non_finite", "linear")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [4, 8, 16])
+@pytest.mark.parametrize("case,kind", EDGE_RUNS)
+def test_kernel_edge_cases_on_card(cuda_device, case, kind, F):
+    """The kernel against the plain sweep (1e-4) where its slab windows are
+    hardest to get right: every lattice point's taps must be inside its
+    warp's window or be read from device memory."""
+    vol, rs, z_rel, ch, nq = _edge_inputs(case, F)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (vol, rs, z_rel, ch)]
+    got = tsw.chunk_sweep(*args, nq, kind)
+    want = tsw.chunk_sweep_reference(*args, nq, kind)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -222,7 +222,8 @@ def _trainer(scene, **tkw):
     alphas = scene.alphas if base.get("random_bg") else None
     return tst.SwrTrainer(tpyr.PyramidConfig(**mkw),
                           tst.SwrTrainConfig(**base), scene.rays,
-                          scene.poses, scene.K, scene.img_wh, alphas=alphas)
+                          scene.poses, scene.K, scene.img_wh, alphas=alphas,
+                          device="cpu")
 
 
 def test_swr_training_improves(sphere):
@@ -271,6 +272,7 @@ def test_swr_quality_floor_cpu():
                            tv_w=5e-4, alpha_w=0.2, random_bg=True,
                            resample_kind="cubic"),
         tr_ds.rays, tr_ds.poses, tr_ds.K, tr_ds.img_wh, alphas=tr_ds.alphas,
+        device="cpu",
     )
     for _ in range(300):
         trainer.run_step()
@@ -363,7 +365,7 @@ def test_out_of_scope_training_options_raise(sphere, over):
                                      **over))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tst.SwrTrainer(mcfg, tcfg, sphere.rays, poses, sphere.K,
-                       sphere.img_wh, mesh=mesh)
+                       sphere.img_wh, mesh=mesh, device="cpu")
 
 
 def test_train_entry_point(tmp_path, monkeypatch):
@@ -377,7 +379,8 @@ def test_train_entry_point(tmp_path, monkeypatch):
             "--dataset_name", "synthetic", "--model_name", "pyramid",
             "--pyramid_levels", "8,16", "--features", "4",
             "--resample_kind", "cubic", "--random_bg", "--alpha_w", "0.1",
-            "--max_steps", "12", "--prog_steps", "4", "--exp_name", "tiny"]
+            "--max_steps", "12", "--prog_steps", "4", "--exp_name", "tiny",
+            "--device", "cpu"]
     manifest = main(argv + ["--profile_dir", str(tmp_path / "prof")])
     assert (tmp_path / "prof" / "trace.json").is_file()
     out = tmp_path / "results" / "tiny"
