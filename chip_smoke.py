@@ -13,10 +13,11 @@ phases:
    random ragged shapes, at edge cases of the forward (a negative step, a
    step >= 3 and non-finite positions, which take the kernel's tap-by-tap
    path from device memory, a lattice partly outside the source; F in
-   {4, 8, 16}), at the serving and training shapes (forward) and at the
-   three training shapes (backward); the forward is
-   timed warm and cold (after 128 MB written to evict the L2), each time
-   beside its bound and its share of it;
+   {4, 8, 16}; the backward at the same cases and at clamp-binding inputs),
+   at the serving and training shapes (forward) and at the three training
+   shapes (backward, linear and cubic, with the difference of a second
+   run); both kernels are timed warm and cold (after 128 MB written to
+   evict the L2), each time beside its bound and its share of it;
 4. serve: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
    uncapped, with cubic resampling; the outputs are checked, the forward
    kernel's launch count during those frames must be > 0, and one view is
@@ -332,8 +333,11 @@ def _time_fwd(torch, label, args, nq, kind, flush):
 
 def phase_bwd_kernels(torch):
     """``swr_sweep_bwd`` against autograd of the plain sweep: ragged
-    shapes for F in {4, 8, 16} and both kinds, the clamp-binding inputs,
-    and the three training shapes (cubic, timed)."""
+    shapes for F in {4, 8, 16}, the clamp-binding inputs, the forward's edge
+    cases for F in {4, 8, 16}, and the three training shapes (timed warm and
+    cold), linear and cubic.  At each training shape a second run's largest
+    difference from the first is printed: the kernel adds the tiles' sums
+    with atomics, in the order the blocks reach them."""
     import numpy as np
 
     from taichi_nerfs_torch.ops.swr_sweep import (
@@ -343,15 +347,21 @@ def phase_bwd_kernels(torch):
     )
 
     rng = np.random.default_rng(1)
+    both = ("linear", "cubic")
     cases = [
         (f"ragged F={F}", dict(nc=2, dc=3, F=F, R=40, nq=37,
-                               realistic=False), ("linear", "cubic"))
+                               realistic=False), both)
         for F in (4, 8, 16)
-    ] + [("clamp-binding", None, ("linear", "cubic"))] + [
+    ] + [("clamp-binding", None, both)] + [
+        (f"{label} F={F}", dict(shp, F=F, realistic=False),
+         ("cubic",) if label == "non-finite" else both)
+        for label, shp in FWD_EDGE_CASES for F in (4, 8, 16)
+    ] + [
         (f"training R={R} nq={nq}", dict(nc=16, dc=dc, F=8, R=R, nq=nq,
-                                         realistic=True), ("cubic",))
+                                         realistic=True), both)
         for R, dc, nq in TRAIN_SHAPES
     ]
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     worst = 0.0
     timing = {}
     for label, shp, kinds in cases:
@@ -362,6 +372,9 @@ def phase_bwd_kernels(torch):
             args = _rand_sweep_inputs(torch, rng, **shp)
             if shp["realistic"]:
                 _keep_off_the_gate(torch, rng, args, nq)
+            if label.startswith("non-finite"):
+                for c, s, k, v in NON_FINITE_RS:
+                    args[1][c, s, k] = v
         nc, _, F = args[0].shape[:3]
         g = torch.randn((nc, F + 2, nq, nq), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(9))
@@ -389,22 +402,39 @@ def phase_bwd_kernels(torch):
                 )
             worst = max(worst, max_abs)
             if label.startswith("training"):
-                k_ms = _time_ms(torch, lambda: chunk_sweep_bwd(
-                    *args, frames, g, nq, kind), 10)
-                p_ms = _time_ms(torch, lambda: torch.autograd.grad(
-                    out, v, g, retain_graph=True), 5)
-                bound, by, nbytes, flops = sweep_bwd_bound(
-                    *args[0].shape, nq, kind)
-                timing[(nq, kind)] = dict(warm=k_ms, plain=p_ms,
-                                          bound=bound, by=by)
-                print(f"  time R={args[0].shape[-1]} nq={nq} {kind}: "
-                      f"kernel {k_ms:.4f} ms, plain backward {p_ms:.4f} ms "
-                      f"(median, CUDA events); bound {bound:.4f} ms ({by}: "
-                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
-                      f"share {bound / k_ms:.1%}", flush=True)
+                again = chunk_sweep_bwd(*args, frames, g, nq, kind)
+                rerun = float((again - got).abs().max())
+                del got, want, again
+                timing[(nq, kind)] = _time_bwd(
+                    torch, label, args, frames, g, out, v, nq, kind, flush)
+                timing[(nq, kind)]["rerun_max_abs"] = rerun
+                print(f"  second run of {label} {kind}: max |difference| "
+                      f"from the first {rerun:.3e}", flush=True)
             del out, v
     torch.cuda.synchronize()
     return worst, timing
+
+
+def _time_bwd(torch, label, args, frames, g, out, v, nq, kind, flush):
+    """The backward kernel's warm and cold medians beside its bound, and the
+    plain backward's warm median (autograd through the plain sweep's
+    retained graph); printed and returned as a dict."""
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep_bwd
+
+    def run():
+        return chunk_sweep_bwd(*args, frames, g, nq, kind)
+
+    warm = _time_ms(torch, run, 10)
+    cold = _time_ms(torch, run, 10, flush)
+    plain = _time_ms(torch, lambda: torch.autograd.grad(
+        out, v, g, retain_graph=True), 5)
+    bound, by, nbytes, flops = sweep_bwd_bound(*args[0].shape, nq, kind)
+    print(f"  time {label} {kind}: kernel warm {warm:.4f} ms, cold "
+          f"{cold:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB,"
+          f" {flops / 1e9:.3f} GFLOP), share warm {bound / warm:.1%}, cold "
+          f"{bound / cold:.1%}; plain backward {plain:.4f} ms (medians, CUDA "
+          "events)", flush=True)
+    return dict(warm=warm, cold=cold, plain=plain, bound=bound, by=by)
 
 
 def _keep_off_the_gate(torch, rng, args, nq):
@@ -911,6 +941,24 @@ def ptxas_summary(log):
     return out
 
 
+def phase_build():
+    """Build every kernel, one ``nvcc`` per source, all started together,
+    and print each kernel's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from taichi_nerfs_torch.ops import _build
+
+    names = ("swr_sweep_fwd", "swr_sweep_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(_build.build, names))
+    for name, (path, log, secs) in zip(names, builds):
+        _build.load(name)
+        built = f"in {secs:.2f} s" if log else "(already built)"
+        print(f"build: {os.path.relpath(path)} {built}", flush=True)
+        for line in ptxas_summary(log):
+            print(f"  ptxas: {line}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ckpt_path", default="",
@@ -934,20 +982,7 @@ def main(argv=None):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from concurrent.futures import ThreadPoolExecutor
-
-    from taichi_nerfs_torch.ops import _build
-
-    names = ("swr_sweep_fwd", "swr_sweep_bwd")
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
-        builds = list(pool.map(_build.build, names))
-    for name, (path, log, secs) in zip(names, builds):
-        _build.load(name)
-        built = f"in {secs:.2f} s" if log else "(already built)"
-        print(f"build: {os.path.relpath(path)} {built}", flush=True)
-        for line in ptxas_summary(log):
-            print(f"  ptxas: {line}", flush=True)
-
+    phase_build()
     worst, timing = phase_kernels(torch)
     worst_bwd, bwd_timing = phase_bwd_kernels(torch)
     serve_launches, frame_ms = phase_slice(torch, args.ckpt_path, args.seed)
@@ -995,10 +1030,15 @@ def main(argv=None):
         "max_abs_err": worst_bwd,
         # the full-depth training shape, cubic, warm
         "ms": bwd["warm"],
+        "cold_ms": bwd["cold"],
         "plain_ms": bwd["plain"],
         "bound_ms": bwd["bound"],
         "bound_by": bwd["by"],
         "library_ms": None,
+        "ms_by_shape": {f"nq={nq} {kind}": {k: t[k] for k in
+                                            ("warm", "cold", "bound",
+                                             "rerun_max_abs")}
+                        for (nq, kind), t in sorted(bwd_timing.items())},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

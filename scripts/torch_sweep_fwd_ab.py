@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Compare versions of the port's sweep forward kernel on one card.
+"""Compare versions of the port's sweep kernels on one card.
 
-Builds ``taichi_nerfs_torch/csrc/swr_sweep_fwd.cu`` ("new") and other
-versions of the same source (``--version NAME=PATH``, e.g. the file as an
-earlier commit has it), each with its own ``nvcc`` run and the package's
-flags, binds each through their identical C entry, and at each of
-``chip_smoke.FWD_TIMED``'s shapes, linear
-and cubic, on the same random inputs as ``chip_smoke.py``:
+``--kernel fwd`` (the default) builds
+``taichi_nerfs_torch/csrc/swr_sweep_fwd.cu`` ("new") and other versions of
+the same source (``--version NAME=PATH``, e.g. the file as an earlier commit
+has it), each with its own ``nvcc`` run and the package's flags, binds each
+through their C entry, and at each of ``chip_smoke.FWD_TIMED``'s shapes,
+linear and cubic, on the same random inputs as ``chip_smoke.py``:
   * holds each against the plain sweep (``chip_smoke.KERNEL_TOL``) and
     prints the largest difference of each from "new";
   * times each warm and cold with ``chip_smoke._time_ms``, the versions in
@@ -20,13 +20,24 @@ time (host clock, ending in a synchronize), and from one profiled pass the
 device time per frame of the ``swr.*`` spans and the card's busy share; and
 the range of the resample steps the frames' slabs take.
 
+``--kernel bwd`` does the same for ``csrc/swr_sweep_bwd.cu`` at the three
+training shapes (``chip_smoke.TRAIN_SHAPES``, 16 chunks, F=8), linear and
+cubic, on ``chip_smoke.py``'s backward inputs: each version against
+autograd of the plain sweep (``chip_smoke.BWD_TOL``), the largest
+difference from "new", whether two runs of each give the same bits, the
+warm and cold medians in the order given and reversed, and the device time
+of each kernel that a version launches (``torch.profiler``), which splits
+a version of two launches (the first, with its ``dx2`` scratch) into its
+parts.  A version whose C entry still takes the ``dx2`` scratch gets one.
+
 Ends with one JSON line of the times (the mean of the two medians).  Needs
 a CUDA device::
 
-    git show <commit>:taichi_nerfs_torch/csrc/swr_sweep_fwd.cu \\
-        > build/parent/swr_sweep_fwd.cu
-    python3 scripts/torch_sweep_fwd_ab.py \\
-        --version parent=build/parent/swr_sweep_fwd.cu
+    mkdir -p ab && git show <commit>:taichi_nerfs_torch/csrc/swr_sweep_fwd.cu \\
+        > ab/swr_sweep_fwd.cu
+    python3 scripts/torch_sweep_fwd_ab.py --version parent=ab/swr_sweep_fwd.cu
+    python3 scripts/torch_sweep_fwd_ab.py --kernel bwd \\
+        --version parent=ab/swr_sweep_bwd.cu
 """
 
 from __future__ import annotations
@@ -44,31 +55,40 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def bind_version(path):
-    """``swr_sweep_fwd`` of the source ``path``, built into the package's
-    build directory with its flags and bound as the package binds it."""
+def bind_version(path, name="swr_sweep_fwd"):
+    """``(fn, scratch)``: the C entry ``name`` of the source ``path``, built
+    into the package's build directory with its flags (headers from
+    ``csrc/``) and bound as the package binds it; ``scratch`` is whether the
+    entry takes the first backward's ``dx2`` scratch (one more pointer)."""
+    import re
+
     from taichi_nerfs_torch.ops import _build
 
     with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_build.NVCC_FLAGS)
-                                .encode()).hexdigest()[:16]
-    out = os.path.join(_build.BUILD_DIR, f"libswr_sweep_fwd-ab-{digest}.so")
+        text = f.read()
+    flags = (*_build.NVCC_FLAGS, "-I", _build.CSRC)
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    out = os.path.join(_build.BUILD_DIR, f"lib{name}-ab-{digest}.so")
     if not os.path.exists(out):
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out,
-                        path], check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(out).swr_sweep_fwd
+        subprocess.run([_build.find_nvcc(), *flags, "-o", out, path],
+                       check=True, capture_output=True, text=True)
+    entry = re.search(rf'extern "C" int {name}\(([^)]*)\)', text.decode())
+    scratch = entry is not None and "dx2" in entry.group(1)
+    fn = getattr(ctypes.CDLL(out), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 7}[name] + scratch
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
-    return fn
+    return fn, scratch
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd")
     ap.add_argument("--version", action="append", default=[],
                     metavar="NAME=PATH",
-                    help="another version of csrc/swr_sweep_fwd.cu")
+                    help="another version of the kernel's source")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", action="store_true",
                     help="also render the record frames with each version")
@@ -86,11 +106,17 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    fns = {}
+    entry = f"swr_sweep_{args.kernel}"
+    fns, scratch = {}, {}
     for spec in args.version:
         name, path = spec.split("=", 1)
-        fns[name] = bind_version(os.path.abspath(path))
-    fns["new"] = sw._kernel_fn("swr_sweep_fwd")
+        fns[name], scratch[name] = bind_version(os.path.abspath(path), entry)
+    fns["new"], scratch["new"] = sw._kernel_fn(entry), False
+    if args.kernel == "bwd":
+        out = {"device": torch.cuda.get_device_name(0),
+               "sweep_bwd_ms": bwd_ab(torch, cs, sw, fns, scratch, args.seed)}
+        print(json.dumps(out), flush=True)
+        return
 
     def run(version, vol, rs, z_rel, ch, nq, kind):
         nc, dc, F, Rb, Rc = vol.shape
@@ -148,6 +174,95 @@ def main(argv=None):
     if args.frames:
         out["frames"] = frames(torch, cs, sw, fns, args.seed)
     print(json.dumps(out), flush=True)
+
+
+def bwd_ab(torch, cs, sw, fns, scratch, seed):
+    """The backward versions at the training shapes; returns, per shape and
+    kind, each version's mean warm and cold medians, the bound, and each
+    version's per-kernel device ms."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(version, vol, rs, z_rel, ch, frames, g, nq, kind):
+        nc, dc, F, Rb, Rc = vol.shape
+        dvol = torch.empty_like(vol)
+        extra = []
+        if scratch[version]:
+            dx2 = torch.empty((nc, dc, F, nq, nq), dtype=torch.float32,
+                              device=vol.device)
+            extra = [dx2.data_ptr()]
+        rc = fns[version](
+            vol.data_ptr(), rs.data_ptr(), z_rel.data_ptr(), ch.data_ptr(),
+            frames.data_ptr(), g.data_ptr(), *extra, dvol.data_ptr(),
+            nc, dc, F, Rb, Rc, nq, sw._KINDS[kind],
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{version} kernel launch failed: {rc}")
+        return dvol
+
+    rng = np.random.default_rng(seed + 1)
+    flush = torch.empty(cs.FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    results = {}
+    for R, dc, nq in cs.TRAIN_SHAPES:
+        a = cs._rand_sweep_inputs(torch, rng, 16, dc, 8, R, nq, True)
+        cs._keep_off_the_gate(torch, rng, a, nq)
+        g = torch.randn((16, 10, nq, nq), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        for kind in ("linear", "cubic"):
+            frames = sw.chunk_sweep(*a, nq, kind)
+            want = sw.chunk_sweep_bwd_reference(*a, g, nq, kind)
+            got = {v: run(v, *a, frames, g, nq, kind) for v in fns}
+            again = {v: run(v, *a, frames, g, nq, kind) for v in fns}
+            torch.cuda.synchronize()
+            for v, x in got.items():
+                d = (x - want).abs()
+                if not bool(torch.all(d <= cs.BWD_TOL
+                                      + cs.BWD_TOL * want.abs())):
+                    raise AssertionError(
+                        f"{v} backward disagrees with the plain backward "
+                        f"(R={R}, {kind}): max_abs {float(d.max()):.3e}")
+            diff = {v: float((x - got["new"]).abs().max())
+                    for v, x in got.items() if v != "new"}
+            same = {v: bool(torch.equal(got[v], again[v])) for v in fns}
+            del want, got, again
+            t = {v: {"warm": [], "cold": []} for v in fns}
+            for v in list(fns) + list(fns)[::-1]:
+                for mode, fl in (("warm", None), ("cold", flush)):
+                    t[v][mode].append(cs._time_ms(
+                        torch, lambda v=v: run(v, *a, frames, g, nq, kind),
+                        10, fl))
+            parts = {}
+            for v in fns:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        run(v, *a, frames, g, nq, kind)
+                    torch.cuda.synchronize()
+                parts[v] = {e.key[:60]: e.self_device_time_total / 5e3
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA}
+            bound, by, _, _ = cs.sweep_bwd_bound(16, dc, 8, R, R, nq, kind)
+            key = f"R={R} nq={nq} {kind}"
+            results[key] = {v: {m: float(np.mean(x)) for m, x in tv.items()}
+                            for v, tv in t.items()}
+            results[key]["bound"] = bound
+            results[key]["kernels"] = parts
+            print(f"{key}: bound {bound:.4f} ms ({by}); max |diff| from new "
+                  + ", ".join(f"{v} {d:.3e}" for v, d in diff.items())
+                  + "; same bits on a second run: "
+                  + ", ".join(f"{v} {x}" for v, x in same.items()),
+                  flush=True)
+            for v in fns:
+                w, c = t[v]["warm"], t[v]["cold"]
+                print(f"  {v}: warm {w[0]:.4f} / {w[1]:.4f} ms, cold "
+                      f"{c[0]:.4f} / {c[1]:.4f} ms; share of the bound warm "
+                      f"{bound / np.mean(w):.1%}, cold {bound / np.mean(c):.1%}"
+                      "; device ms per run by kernel: " + ", ".join(
+                          f"{k} {x:.4f}" for k, x in parts[v].items()),
+                      flush=True)
+        del a, g, frames
+    return results
 
 
 def frames(torch, cs, sw, fns, seed):

@@ -4,280 +4,422 @@
 // package (launched by _bwd_call from _sweep_bwd, the VJP of its
 // chunk_sweep).  The plain PyTorch version of the same function is autograd
 // through taichi_nerfs_torch/ops/swr_sweep.py:chunk_sweep_reference
-// (chunk_sweep_bwd_reference there); the forward is csrc/swr_sweep_fwd.cu.
+// (chunk_sweep_bwd_reference there); the forward is csrc/swr_sweep_fwd.cu,
+// and both take their resample helpers from csrc/swr_sweep_common.cuh.
 //
 // What it computes: dvol = d<g, frames>/d vol for the frames of the forward
 // sweep, given the upstream cotangent g (n_chunks, F + 2, nq, nq) on all
-// channels [acc (F - 1) | depth | opacity | tau].  Two launches, no atomics,
-// so the result does not change from run to run:
+// channels [acc (F - 1) | depth | opacity | tau].  One reverse sweep per
+// lattice point (c, i, j) over the chunk's slabs, with no stored
+// activations, as the TPU kernel does.  Per slab s = dc - 1 ... 0 it
+// resamples the slab onto the point as the forward does (same taps, same
+// rounding), then
+//   sigma = max(x[0], 0), sdt = sigma dt, a = 1 - exp(-sdt),
+//   tau_k = tau - sdt  (tau starts at the forward's tau_N, frames[F+1]: the
+//                       transmittance is rebuilt in log space from the
+//                       CLAMPED sigmas, as the forward summed them),
+//   T_k = exp(-tau_k), w = a T_k,
+//   phi = t_ray g_depth + g_opacity + sum_f x[f] g[f - 1],
+//   d a = T_k (phi - U)           (U: the normalised downstream suffix),
+//   d sigma = d a (1 - a) dt + g_tau dt,
+//   dx2[0] = x[0] > 0 ? d sigma : 0,  dx2[f] = w g[f - 1] (f >= 1),
+//   U = (1 - a) U + a phi,  tau = tau_k,
+// and resamples dx2 back onto the slab, the transpose of the forward's
+// resample:
+//   dvol[c, s, f, m, n] = sum_i sum_j Wb[i, m] Wc[j, n] dx2[c, s, f, i, j].
 //
-// (a) swr_sweep_bwd_lattice: one thread per lattice point (c, i, j), one
-//     reverse sweep over the chunk's slabs with no stored activations, as
-//     the TPU kernel does.  Per slab s = dc - 1 ... 0 it resamples the slab
-//     onto the point by taps exactly as the forward kernel does (same tap
-//     positions, same rounding), then
-//       sigma = max(x[0], 0), sdt = sigma dt, a = 1 - exp(-sdt),
-//       tau_k = tau - sdt  (tau starts at the forward's tau_N, frames[F+1]:
-//                           the transmittance is rebuilt in log space from
-//                           the CLAMPED sigmas, as the forward summed them),
-//       T_k = exp(-tau_k), w = a T_k,
-//       phi = t_ray g_depth + g_opacity + sum_f x[f] g[f - 1],
-//       d a = T_k (phi - U)           (U: the normalised downstream suffix),
-//       d sigma = d a (1 - a) dt + g_tau dt,
-//       dx2[0] = x[0] > 0 ? d sigma : 0,  dx2[f] = w g[f - 1] (f >= 1),
-//       U = (1 - a) U + a phi,  tau = tau_k,
-//     and writes dx2 (n_chunks, dc, F, nq, nq) to scratch.
-// (b) swr_sweep_bwd_scatter: the transposed resample as a gather, one
-//     thread per source voxel (c, s, m, n) for all F channels:
-//       dvol[c, s, f, m, n] = sum_i sum_j Wb[i, m] Wc[j, n] dx2[c, s, f, i, j]
-//     with W[i, m] = k(m - (start + i step)), the forward's weights.  The
-//     lattice points whose taps reach voxel m are those with
-//     |m - p_i| < support (1 linear, 2 cubic), a contiguous range of i.  It
-//     is computed from (start, step) with min/max, so the sign of the step
-//     is not assumed, widened by one point on each side against rounding,
-//     and each weight inside it is the forward's weight recomputed exactly
-//     (0 where the forward had no tap), so the range only bounds the loop.
-//     A non-finite range (step 0, or non-finite parameters) scans the whole
-//     lattice.
+// The design: one kernel after a memset of dvol, no scratch; dx2 never
+// leaves the chip.
+//   * Tiles.  A block of 4 warps owns 4 lattice rows (one a warp) by 64
+//     columns (two a lane) of one chunk and loops over its slabs in reverse
+//     with each point's carries in registers (tau, U, dt, tb) and its F + 2
+//     cotangents in shared memory.
+//   * The forward resample, as csrc/swr_sweep_fwd.cu does it: pass 1 along
+//     b reads the slab window of the warp's row through the L1 into a row
+//     buffer of its own in shared memory; pass 2 along c sums each point's
+//     taps from it.  Linear resamples the same way (2 taps).
+//   * Pass 2 transposed, along c, per warp: the row's dx2 goes to shared
+//     memory beside each column's first tap and weights, then each lane
+//     owns source columns n of the window and gathers
+//       y[f, n] = sum_j Wc[j, n] dx2[f, j]
+//     over the few lattice columns j whose taps reach n (a range computed
+//     from the position, widened, each j tested against its stored first
+//     tap, so the weights are the forward's), in a fixed order.  y
+//     overwrites the warp's row buffer.
+//   * Pass 1 transposed, along b, per block, after a block barrier: each
+//     source row r that a warp's taps reach gets, per channel and window
+//     column, sum_w Wb[i_w, r] y_w[f, n] over the block's warps in order,
+//     added into dvol with 16-byte atomics (the window widened to whole
+//     float4s; one float at a time when Rc is no multiple of 4).
+//   * The reduction across tiles is those atomics: a source voxel gets
+//     terms from every tile whose taps reach it (the cubic support adds ~3
+//     rows and columns at each tile edge, ~1.7 adds a voxel at the training
+//     shape).  So dvol is not bit-identical from run to run: the tiles'
+//     sums are added in the order the blocks reach them (differences at
+//     the last bits, 1e-7 relative).  A deterministic order was built and
+//     measured: four launches, one per tile colour (row parity x column
+//     parity), so that no two tiles of one launch reach a voxel; its
+//     fastest build took 47 % longer than this kernel (PERF.md, section
+//     6), above the 20 % that determinism was allowed to cost.
+//   * Any step.  A slab whose column window is wider than kRowCols or not
+//     finite is resampled tap by tap from device memory and its dx2
+//     scattered to its 4 or 16 taps with atomics, point by point.
+//   * Empty tiles.  With finite geometry and z, a warp whose row, or a tile
+//     whose columns, reach no source voxel skips the slab: x = 0 gives
+//     dx2 = 0, tau_k = tau and U unchanged.
+//   * Exact arithmetic.  The same tap positions (an unfused multiply, then
+//     an add), `near` test and weights as the forward; only the order of
+//     the fp32 additions differs from the plain version's dense transposed
+//     matmuls.
 //
-// What bounds it on this card.  (a) is the forward's tap gather (4 or 16
-// loads per channel per slab from L1/L2) plus one coalesced fp32 store per
-// channel per slab: dx2 is nc * dc * F * nq^2 * 4 bytes, 606 MB at the R=256
-// training shape (nc=16, dc=16, F=8, nq=272), written once and read once by
-// (b).  (b) reads about (support * 2 / step)^2 dx2 values per channel per
-// covered voxel, through L1/L2 (neighbouring threads read overlapping
-// windows), and writes dvol once, coalesced.  Voxels that no lattice point
-// reaches exit after computing an empty range.  The TPU kernel instead runs
-// two dense transposed matmuls per channel on the MXU; the tensor-core form
-// of the banded products is later work.  Operands are fp32 only.
+// What bounds it (NVIDIA H100, PERF.md section 6): at the R=256 training
+// shape about half the time is the forward resample and the reverse
+// composite (instruction issue and the L1 / shared-memory pipe, as in the
+// forward), a quarter the transposed resample in shared memory, and a
+// quarter dvol's memset and atomics (537 MB, each line read back from
+// device memory by the atomics).  The bound counts dvol written once.
+// Operands are fp32 only.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "swr_sweep_common.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+// A tile: kTileI lattice rows (one warp each) by 64 columns (two a lane).
+// Measured on the H100 against 2, 8 and 16 rows: 4-row blocks, 5 of them
+// an SM (96 registers), were the fastest at the training shapes.
+constexpr int kTileI = 4;
+constexpr int kCols = 2;
+constexpr int kTileJ = kCols * kWarp;
+constexpr int kThreads = kWarp * kTileI;
+// blocks an SM: 5 (F = 4, 8); at F = 16 shared memory allows 2
+template <int F>
+struct MinBlocks {
+  static constexpr int value = F == 16 ? 2 : 5;
+};
+// the first tap of a point or row that adds nothing
+constexpr int kNone = -(1 << 20);
 
-// Same polynomial as csrc/swr_sweep_fwd.cu and ops/warp.py:interp_kernel.
-template <int KIND>
-__device__ __forceinline__ float kern(float x) {
-  float ax = fabsf(x);
-  if (KIND == 0) return fmaxf(0.0f, 1.0f - ax);
-  float w1 = (1.5f * ax - 2.5f) * ax * ax + 1.0f;
-  float w2 = ((-0.5f * ax + 2.5f) * ax - 4.0f) * ax + 2.0f;
-  return ax <= 1.0f ? w1 : (ax < 2.0f ? w2 : 0.0f);
-}
+// shared memory of one block, in 4-byte words
+template <int F, int NT>
+struct Smem {
+  static constexpr int kY = kTileI * F * kRowCols;  // row buffers, then y
+  static constexpr int kDx = kTileI * F * kTileJ;   // dx2 of each warp's row
+  static constexpr int kCw = kTileI * NT * kTileJ;  // c weights per column
+  static constexpr int kCm = kTileI * kTileJ;       // c first tap per column
+  static constexpr int kRw = kTileI * NT;           // b weights per warp
+  static constexpr int kRm = kTileI;                // b first tap per warp
+  static constexpr int kG = kTileI * (F + 2) * kTileJ;  // cotangents g
+  static constexpr size_t kBytes =
+      sizeof(float) * (kY + kDx + kCw + kCm + kRw + kRm + kG);
+};
 
-// Lattice position start + i * step, rounded as the forward kernel and the
-// plain version round it (unfused multiply, then add).
-__device__ __forceinline__ float lat_pos(float start, float step, int i) {
-  return __fadd_rn(start, __fmul_rn((float)i, step));
-}
-
-// Identical to the forward kernel's taps(): first source index and the NT
-// weights of one lattice coordinate p on a source axis of length n.
-template <int KIND, int NT>
-__device__ __forceinline__ void taps(float p, int n, int* idx, float* w) {
-  const bool near = p > -4.0f && p < (float)n + 4.0f;
-  const int m0 = near ? (int)floorf(p) - (NT / 2 - 1) : -8;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int m = m0 + t;
-    const bool in = near && m >= 0 && m < n;
-    w[t] = in ? kern<KIND>((float)m - p) : 0.0f;
-    idx[t] = in ? m : 0;
+// The first and last lattice columns of [j0, j1] whose taps can reach
+// source column n: positions in [n - NT/2, n + NT/2), from the position
+// rule widened by two columns (the test against each column's first tap
+// decides); the whole tile when the step is small or not finite.
+template <int NT>
+__device__ __forceinline__ void reaching_cols(float start, float step,
+                                              float inv_step, int n, int j0,
+                                              int j1, int* lo, int* hi) {
+  constexpr float kS = (float)(NT / 2);
+  const float a = ((float)n - kS - start) * inv_step;
+  const float b = ((float)n + kS - start) * inv_step;
+  float l = fminf(a, b), h = fmaxf(a, b);
+  if (!(isfinite(l) && isfinite(h)) || fabsf(step) < 0.0625f) {
+    *lo = j0;
+    *hi = j1;
+    return;
   }
+  l = fminf(fmaxf(l, (float)j0 - 4.0f), (float)j1 + 4.0f);
+  h = fminf(fmaxf(h, (float)j0 - 4.0f), (float)j1 + 4.0f);
+  *lo = max(j0, (int)floorf(l) - 2);
+  *hi = min(j1, (int)ceilf(h) + 2);
 }
 
 template <int F, int KIND>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-swr_sweep_bwd_lattice(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
-                      const float* __restrict__ rs_par,  // (nc, dc, 4)
-                      const float* __restrict__ z_rel,   // (nc, dc)
-                      const float* __restrict__ ch_par,  // (nc, 6)
-                      const float* __restrict__ frames,  // (nc, F + 2, nq, nq)
-                      const float* __restrict__ g,       // (nc, F + 2, nq, nq)
-                      float* __restrict__ dx2,           // (nc, dc, F, nq, nq)
-                      int dc, int Rb, int Rc, int nq) {
+__global__ void __launch_bounds__(kThreads, MinBlocks<F>::value)
+swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
+                     const float* __restrict__ rs_par,  // (nc, dc, 4)
+                     const float* __restrict__ z_rel,   // (nc, dc)
+                     const float* __restrict__ ch_par,  // (nc, 6)
+                     const float* __restrict__ frames,  // (nc, F + 2, nq, nq)
+                     const float* __restrict__ g,       // (nc, F + 2, nq, nq)
+                     float* __restrict__ dvol,          // (nc, dc, F, Rb, Rc), zeroed
+                     int dc, int Rb, int Rc, int nq) {
   constexpr int NT = KIND == 0 ? 2 : 4;
-  const int j = blockIdx.x * kBlockX + threadIdx.x;
-  const int i = blockIdx.y * kBlockY + threadIdx.y;
-  const int c = blockIdx.z;
-  if (i >= nq || j >= nq) return;
+  using S = Smem<F, NT>;
+  extern __shared__ __align__(16) float smem[];
+  float* ybuf = smem;
+  float* dxs = ybuf + S::kY;
+  float* cw = dxs + S::kDx;
+  int* cm = reinterpret_cast<int*>(cw + S::kCw);
+  float* rw = reinterpret_cast<float*>(cm + S::kCm);
+  int* rm = reinterpret_cast<int*>(rw + S::kRw);
+  float* gs = reinterpret_cast<float*>(rm + S::kRm);
 
+  const int w = threadIdx.y, lane = threadIdx.x;
+  const int j0 = blockIdx.x * kTileJ;
+  const int j1 = min(j0 + kTileJ, nq) - 1;
+  const int i = blockIdx.y * kTileI + w;
+  const int c = blockIdx.z;
+  const bool live_row = i < nq;
+  // dvol's rows hold whole float4s: the window is widened to them and the
+  // sums are added 16 bytes at a time
+  const bool vec = Rc % 4 == 0;
+  float* yrow = ybuf + w * F * kRowCols;
+  float* wdx = dxs + w * F * kTileJ;
+  float* wcw = cw + w * NT * kTileJ;
+  int* wcm = cm + w * kTileJ;
+  // the cotangents g[f] (f < F - 1) of the warp's points: wgs[f * 64 + jj]
+  float* wgs = gs + w * (F + 2) * kTileJ;
+
+  // per-chunk ray geometry at this thread's lattice points
+  // (swr_pallas.py:_geom), the cotangents and the carries
   const float* chp = ch_par + 6 * c;
   const float va = chp[4], h = chp[5];
   const float vb = __fadd_rn(chp[0], __fmul_rn(chp[1], (float)i));
-  const float vc = __fadd_rn(chp[2], __fmul_rn(chp[3], (float)j));
-  const float norm = sqrtf(va * va + vb * vb + vc * vc);
-  const float dt = h * norm / fabsf(va);
-  const float tb = norm / va;
-
   const size_t npix = (size_t)nq * nq;
-  const size_t pix = (size_t)i * nq + j;
-  const float* gp = g + (size_t)c * (F + 2) * npix + pix;
-  float gf[F - 1];
+  float dt[kCols], tb[kCols], tau[kCols], U[kCols];
+  float g_dep[kCols], g_op[kCols], g_tau[kCols];
+  bool live[kCols];
+  bool finite_geom = true;
 #pragma unroll
-  for (int f = 0; f < F - 1; ++f) gf[f] = gp[f * npix];
-  const float g_dep = gp[(F - 1) * npix];
-  const float g_op = gp[F * npix];
-  const float g_tau = gp[(F + 1) * npix];
-  float tau = frames[(size_t)c * (F + 2) * npix + (F + 1) * npix + pix];
-  float U = 0.0f;
+  for (int q = 0; q < kCols; ++q) {
+    const int j = j0 + q * kWarp + lane;
+    live[q] = live_row && j < nq;
+    const float vc = __fadd_rn(chp[2], __fmul_rn(chp[3], (float)j));
+    const float norm = sqrtf(va * va + vb * vb + vc * vc);
+    dt[q] = h * norm / fabsf(va);
+    tb[q] = norm / va;
+    finite_geom = finite_geom && isfinite(dt[q]) && isfinite(tb[q]);
+    const size_t pix = live[q] ? (size_t)i * nq + j : 0;
+    const float* gp = g + (size_t)c * (F + 2) * npix + pix;
+#pragma unroll
+    for (int f = 0; f < F - 1; ++f)
+      wgs[f * kTileJ + q * kWarp + lane] = live[q] ? gp[f * npix] : 0.0f;
+    g_dep[q] = live[q] ? gp[(F - 1) * npix] : 0.0f;
+    g_op[q] = live[q] ? gp[F * npix] : 0.0f;
+    g_tau[q] = live[q] ? gp[(F + 1) * npix] : 0.0f;
+    tau[q] = live[q]
+                 ? frames[(size_t)c * (F + 2) * npix + (F + 1) * npix + pix]
+                 : 0.0f;
+    U[q] = 0.0f;
+  }
+  finite_geom = __all_sync(kFullMask, finite_geom);
 
   const size_t plane = (size_t)Rb * Rc;
   for (int s = dc - 1; s >= 0; --s) {
     const size_t cs = (size_t)c * dc + s;
     const float* rs = rs_par + 4 * cs;
-    int ib[NT], jc[NT];
-    float wb[NT], wc[NT];
-    taps<KIND, NT>(lat_pos(rs[0], rs[1], i), Rb, ib, wb);
-    taps<KIND, NT>(lat_pos(rs[2], rs[3], j), Rc, jc, wc);
     const float* slab = vol + cs * F * plane;
-
-    float x[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float* src = slab + f * plane;
-      float sum = 0.0f;
-#pragma unroll
-      for (int tc = 0; tc < NT; ++tc) {
-        float col = 0.0f;
-#pragma unroll
-        for (int u = 0; u < NT; ++u)
-          col += wb[u] * __ldg(src + (size_t)ib[u] * Rc + jc[tc]);
-        sum += col * wc[tc];
+    float* dslab = dvol + cs * F * plane;
+    int ib[NT];
+    float wb[NT];
+    const float pb = lat_pos(rs[0], rs[1], i);
+    const bool row_in = warp_taps<KIND, NT>(pb, Rb, ib, wb) && live_row;
+    // block-uniform: the tile's column window (widened to whole float4s of
+    // dvol's rows when Rc allows), and whether it fits
+    int c0 = 0, ncol = 0;
+    const bool finite_win =
+        axis_window<NT>(rs[2], rs[3], j0, j1, Rc, &c0, &ncol);
+    if (vec && ncol > 0) {
+      const int end = min((c0 + ncol + 3) & ~3, Rc);
+      c0 &= ~3;
+      ncol = end - c0;
+    }
+    const bool rows = finite_win && ncol <= kRowCols;
+    const float z = z_rel[cs];
+    // no tap of the row (or of the tile's columns) reaches the source: x = 0
+    // gives dx2 = 0 and leaves tau and U as they are (finite geometry)
+    const bool skip = !live_row || (finite_geom && isfinite(z) &&
+                                    (!row_in || (rows && ncol == 0)));
+    if (lane == 0) rm[w] = kNone;
+    if (!skip) {
+      if (rows) {
+        resample_row<F, NT>(slab, plane, Rc, c0, ncol, ib, wb, yrow);
+        __syncwarp();
       }
-      x[f] = sum;
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int jj = q * kWarp + lane;
+        const float pc = lat_pos(rs[2], rs[3], j0 + jj);
+        int jc[NT];
+        float wc[NT], x[F];
+        taps<KIND, NT>(pc, Rc, jc, wc);
+        if (rows && ncol == 0) {  // (non-finite geometry or z)
+#pragma unroll
+          for (int f = 0; f < F; ++f) x[f] = 0.0f;
+        } else if (rows)
+          resample_col<F, NT>(yrow, c0, ncol, jc, wc, x);
+        else
+          resample_taps<F, NT>(slab, plane, Rc, ib, wb, jc, wc, x);
+
+        const float sdt = fmaxf(x[0], 0.0f) * dt[q];
+        const float one_m_a = expf(-sdt);
+        const float a = 1.0f - one_m_a;
+        const float tau_k = tau[q] - sdt;
+        const float t_k = expf(-tau_k);
+        const float wgt = a * t_k;
+        float phi = z * tb[q] * g_dep[q] + g_op[q];
+#pragma unroll
+        for (int f = 1; f < F; ++f) phi += x[f] * wgs[(f - 1) * kTileJ + jj];
+        const float da = t_k * (phi - U[q]);
+        const float dsigma = da * one_m_a * dt[q] + g_tau[q] * dt[q];
+        float d[F];
+        d[0] = x[0] > 0.0f ? dsigma : 0.0f;
+#pragma unroll
+        for (int f = 1; f < F; ++f) d[f] = wgt * wgs[(f - 1) * kTileJ + jj];
+        tau[q] = tau_k;
+        U[q] = one_m_a * U[q] + a * phi;
+
+        if (rows) {
+#pragma unroll
+          for (int f = 0; f < F; ++f) wdx[f * kTileJ + jj] = live[q] ? d[f] : 0.0f;
+#pragma unroll
+          for (int tc = 0; tc < NT; ++tc) wcw[tc * kTileJ + jj] = wc[tc];
+          wcm[jj] = live[q] ? first_tap<NT>(pc, Rc) : kNone;
+        } else if (live[q]) {
+          // tap path: scatter this point's dx2 to its taps
+#pragma unroll
+          for (int ub = 0; ub < NT; ++ub) {
+#pragma unroll
+            for (int tc = 0; tc < NT; ++tc) {
+              const float wt = wb[ub] * wc[tc];
+              if (wt == 0.0f) continue;
+              float* o = dslab + (size_t)ib[ub] * Rc + jc[tc];
+#pragma unroll
+              for (int f = 0; f < F; ++f) atomicAdd(o + f * plane, wt * d[f]);
+            }
+          }
+        }
+      }
+      if (rows) {
+        __syncwarp();  // yrow read, dx2 and the c taps written
+        // pass 2 transposed: y[f, n] = sum_j Wc[j, n] dx2[f, j] into yrow
+        const float inv_step = 1.0f / rs[3];
+        for (int nn = lane; nn < ncol; nn += kWarp) {
+          const int n = c0 + nn;
+          int jlo, jhi;
+          reaching_cols<NT>(rs[2], rs[3], inv_step, n, j0, j1, &jlo, &jhi);
+          float acc[F];
+#pragma unroll
+          for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+          for (int j = jlo; j <= jhi; ++j) {
+            const int jj = j - j0;
+            const int k = n - wcm[jj];
+            if (k < 0 || k >= NT) continue;
+            const float wt = wcw[k * kTileJ + jj];
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] += wt * wdx[f * kTileJ + jj];
+          }
+#pragma unroll
+          for (int f = 0; f < F; ++f) yrow[f * kRowCols + nn] = acc[f];
+        }
+        if (lane == 0 && row_in) {
+          rm[w] = first_tap<NT>(pb, Rb);
+#pragma unroll
+          for (int ub = 0; ub < NT; ++ub) rw[w * NT + ub] = wb[ub];
+        }
+      }
     }
+    __syncthreads();  // every warp's y and b taps in shared memory
 
-    const float sdt = fmaxf(x[0], 0.0f) * dt;
-    const float one_m_a = expf(-sdt);
-    const float a = 1.0f - one_m_a;
-    const float tau_k = tau - sdt;
-    const float t_k = expf(-tau_k);
-    const float w = a * t_k;
-    float phi = z_rel[cs] * tb * g_dep + g_op;
+    // pass 1 transposed: the source rows the block's warps reach
+    if (rows && ncol > 0) {
+      int rlo = Rb, rhi = -1;
 #pragma unroll
-    for (int f = 1; f < F; ++f) phi += x[f] * gf[f - 1];
-    const float da = t_k * (phi - U);
-    const float dsigma = da * one_m_a * dt + g_tau * dt;
-
-    float* d = dx2 + cs * F * npix + pix;
-    d[0] = x[0] > 0.0f ? dsigma : 0.0f;
+      for (int v = 0; v < kTileI; ++v) {
+        if (rm[v] == kNone) continue;
+        rlo = min(rlo, max(rm[v], 0));
+        rhi = max(rhi, min(rm[v] + NT - 1, Rb - 1));
+      }
+      for (int r = rlo + w; r <= rhi; r += kTileI) {
+        float wr[kTileI];
+        unsigned hit = 0;
 #pragma unroll
-    for (int f = 1; f < F; ++f) d[f * npix] = w * gf[f - 1];
-
-    tau = tau_k;
-    U = one_m_a * U + a * phi;
-  }
-}
-
-// The lattice points i in [0, nq) whose position start + i * step lies
-// within `support` of source index m: [lo, hi], empty when hi < lo.
-__device__ __forceinline__ void lattice_range(float start, float step, int m,
-                                              float support, int nq, int* lo,
-                                              int* hi) {
-  const float a = ((float)m - support - start) / step;
-  const float b = ((float)m + support - start) / step;
-  float l = fminf(a, b), u = fmaxf(a, b);
-  if (!(isfinite(l) && isfinite(u))) {
-    *lo = 0;
-    *hi = nq - 1;
-    return;
-  }
-  l = fmaxf(l, -2.0f);
-  u = fminf(u, (float)nq + 1.0f);
-  *lo = max(0, (int)floorf(l) - 1);
-  *hi = min(nq - 1, (int)ceilf(u) + 1);
-}
-
-template <int F, int KIND>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-swr_sweep_bwd_scatter(const float* __restrict__ rs_par,  // (nc, dc, 4)
-                      const float* __restrict__ dx2,     // (nc, dc, F, nq, nq)
-                      float* __restrict__ dvol,          // (nc, dc, F, Rb, Rc)
-                      int Rb, int Rc, int nq) {
-  constexpr float kSupport = KIND == 0 ? 1.0f : 2.0f;
-  const int n = blockIdx.x * kBlockX + threadIdx.x;
-  const int m = blockIdx.y * kBlockY + threadIdx.y;
-  const size_t cs = blockIdx.z;  // c * dc + s
-  if (m >= Rb || n >= Rc) return;
-
-  const float* rs = rs_par + 4 * cs;
-  const float start_b = rs[0], step_b = rs[1];
-  const float start_c = rs[2], step_c = rs[3];
-  int i_lo, i_hi, j_lo, j_hi;
-  lattice_range(start_b, step_b, m, kSupport, nq, &i_lo, &i_hi);
-  lattice_range(start_c, step_c, n, kSupport, nq, &j_lo, &j_hi);
-
-  float acc[F];
+        for (int v = 0; v < kTileI; ++v) {
+          const int k = r - rm[v];
+          const bool in = k >= 0 && k < NT;
+          wr[v] = in ? rw[v * NT + min(max(k, 0), NT - 1)] : 0.0f;
+          hit |= in ? 1u << v : 0u;
+        }
+        if (!hit) continue;
+        float* orow = dslab + (size_t)r * Rc + c0;
+        if (vec) {
+          // lane k takes (channel, 4 columns) pairs k, k + 32, ...: one
+          // 16-byte add each, the window's columns consecutive per channel
+          const int n4 = ncol / 4;
+          for (int e = lane; e < F * n4; e += kWarp) {
+            const int f = e / n4, q = 4 * (e - f * n4);
+            float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-  const size_t npix = (size_t)nq * nq;
-  const float* src = dx2 + cs * F * npix;
-  for (int i = i_lo; i <= i_hi; ++i) {
-    const float p = lat_pos(start_b, step_b, i);
-    // the forward's tap test (near, and m among floor(p)'s taps) reduces
-    // to the weight itself: k(m - p) is 0 outside the support
-    const float wb = (p > -4.0f && p < (float)Rb + 4.0f)
-                         ? kern<KIND>((float)m - p)
-                         : 0.0f;
-    if (wb == 0.0f) continue;
-    const float* row = src + (size_t)i * nq;
-    for (int j = j_lo; j <= j_hi; ++j) {
-      const float q = lat_pos(start_c, step_c, j);
-      const float wc = (q > -4.0f && q < (float)Rc + 4.0f)
-                           ? kern<KIND>((float)n - q)
-                           : 0.0f;
-      if (wc == 0.0f) continue;
-      const float w = wb * wc;
+            for (int v = 0; v < kTileI; ++v) {
+              if (!(hit & (1u << v))) continue;
+              const float4 y = *reinterpret_cast<const float4*>(
+                  ybuf + (v * F + f) * kRowCols + q);
+              acc.x += wr[v] * y.x;
+              acc.y += wr[v] * y.y;
+              acc.z += wr[v] * y.z;
+              acc.w += wr[v] * y.w;
+            }
+            atomicAdd(reinterpret_cast<float4*>(orow + f * plane + q), acc);
+          }
+        } else {
+          for (int nn = lane; nn < ncol; nn += kWarp) {
 #pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] += w * __ldg(row + f * npix + j);
+            for (int f = 0; f < F; ++f) {
+              float acc = 0.0f;
+#pragma unroll
+              for (int v = 0; v < kTileI; ++v)
+                if (hit & (1u << v))
+                  acc += wr[v] * ybuf[(v * F + f) * kRowCols + nn];
+              atomicAdd(orow + f * plane + nn, acc);
+            }
+          }
+        }
+      }
     }
+    __syncthreads();  // the next slab overwrites the shared buffers
   }
-  const size_t plane = (size_t)Rb * Rc;
-  float* o = dvol + cs * F * plane + (size_t)m * Rc + n;
-#pragma unroll
-  for (int f = 0; f < F; ++f) o[f * plane] = acc[f];
 }
 
 template <int F, int KIND>
 cudaError_t launch(const float* vol, const float* rs_par, const float* z_rel,
                    const float* ch_par, const float* frames, const float* g,
-                   float* dx2, float* dvol, int n_chunks, int dc, int Rb,
-                   int Rc, int nq, cudaStream_t stream) {
-  dim3 block(kBlockX, kBlockY);
-  dim3 grid_a((nq + kBlockX - 1) / kBlockX, (nq + kBlockY - 1) / kBlockY,
-              n_chunks);
-  swr_sweep_bwd_lattice<F, KIND><<<grid_a, block, 0, stream>>>(
-      vol, rs_par, z_rel, ch_par, frames, g, dx2, dc, Rb, Rc, nq);
-  cudaError_t err = cudaGetLastError();
+                   float* dvol, int n_chunks, int dc, int Rb, int Rc, int nq,
+                   cudaStream_t stream) {
+  constexpr size_t smem = Smem<F, KIND == 0 ? 2 : 4>::kBytes;
+  static_assert(smem <= 227 * 1024, "shared memory above the SM's 227 KB");
+  auto kernel = swr_sweep_bwd_kernel<F, KIND>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid_b((Rc + kBlockX - 1) / kBlockX, (Rb + kBlockY - 1) / kBlockY,
-              n_chunks * dc);
-  swr_sweep_bwd_scatter<F, KIND><<<grid_b, block, 0, stream>>>(
-      rs_par, dx2, dvol, Rb, Rc, nq);
+  err = cudaMemsetAsync(
+      dvol, 0, sizeof(float) * (size_t)n_chunks * dc * F * Rb * Rc, stream);
+  if (err != cudaSuccess) return err;
+  dim3 block(kWarp, kTileI);
+  dim3 grid((nq + kTileJ - 1) / kTileJ, (nq + kTileI - 1) / kTileI, n_chunks);
+  kernel<<<grid, block, smem, stream>>>(vol, rs_par, z_rel, ch_par, frames, g,
+                                        dvol, dc, Rb, Rc, nq);
   return cudaGetLastError();
 }
 
 template <int KIND>
 cudaError_t dispatch_f(int F, const float* vol, const float* rs_par,
                        const float* z_rel, const float* ch_par,
-                       const float* frames, const float* g, float* dx2,
-                       float* dvol, int n_chunks, int dc, int Rb, int Rc,
-                       int nq, cudaStream_t stream) {
+                       const float* frames, const float* g, float* dvol,
+                       int n_chunks, int dc, int Rb, int Rc, int nq,
+                       cudaStream_t stream) {
   switch (F) {
     case 4:
-      return launch<4, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dx2,
-                             dvol, n_chunks, dc, Rb, Rc, nq, stream);
+      return launch<4, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dvol,
+                             n_chunks, dc, Rb, Rc, nq, stream);
     case 8:
-      return launch<8, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dx2,
-                             dvol, n_chunks, dc, Rb, Rc, nq, stream);
+      return launch<8, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dvol,
+                             n_chunks, dc, Rb, Rc, nq, stream);
     case 16:
-      return launch<16, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dx2,
-                              dvol, n_chunks, dc, Rb, Rc, nq, stream);
+      return launch<16, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dvol,
+                              n_chunks, dc, Rb, Rc, nq, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -286,24 +428,24 @@ cudaError_t dispatch_f(int F, const float* vol, const float* rs_par,
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  kind: 0 linear, 1 cubic.
-// dx2 is caller-allocated scratch of n_chunks * dc * F * nq * nq floats.
-// Returns cudaGetLastError() after the launches (0 on success); an F other
-// than 4, 8, 16, an unknown kind or more than 65535 chunk slabs returns
-// cudaErrorInvalidValue.
+// dvol is written whole (zeroed, then the sums added).  Returns
+// cudaGetLastError() after the launch (0 on success); an F other than 4,
+// 8, 16, an unknown kind, more than 65535 chunks or a lattice of more than
+// 65535 tile rows returns cudaErrorInvalidValue.
 extern "C" int swr_sweep_bwd(const float* vol, const float* rs_par,
                              const float* z_rel, const float* ch_par,
-                             const float* frames, const float* g, float* dx2,
-                             float* dvol, int n_chunks, int dc, int F, int Rb,
-                             int Rc, int nq, int kind, void* stream) {
-  if (n_chunks <= 0 || dc <= 0 || Rb <= 0 || Rc <= 0 || nq <= 0 ||
-      (long long)n_chunks * dc > 65535)
+                             const float* frames, const float* g, float* dvol,
+                             int n_chunks, int dc, int F, int Rb, int Rc,
+                             int nq, int kind, void* stream) {
+  if (n_chunks <= 0 || n_chunks > 65535 || dc <= 0 || Rb <= 0 || Rc <= 0 ||
+      nq <= 0 || (nq + kTileI - 1) / kTileI > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0)
-    return (int)dispatch_f<0>(F, vol, rs_par, z_rel, ch_par, frames, g, dx2,
-                              dvol, n_chunks, dc, Rb, Rc, nq, st);
+    return (int)dispatch_f<0>(F, vol, rs_par, z_rel, ch_par, frames, g, dvol,
+                              n_chunks, dc, Rb, Rc, nq, st);
   if (kind == 1)
-    return (int)dispatch_f<1>(F, vol, rs_par, z_rel, ch_par, frames, g, dx2,
-                              dvol, n_chunks, dc, Rb, Rc, nq, st);
+    return (int)dispatch_f<1>(F, vol, rs_par, z_rel, ch_par, frames, g, dvol,
+                              n_chunks, dc, Rb, Rc, nq, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,8 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  It is
 compiled on first use for Hopper (``sm_90a``) into
 ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout;
-the hash covers the source and the flags, so an edited source rebuilds.
+the hash covers the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header rebuilds.
 Nothing here runs when the module is imported, and a failed build raises:
 there is no fallback.
 """
@@ -48,10 +49,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content-hashed file name)."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: the file name hashes the source,
+    every header in ``csrc/`` (``*.cuh``) and the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -139,7 +139,7 @@ def _kernel_fn(name: str):
     fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
     # pointers, then (n_chunks, dc, F, Rb, Rc, nq, kind), then the stream
-    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 8}[name]
+    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 7}[name]
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
@@ -185,10 +185,11 @@ def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
                     kind="linear"):
     """``d<g, frames>/d vol_cs`` of the sweep whose forward gave ``frames``.
 
-    On a CUDA tensor it launches ``csrc/swr_sweep_bwd.cu`` on the current
-    stream (two launches, counted once in ``chunk_sweep_bwd.launches``) or
-    raises; on a CPU tensor it runs :func:`chunk_sweep_bwd_reference`
-    (``frames`` unused there).
+    On a CUDA tensor it runs ``csrc/swr_sweep_bwd.cu`` on the current
+    stream (a memset of ``dvol`` and one launch that adds the tiles' sums
+    with atomics, so the last bits may differ from run to run; counted in
+    ``chunk_sweep_bwd.launches``) or raises; on a CPU tensor it runs
+    :func:`chunk_sweep_bwd_reference` (``frames`` unused there).
     """
     if vol_cs.device.type == "cpu":
         return chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g,
@@ -201,14 +202,11 @@ def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
     g = g.contiguous()
     _check_bwd_args(vol_cs, frames, g, nq)
     nc, dc, F, Rb, Rc = vol_cs.shape
-    dx2 = torch.empty((nc, dc, F, nq, nq), dtype=torch.float32,
-                      device=vol_cs.device)
     dvol = torch.empty_like(vol_cs)
     _launch(
         "swr_sweep_bwd", vol_cs.device,
         vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
-        ch_par.data_ptr(), frames.data_ptr(), g.data_ptr(), dx2.data_ptr(),
-        dvol.data_ptr(),
+        ch_par.data_ptr(), frames.data_ptr(), g.data_ptr(), dvol.data_ptr(),
         nc, dc, F, Rb, Rc, nq, _KINDS[kind],
     )
     chunk_sweep_bwd.launches += 1

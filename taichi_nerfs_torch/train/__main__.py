@@ -6,8 +6,9 @@ module name):
 
 * ``--model_name ngp`` (the default): the sample-gather Instant-NGP path,
   configured by ``config.py:config_from_opts``.  It trains with
-  ``train/loop.py:Trainer``, writes ``model.npz`` (params and occupancy,
-  the JAX checkpoint's key names), renders every test view with the
+  ``train/loop.py:Trainer``, writes ``model.npz`` (the JAX checkpoint:
+  params, Adam's state, occupancy; ``--ckpt_path`` resumes from one written
+  by either package), renders every test view with the
   test-time renderer, writes ``rgb_000.png`` and ``depth_000.png`` and
   prints ``evaluation: psnr_avg=... | ssim_avg=...``::
 
@@ -173,13 +174,13 @@ def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
     trainer = Trainer(cfg, train_dataset.as_batch(device), train_dataset.K,
                       train_dataset.img_wh, device=device)
     if hp.ckpt_path:
-        # params and occupancy; Adam restarts with zero moments while the
-        # schedule resumes at the saved step (the JAX moments layout is
-        # ROADMAP 'Modules to port' item 8)
-        params, occ, step = load_ngp_npz(hp.ckpt_path, device)
+        # params, Adam's moments and counts, occupancy; a file without
+        # optimizer state starts Adam afresh with the schedule at its step
+        params, occ, step, opt = load_ngp_npz(hp.ckpt_path, device)
         params = trainable(params)
-        trainer.state = TrainState(
-            params, make_optimizer(cfg).init(params, sched_count=step), occ)
+        if opt is None:
+            opt = make_optimizer(cfg).init(params, sched_count=step)
+        trainer.state = TrainState(params, opt, occ)
         trainer.step = step
         print(f"loaded NGP checkpoint from {hp.ckpt_path} (step {step})")
     if not hp.val_only:
@@ -188,8 +189,8 @@ def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
         float(m["loss"])  # wait for the queued device steps
         print(f"training done in {time.time() - tic:.1f}s on {device}")
     os.makedirs(val_dir, exist_ok=True)
-    save_ngp_npz(os.path.join(val_dir, "model.npz"), trainer.state.params,
-                 trainer.state.occupancy, trainer.step)
+    save_ngp_npz(os.path.join(val_dir, "model.npz"), trainer.state,
+                 trainer.step, cfg.train.seed)
     return evaluate(trainer.state.params, cfg,
                     trainer.state.occupancy.bitfield, test_dataset,
                     save_dir=val_dir,

@@ -84,10 +84,10 @@ def save_pyramid_npz(path: str, params) -> None:
 # The JAX package's NGP params are ``{"hash_table": (F, n)}`` or
 # ``{"brick": {"corners", "bricks"}}`` plus ``"xyz_mlp"`` and ``"rgb_mlp"``
 # weight dicts; the port keeps the same tree.  The occupancy bitfield is
-# uint32 there and int32 with the same bits here.  ``model.npz`` uses the
-# key names of the JAX ``utils/checkpoint.py`` (``params/...``,
-# ``occ/...``, ``__step__``); the optimizer moments are not written (the
-# JAX optimizer's layout is ROADMAP 'Modules to port' item 8).
+# uint32 there and int32 with the same bits here.  ``model.npz`` is the JAX
+# ``utils/checkpoint.py`` file: params, the state of its Adam on a cosine
+# schedule, the occupancy grid, the random key and the step, under its key
+# names.
 
 
 def ngp_params_from_numpy(tree: Dict[str, Any], device=None):
@@ -142,28 +142,68 @@ def _flat(tree, prefix: str, out: dict):
         out[prefix] = tree
 
 
-def save_ngp_npz(path: str, params, occupancy, step: int = 0) -> None:
-    """Write ``model.npz``: ``params/...``, ``occ/...`` and ``__step__``."""
-    out: dict = {"__step__": np.asarray(step)}
-    _flat(ngp_params_to_numpy(params), "params", out)
-    _flat(occupancy_to_numpy(occupancy), "occ", out)
+def save_ngp_npz(path: str, state, step: int = 0, seed: int = 0) -> None:
+    """Write ``model.npz`` with the keys of the JAX ``save_checkpoint``:
+
+    * ``params/<path>``: the params;
+    * ``opt/0/0``: Adam's count (int32); ``opt/0/1/<path>`` and
+      ``opt/0/2/<path>``: its moments mu and nu; ``opt/1/0``: the
+      schedule's count (int32), as the JAX optimizer (Adam chained with
+      a schedule) keeps them;
+    * ``occ/...``: the occupancy grid (the bitfield as uint32);
+    * ``rng``: uint32 key data of shape (2,).  The port draws from torch
+      generators, whose state JAX cannot continue, so it writes the key of
+      ``jax.random.PRNGKey(seed)``, ``(0, seed)``: a JAX run resumed from
+      the file draws a stream of its own from the run's seed;
+    * ``__step__``.
+
+    ``state`` is a ``train.state.TrainState``.
+    """
+    opt = state.opt_state
+    out: dict = {
+        "__step__": np.asarray(step),
+        "opt/0/0": np.asarray(opt.count, np.int32),
+        "opt/1/0": np.asarray(opt.sched_count, np.int32),
+        "rng": np.asarray([0, seed], np.uint32),
+    }
+    _flat(ngp_params_to_numpy(state.params), "params", out)
+    _flat(ngp_params_to_numpy(opt.mu), "opt/0/1", out)
+    _flat(ngp_params_to_numpy(opt.nu), "opt/0/2", out)
+    _flat(occupancy_to_numpy(state.occupancy), "occ", out)
     np.savez(path, **out)
 
 
+def _tree(d, prefix: str) -> Dict[str, Any]:
+    """The arrays of ``d`` under ``prefix/``, as a tree of dicts."""
+    tree: Dict[str, Any] = {}
+    for key in d.files:
+        if not key.startswith(prefix + "/"):
+            continue
+        node = tree
+        *parents, leaf = key[len(prefix) + 1:].split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = d[key]
+    return tree
+
+
 def load_ngp_npz(path: str, device=None):
-    """Read ``(params, occupancy, step)`` from a ``model.npz`` written by
-    either package (the JAX one's optimizer state and key are skipped)."""
+    """Read ``(params, occupancy, step, opt_state)`` from a ``model.npz``
+    written by either package.  ``opt_state`` is a ``train.state.AdamState``
+    with Adam's moments and both counts, or None when the file has no
+    ``opt/`` keys; the random key is not read (the port's draws come from
+    torch generators)."""
+    from ..train.state import AdamState
+
     with np.load(path) as d:
-        params: Dict[str, Any] = {}
-        for key in d.files:
-            if not key.startswith("params/"):
-                continue
-            node = params
-            *parents, leaf = key.split("/")[1:]
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = d[key]
+        params = ngp_params_from_numpy(_tree(d, "params"), device)
         occ = occupancy_from_numpy(d["occ/density_grid"], d["occ/count_grid"],
                                    d["occ/bitfield"], device)
         step = int(d["__step__"])
-    return ngp_params_from_numpy(params, device), occ, step
+        opt = None
+        if "opt/0/0" in d.files:
+            opt = AdamState(
+                count=int(d["opt/0/0"]), sched_count=int(d["opt/1/0"]),
+                mu=ngp_params_from_numpy(_tree(d, "opt/0/1"), device),
+                nu=ngp_params_from_numpy(_tree(d, "opt/0/2"), device))
+    return params, occ, step, opt

@@ -12,7 +12,8 @@ from the JAX functions' own key splits):
   relative norm, ``rm_samples`` equal;
 * the shared Adam against ``optax.adam`` on ``cosine_decay_schedule`` for
   5 steps (1e-6), the dataset's camera directions (1e-6), and the model
-  file (the JAX ``utils/checkpoint.py`` layout).
+  file (the JAX ``utils/checkpoint.py`` file, read and written by both
+  packages; one step resumed from it in each, to the one-step tolerances).
 """
 
 import dataclasses
@@ -176,28 +177,49 @@ def test_render_image(enc):
     assert t["host_reads"] >= t["rounds"] > 0
 
 
+def _jax_draws(jst, jcfg, random_bg, n_img=3, n_pix=16 * 16):
+    """The JAX train step's draws from ``jst.rng``, from its own key
+    splits, as the port's ``StepDraws``."""
+    _, k_batch, k_render = jax.random.split(jst.rng, 3)
+    k_img, k_pix = jax.random.split(k_batch)
+    B = jcfg.train.batch_size
+    img = jax.random.randint(k_img, (B,), 0, n_img)
+    pix = jax.random.randint(k_pix, (B,), 0, n_pix)
+    k_noise, k_bg = jax.random.split(k_render)
+    noise = jax.random.uniform(k_noise, (B,))
+    bg = t32(jax.random.uniform(k_bg, (3,))) if random_bg else None
+    return tstep.StepDraws(torch.tensor(np.asarray(img)).long(),
+                           torch.tensor(np.asarray(pix)).long(),
+                           t32(noise), bg)
+
+
+def _jax_state(jcfg, jp, words):
+    jst = jstate.create_train_state(jcfg)
+    return jst._replace(params=jp, opt_state=jstate.make_optimizer(
+        jcfg).init(jp), occupancy=jst.occupancy._replace(
+            bitfield=jnp.asarray(words)))
+
+
+def _assert_same_step(tnew, tm, jnew, jm):
+    """One port step against one JAX step: the tolerances of
+    ``test_one_train_step``."""
+    assert abs(float(tm["loss"]) - float(jm["loss"])) <= 1e-5 * abs(
+        float(jm["loss"]))
+    assert int(tm["rm_samples"]) == int(jm["rm_samples"])
+    assert int(tm["counts_max"]) == int(jm["counts_max"])
+    for a, b in zip(tstate.tree_leaves(tnew.params),
+                    jax.tree_util.tree_leaves(jnew.params)):
+        assert _rel(a, b) <= 1e-5
+
+
 @pytest.mark.parametrize("enc", ["hash", "brick"])
 def test_one_train_step(enc):
     tcfg, jcfg = _configs(enc, random_bg=(enc == "hash"))
     scene = JDS(n_images=3, img_wh=(16, 16))
     jp, tp = _params(jcfg, seed=3)
     words, bf = _ball_bitfield(seed=2)
-    jst = jstate.create_train_state(jcfg)
-    jst = jst._replace(params=jp, opt_state=jstate.make_optimizer(
-        jcfg).init(jp), occupancy=jst.occupancy._replace(
-            bitfield=jnp.asarray(words)))
-    # the JAX step's draws, from its own key splits
-    _, k_batch, k_render = jax.random.split(jst.rng, 3)
-    k_img, k_pix = jax.random.split(k_batch)
-    B = jcfg.train.batch_size
-    img = jax.random.randint(k_img, (B,), 0, 3)
-    pix = jax.random.randint(k_pix, (B,), 0, 16 * 16)
-    k_noise, k_bg = jax.random.split(k_render)
-    noise = jax.random.uniform(k_noise, (B,))
-    bg = t32(jax.random.uniform(k_bg, (3,))) if enc == "hash" else None
-    draws = tstep.StepDraws(torch.tensor(np.asarray(img)).long(),
-                            torch.tensor(np.asarray(pix)).long(),
-                            t32(noise), bg)
+    jst = _jax_state(jcfg, jp, words)
+    draws = _jax_draws(jst, jcfg, random_bg=(enc == "hash"))
     pack_cap = 4096
     jnew, jm = jstep.train_step(jst, scene.as_batch(), jcfg, 128, pack_cap)
     occ = tconv.occupancy_from_numpy(np.zeros((1, 32**3)),
@@ -206,13 +228,7 @@ def test_one_train_step(enc):
     data = tstep.Batch(t32(scene.rays), t32(scene.poses),
                        t32(scene.directions))
     tnew, tm = tstep.train_step(ts, data, tcfg, 128, pack_cap, draws)
-    assert abs(float(tm["loss"]) - float(jm["loss"])) <= 1e-5 * abs(
-        float(jm["loss"]))
-    assert int(tm["rm_samples"]) == int(jm["rm_samples"])
-    assert int(tm["counts_max"]) == int(jm["counts_max"])
-    for a, b in zip(tstate.tree_leaves(tnew.params),
-                    jax.tree_util.tree_leaves(jnew.params)):
-        assert _rel(a, b) <= 1e-5
+    _assert_same_step(tnew, tm, jnew, jm)
     assert tnew.opt_state.count == 1
 
 
@@ -254,8 +270,9 @@ def test_dataset_directions_and_batch():
 
 
 def test_model_file_roundtrip(tmp_path):
-    """The JAX checkpoint's params and occupancy load into the port; the
-    port's model.npz round-trips with the same key names."""
+    """The JAX checkpoint's params, optimizer state and occupancy load into
+    the port; the port's model.npz round-trips with every key of the JAX
+    file, each of the same shape and type."""
     from taichi_nerfs_tpu.utils.checkpoint import save_checkpoint
 
     _, jcfg = _configs("brick")
@@ -266,7 +283,7 @@ def test_model_file_roundtrip(tmp_path):
         density_grid=jnp.full_like(jst.occupancy.density_grid, 0.25)))
     path = os.path.join(tmp_path, "model.npz")
     save_checkpoint(path, jst, 7)
-    params, occ, step = tconv.load_ngp_npz(path)
+    params, occ, step, opt = tconv.load_ngp_npz(path)
     assert step == 7
     for a, b in zip(tstate.tree_leaves(params),
                     jax.tree_util.tree_leaves(jst.params)):
@@ -275,10 +292,93 @@ def test_model_file_roundtrip(tmp_path):
                                   words)
     assert occ.bitfield.dtype == torch.int32
     out = os.path.join(tmp_path, "port.npz")
-    tconv.save_ngp_npz(out, params, occ, step=9)
+    tconv.save_ngp_npz(out, tstate.TrainState(params, opt, occ), step=9,
+                       seed=jcfg.train.seed)
     with np.load(path) as a, np.load(out) as b:
-        keys = {k for k in a.files if k.startswith(("params/", "occ/"))}
-        assert keys == set(b.files) - {"__step__"}
-        for k in keys:
-            np.testing.assert_array_equal(a[k], b[k])
+        assert set(a.files) == set(b.files)
+        for k in a.files:
+            assert (a[k].shape, a[k].dtype) == (b[k].shape, b[k].dtype), k
+            if k not in ("__step__", "rng"):
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert int(b["__step__"]) == 9
+        # the key of jax.random.PRNGKey(seed): the port's draws are torch's
+        np.testing.assert_array_equal(b["rng"], [0, jcfg.train.seed])
         assert b["occ/bitfield"].dtype == np.uint32
+
+
+def _trained_jax_state(jcfg, steps=2):
+    """A JAX train state after ``steps`` steps of ``train_step`` on a tiny
+    scene (nonzero moments, counts ``steps``), with the scene."""
+    scene = JDS(n_images=3, img_wh=(16, 16))
+    jp, _ = _params(jcfg, seed=3)
+    words, _ = _ball_bitfield(seed=2)
+    jst = _jax_state(jcfg, jp, words)
+    for _ in range(steps):
+        jst, _ = jstep.train_step(jst, scene.as_batch(), jcfg, 128, 4096)
+    return jst, scene
+
+
+def test_jax_loads_port_model_file(tmp_path):
+    """A model.npz the port writes loads in the JAX ``load_checkpoint``
+    into ``create_train_state``'s template, with the port's moments and
+    counts."""
+    from taichi_nerfs_tpu.utils.checkpoint import load_checkpoint
+
+    tcfg, jcfg = _configs("hash")
+    jst, _ = _trained_jax_state(jcfg)
+    mu, nu = (tconv.ngp_params_from_numpy(jax.device_get(x))
+              for x in (jst.opt_state[0].mu, jst.opt_state[0].nu))
+    ts = tstate.TrainState(
+        tstate.trainable(tconv.ngp_params_from_numpy(
+            jax.device_get(jst.params))),
+        tstate.AdamState(2, 5, mu, nu),
+        tconv.occupancy_from_numpy(*(np.asarray(x) for x in (
+            jst.occupancy.density_grid, jst.occupancy.count_grid,
+            jst.occupancy.bitfield))))
+    path = os.path.join(tmp_path, "model.npz")
+    tconv.save_ngp_npz(path, ts, step=5, seed=tcfg.train.seed)
+    loaded, step = load_checkpoint(path, jstate.create_train_state(jcfg))
+    assert step == 5
+    adam, sched = loaded.opt_state
+    assert (int(adam.count), int(sched.count)) == (2, 5)
+    for a, b in zip(jax.tree_util.tree_leaves((adam.mu, adam.nu)),
+                    jax.tree_util.tree_leaves((jst.opt_state[0].mu,
+                                               jst.opt_state[0].nu))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(np.asarray(loaded.occupancy.bitfield),
+                                  np.asarray(jst.occupancy.bitfield))
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.key_data(loaded.rng)), [0, tcfg.train.seed])
+
+
+@pytest.mark.parametrize("enc", ["hash", "brick"])
+def test_resumed_step_matches_jax(enc, tmp_path):
+    """A port resume of a JAX-written model.npz carries Adam's moments and
+    both counts, and one resumed port step equals one resumed JAX step on
+    the same draws (the tolerances of ``test_one_train_step``)."""
+    from taichi_nerfs_tpu.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    tcfg, jcfg = _configs(enc, random_bg=(enc == "hash"))
+    jst, scene = _trained_jax_state(jcfg)
+    path = os.path.join(tmp_path, "model.npz")
+    save_checkpoint(path, jst, 2)
+    jres, _ = load_checkpoint(path, jstate.create_train_state(jcfg))
+    params, occ, step, opt = tconv.load_ngp_npz(path)
+    assert step == 2 and (opt.count, opt.sched_count) == (2, 2)
+    for a, b in zip(tstate.tree_leaves((opt.mu, opt.nu)),
+                    jax.tree_util.tree_leaves((jst.opt_state[0].mu,
+                                               jst.opt_state[0].nu))):
+        np.testing.assert_array_equal(np32(a), np.asarray(b))
+    assert float(max(np.abs(np32(x)).max()
+                     for x in tstate.tree_leaves(opt.nu))) > 0
+    ts = tstate.TrainState(tstate.trainable(params), opt, occ)
+    draws = _jax_draws(jres, jcfg, random_bg=(enc == "hash"))
+    jnew, jm = jstep.train_step(jres, scene.as_batch(), jcfg, 128, 4096)
+    data = tstep.Batch(t32(scene.rays), t32(scene.poses),
+                       t32(scene.directions))
+    tnew, tm = tstep.train_step(ts, data, tcfg, 128, 4096, draws)
+    _assert_same_step(tnew, tm, jnew, jm)
+    assert (tnew.opt_state.count, tnew.opt_state.sched_count) == (3, 3)

@@ -201,7 +201,8 @@ def test_train_entry_ngp_cpu_run(tmp_path, monkeypatch):
     for name in ("model.npz", "rgb_000.png", "depth_000.png"):
         assert (out / name).exists(), name
     assert len(res["psnr"]) == 2 and np.all(np.isfinite(res["psnr"]))
-    params, occ, step = load_ngp_npz(str(out / "model.npz"))
+    params, occ, step, opt = load_ngp_npz(str(out / "model.npz"))
+    assert opt.count == opt.sched_count == step
     assert step == 7 and set(params) == {"brick", "rgb_mlp", "xyz_mlp"}
     assert occ.bitfield.shape == (16**3 // 32,)
 

@@ -257,3 +257,28 @@ def test_kernel_edge_cases_on_card(cuda_device, case, kind, F):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("edit", ["header", "source", "nothing"])
+def test_library_path_hashes_the_shared_header(edit, tmp_path, monkeypatch):
+    """Both sweep kernels include ``csrc/swr_sweep_common.cuh``: an edit of
+    the header, as of the kernel's own source, gives the library another
+    path (so it is rebuilt); an untouched tree keeps it."""
+    import shutil
+
+    from taichi_nerfs_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {n: _build.library_path(n)
+              for n in ("swr_sweep_fwd", "swr_sweep_bwd")}
+    target = {"header": "swr_sweep_common.cuh", "source": "swr_sweep_fwd.cu",
+              "nothing": None}[edit]
+    if target:
+        with open(csrc / target, "a") as f:
+            f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in before}
+    changed = {n for n in before if before[n] != after[n]}
+    assert changed == {"header": set(before), "source": {"swr_sweep_fwd"},
+                       "nothing": set()}[edit]

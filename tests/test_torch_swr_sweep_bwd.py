@@ -18,6 +18,13 @@ import pytest
 import torch
 from torch_port_helpers import np32, rand_sweep_inputs, t32
 
+from test_torch_swr_sweep import (
+    EDGE_CASES,
+    EDGE_RUNS,
+    ROW_COLS,
+    TILE_J,
+    _edge_inputs,
+)
 from taichi_nerfs_torch.ops import swr_sweep as tsw
 from taichi_nerfs_torch.ops.warp import interp_kernel
 
@@ -192,6 +199,79 @@ def test_kernel_grad_clamp_binds_on_card(cuda_device, kind):
     want = tsw.chunk_sweep_bwd_reference(*args, g, nq, kind)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    # no atomics: the same inputs give the same bits
+    # the tiles' sums are added with atomics, in the order the blocks reach
+    # them: a second run agrees to the last bits of fp32
     again = tsw.chunk_sweep_bwd(*args, frames, g, nq, kind)
-    assert torch.equal(got, again)
+    torch.testing.assert_close(again, got, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [4, 8, 16])
+@pytest.mark.parametrize("case,kind", EDGE_RUNS)
+def test_kernel_grad_edge_cases_on_card(cuda_device, case, kind, F):
+    """The backward kernel against the plain version's autograd (2e-4) at
+    the forward's edge cases: a negative step, a step >= 3 and non-finite
+    positions (the tap-by-tap path), lattices partly and wholly outside
+    the source, a ragged tile."""
+    vol, rs, z_rel, ch, nq = _edge_inputs(case, F)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (vol, rs, z_rel, ch)]
+    g = torch.as_tensor(_cotangent(vol, nq), device=cuda_device)
+    frames = tsw.chunk_sweep(*args, nq, kind)
+    got = tsw.chunk_sweep_bwd(*args, frames, g, nq, kind)
+    want = tsw.chunk_sweep_bwd_reference(*args, g, nq, kind)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def _bwd_paths(rs, nq, Rc, NT=4):
+    """How the backward kernel treats each (chunk, slab, 64-column tile):
+    counts of tiles on the tap-by-tap path (a column window that is not
+    finite or wider than ROW_COLS, its dx2 scattered point by point), on
+    the window path adding 16 bytes at a time (Rc a multiple of 4), and on
+    the window path adding one float at a time.  A mirror of the kernel's
+    axis_window and its widening to whole float4s, in fp32."""
+    f32 = np.float32
+    j0 = np.arange(0, nq, TILE_J)
+    j1 = np.minimum(j0 + TILE_J, nq) - 1
+    with np.errstate(invalid="ignore", over="ignore"):
+        pa = rs[..., 2:3] + f32(j0) * rs[..., 3:4]
+        pz = rs[..., 2:3] + f32(j1) * rs[..., 3:4]
+        finite = np.isfinite(pa) & np.isfinite(pz)
+        p_lo = np.clip(np.fmin(pa, pz), -8, Rc + 8)
+        p_hi = np.clip(np.fmax(pa, pz), -8, Rc + 8)
+        lo = np.floor(p_lo) - (NT // 2 - 1)
+        hi = np.floor(p_hi) + NT // 2
+    empty = (hi < 0) | (lo >= Rc)
+    c0 = np.maximum(lo - 1, 0)
+    end = np.minimum(hi + 1, Rc - 1) + 1
+    vec = Rc % 4 == 0
+    if vec:
+        end = np.minimum((end + 3) // 4 * 4, Rc)
+        c0 = c0 // 4 * 4
+    ncol = np.where(empty, 0, end - c0)
+    taps = ~finite | (ncol > ROW_COLS)
+    window = int((~taps).sum())
+    return {"taps": int(taps.sum()), "float4": window if vec else 0,
+            "float": 0 if vec else window}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES) + ["ragged_card"])
+def test_bwd_cases_reach_each_path(case):
+    """Which of the backward kernel's paths the card tests run: the step
+    >= 3 and non-finite cases, and only they, scatter point by point; the
+    others sum on the window path, 16 bytes at a time where the source
+    rows hold whole float4s (every edge case) and one float at a time
+    where they do not (the ragged card case, Rc = 33)."""
+    if case == "ragged_card":
+        _, rs, _, _, nq = rand_sweep_inputs(seed=4, nc=3, dc=5, Rb=40, Rc=33,
+                                            F=4, nq=37)
+        Rc = 33
+    else:
+        _, rs, _, _, nq = _edge_inputs(case, 4)
+        Rc = EDGE_CASES[case][3]
+    paths = _bwd_paths(rs, nq, Rc)
+    assert (paths["taps"] > 0) == (case in ("step_ge_3", "non_finite"))
+    assert (paths["float"] > 0) == (case == "ragged_card")
+    assert (paths["float4"] > 0) == (case != "ragged_card")
