@@ -28,7 +28,26 @@ phases:
    kernels' launch counts during the steps must be > 0, one full-depth
    step's gradient through the kernels is compared with the one through
    the plain sweep, and one test view is rendered uncapped;
-6. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
+6. default flags: ``python -m taichi_nerfs_torch.train --model_name
+   pyramid``'s configuration built by the entry's own ``configs()`` from
+   the default flags (linear, F=16, deferred, crop 256, R=256) on 8
+   procedural lego views at 800x800, the coarse-to-fine phases cut to 3
+   steps each; each phase's slab window must be 0 (the sweep's scope),
+   both kernels' launch counts during the steps > 0 (the step medians and
+   peak device memory printed), and one full-depth
+   step's gradient through the kernels is compared with the plain sweep's;
+7. scan: the record widths with a split sigma grid (``sigma_res=512``),
+   per-sample shading and the distortion loss, which the slab scan renders:
+   8 steps on the same views (losses finite; the loss on fixed crops
+   falls), the step median and peak device memory, one capped 800x800
+   frame (finite, opacity in [0, 1]) and zero sweep-kernel launches;
+8. scan card vs CPU: one scan-path loss and its gradients at a small size,
+   full-matrix and windowed, on the card and on the CPU (loss 1e-5
+   relative, gradients 2e-4 relative norm, the CPU tests' tolerances);
+9. window: a narrow 800x800 view (focal 4 w, a 32 x 32 crop) of the record
+   model, whose slab window is 64 at R=256, rendered windowed (the scan)
+   and with the full matrix (the sweep kernel), compared;
+10. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
    (brick encoder, 128^3 occupancy grid, batch 8192) trains 320 steps with
    ``Trainer`` on 8 checker views made on the card (past the 256-step
    warmup, so the sparse grid refresh runs); every loss must be finite and
@@ -41,6 +60,7 @@ phases:
 
 Prints one JSON line with the kernels' numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0).
+The new phases' summary lines carry the card's name and power limit.
 
     python3 chip_smoke.py [--ckpt_path results/model_pyramid.npz]
 """
@@ -97,6 +117,12 @@ NGP_STEPS, NGP_WARMUP = 320, 256
 NGP_LOSS_FALL = 0.5
 NGP_CHECK_RAYS, NGP_COUNT_SHARE, NGP_RGB_TOL = 4096, 0.999, 2e-2
 NGP_TEST_WH = (800, 800)
+# the default-flag phase: 3 coarse-to-fine phases of 3 steps; the scan
+# phase: steps, and fixed crops whose loss must fall
+DEFAULT_PROG, DEFAULT_STEPS = (3, 3), 9
+SCAN_STEPS, SCAN_CROPS = 8, 2
+# scan loss and gradients, card against CPU (the CPU tests' tolerances)
+SCAN_LOSS_TOL, SCAN_GRAD_TOL = 1e-5, 2e-4
 
 
 def _median(xs):
@@ -716,6 +742,361 @@ def phase_train(torch, seed, device="cuda"):
     return launches, by_phase, worst_grad
 
 
+def _grads_kernel_vs_plain(torch, trainer, tag):
+    """One full-depth step's level gradients through the kernels and
+    through the plain sweep, on one drawn crop, background and TV window;
+    raises beyond ``GRAD_TOL``.  Returns the worst relative norm."""
+    import dataclasses
+
+    from taichi_nerfs_torch.render.swr import pick_warp
+    from taichi_nerfs_torch.train.swr_step import make_swr_loss
+
+    i, crop_xy, bg, tv_starts = trainer.draw()
+    axis, flip = trainer._axis_flip[i]
+    c = trainer.tcfg.crop
+    warp = pick_warp(trainer.poses_np[i], trainer.K, (c, c), axis,
+                     crop_xy=crop_xy)
+    grads = {}
+    for impl in ("auto", "reference"):
+        loss_fn = make_swr_loss(
+            trainer.images[i], trainer.poses_np[i], trainer.K, crop_xy,
+            trainer.cur_mcfg, dataclasses.replace(trainer.tcfg,
+                                                  sweep_impl=impl),
+            axis, flip, bg, tv_starts, trainer.lat_size, warp,
+            trainer.slab_window,
+        )
+        loss, _ = loss_fn(trainer.state.params)
+        grads[impl] = torch.autograd.grad(
+            loss, trainer.state.params["levels"])
+    torch.cuda.synchronize()
+    worst = 0.0
+    for lv, (a, b) in enumerate(zip(grads["auto"], grads["reference"])):
+        rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        worst = max(worst, rel)
+        print(f"{tag}: level {lv} gradient, kernels vs plain sweep: "
+              f"relative norm {rel:.3e}", flush=True)
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"{tag}: level {lv} gradient differs by "
+                                 f"{rel} > {GRAD_TOL}")
+    return worst
+
+
+def phase_default_flags(torch, seed, card):
+    """The train entry's configuration from its default flags: every phase
+    in the sweep's scope (slab window 0), both kernels launched, the
+    gradient through them against the plain sweep's.  Returns the lego
+    views (reused by the scan phase), the kernels' launch counts, the
+    steady step medians by phase, the worst gradient difference and the
+    peak device memory (GiB) over the steps."""
+    import numpy as np
+    from opt import get_opts
+
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.train.__main__ import configs
+    from taichi_nerfs_torch.train.swr_step import SwrTrainer
+
+    device = torch.device("cuda")
+    hp = get_opts([
+        "--root_dir", f"synthetic://lego?views=8&res={RECORD_WH[0]}",
+        "--dataset_name", "synthetic", "--model_name", "pyramid",
+        "--max_steps", str(DEFAULT_STEPS),
+        "--prog_steps", ",".join(map(str, DEFAULT_PROG)),
+    ])
+    t0 = time.perf_counter()
+    train = SyntheticSphereDataset(root_dir=hp.root_dir, split=hp.split,
+                                   downsample=hp.downsample, device=device)
+    torch.cuda.synchronize()
+    print(f"default flags: {len(train)} lego views at {train.img_wh} made "
+          f"on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    mcfg, tcfg = configs(hp, train)
+    print(f"default flags: {mcfg}; {tcfg}", flush=True)
+    want = dict(resample_kind="linear", crop=256, features=16, deferred=True,
+                grid_res=256)
+    have = dict(resample_kind=tcfg.resample_kind, crop=tcfg.crop,
+                features=mcfg.features, deferred=mcfg.deferred,
+                grid_res=mcfg.grid_res)
+    if have != want:
+        raise AssertionError(f"default flags gave {have}, not {want}")
+    trainer = SwrTrainer(mcfg, tcfg, train.rays, train.poses, train.K,
+                         train.img_wh, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    chunk_sweep.launches = 0
+    chunk_sweep_bwd.launches = 0
+    losses, step_ms, levels = [], [], []
+    for _ in range(DEFAULT_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.run_step()
+        loss = float(m["loss"])  # waits for the step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        levels.append(len(trainer.state.params["levels"]))
+        print(f"default flags step {trainer.step - 1}: {levels[-1]} levels "
+              f"(R={trainer.cur_mcfg.grid_res}, lattice "
+              f"{trainer.lat_size or tcfg.crop + 16}, slab window "
+              f"{trainer.slab_window}) loss={loss:.6f} {step_ms[-1]:.2f} ms",
+              flush=True)
+        if trainer.slab_window != 0:
+            raise AssertionError(f"slab window {trainer.slab_window} in the "
+                                 f"phase at R={trainer.cur_mcfg.grid_res}")
+    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"default flags: launches during the {DEFAULT_STEPS} steps: "
+          f"swr_sweep_fwd {launches[0]}, swr_sweep_bwd {launches[1]}",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"default flags: non-finite loss: {losses}")
+    if set(levels) != {2, 3, 4}:
+        raise AssertionError(f"default flags: levels {levels}")
+    if min(launches) <= 0:
+        raise AssertionError(f"a sweep kernel never launched: {launches}")
+    n0, n1 = DEFAULT_PROG
+    starts = {0, n0, n0 + n1}
+    by_phase = {lv: _median([ms for k, (l2, ms) in
+                             enumerate(zip(levels, step_ms))
+                             if l2 == lv and k not in starts])
+                for lv in (2, 3, 4)}
+    worst = _grads_kernel_vs_plain(torch, trainer, "default flags")
+    print(f"default flags: steady step medians by phase (R=64 / 128 / 256): "
+          f"{by_phase[2]:.3f} / {by_phase[3]:.3f} / {by_phase[4]:.3f} ms; "
+          f"peak device memory over the steps {peak / 2**30:.3f} GiB; "
+          f"worst level-gradient difference {worst:.3e} ({card})",
+          flush=True)
+    return train, launches, by_phase, worst, peak / 2**30
+
+
+def phase_scan(torch, seed, train, card):
+    """The slab scan at the record widths: a split sigma grid, per-sample
+    shading and the distortion loss; no sweep kernel may launch."""
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import orbit_poses
+    from taichi_nerfs_torch.models.pyramid import PyramidConfig
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
+
+    device = torch.device("cuda")
+    mcfg = PyramidConfig((32, 64, 128, 256), features=8, sigma_res=512,
+                         deferred=False)
+    tcfg = SwrTrainConfig(crop=256, lr=1e-2, max_steps=SCAN_STEPS,
+                          n_chunks=16, distortion_w=1e-3)
+    chunk_sweep.launches = 0
+    chunk_sweep_bwd.launches = 0
+    trainer = SwrTrainer(mcfg, tcfg, train.rays, train.poses, train.K,
+                         train.img_wh, seed=seed, device=device)
+    evals = _fixed_crops(torch, trainer, seed, n=SCAN_CROPS)
+    t0 = time.perf_counter()
+    loss0 = _fixed_loss(torch, trainer, evals)
+    print(f"scan: the loss on {SCAN_CROPS} fixed crops in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (forward only)",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(SCAN_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.run_step()
+        losses.append(float(m["loss"]))  # waits for the step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"scan step {trainer.step - 1}: loss={losses[-1]:.6f} "
+              f"psnr={float(m['psnr']):.3f} {step_ms[-1]:.2f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    loss1 = _fixed_loss(torch, trainer, evals)
+    if not all(np.isfinite(losses)) or not np.isfinite(loss1):
+        raise AssertionError(f"scan: non-finite loss: {losses}, {loss1}")
+    print(f"scan: loss on {SCAN_CROPS} fixed crops, initial {loss0:.6f}, "
+          f"after {SCAN_STEPS} steps {loss1:.6f} (ratio {loss1 / loss0:.4f},"
+          f" must be < 1)", flush=True)
+    if not loss1 < loss0:
+        raise AssertionError(f"scan: the loss did not fall: {loss0} -> "
+                             f"{loss1}")
+    prof = _profile_step(torch, trainer, "scan")
+    t0 = time.perf_counter()
+    out = trainer.render(orbit_poses(1)[0], img_wh=RECORD_WH)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    rgb, op = out["rgb"], out["opacity"]
+    if tuple(rgb.shape) != (RECORD_WH[0] * RECORD_WH[1], 3) or not bool(
+            torch.isfinite(rgb).all() and torch.isfinite(op).all()):
+        raise AssertionError("scan: the capped frame is not finite")
+    lo, hi = float(op.min()), float(op.max())
+    if lo < -1e-6 or hi > 1.0 + 1e-6:
+        raise AssertionError(f"scan: opacity in [{lo}, {hi}]")
+    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    if launches != (0, 0):
+        raise AssertionError(f"scan: the sweep kernels launched {launches}")
+    steady = _median(step_ms[1:])
+    print(f"scan: split sigma_res=512, per-sample shading, distortion 1e-3, "
+          f"R=256, crop 256: steady step median {steady:.3f} ms (steps "
+          f"{[round(x, 3) for x in step_ms]}), peak device memory "
+          f"{peak / 2**30:.3f} GiB; capped 800x800 frame {frame_ms:.2f} ms, "
+          f"opacity in [{lo:.4f}, {hi:.4f}]; sweep launches {launches}; "
+          f"profiled step: {prof['launches']} kernel launches, the card busy "
+          f"{100.0 * prof['busy']:.1f}% ({card})", flush=True)
+    return {"step_ms": steady, "peak_gib": peak / 2**30,
+            "frame_ms": frame_ms, "sweep_launches": launches, **prof}
+
+
+def _profile_step(torch, trainer, tag):
+    """One training step under ``torch.profiler``: its kernel launches, the
+    card's busy share of its wall time, the top kernels by device time and
+    the renderer's spans (host time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer.run_step()["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    launches = sum(e.count for e in kern)
+    print(f"{tag}: profiled step {wall_us / 1e3:.3f} ms wall, "
+          f"{busy_us / 1e3:.3f} ms of kernels ({launches} launches); top "
+          "kernels: " + "; ".join(
+              f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x"
+              f"{e.count}" for e in kern[:6]), flush=True)
+    print(f"{tag}: spans, host time: " + "; ".join(
+        f"{e.key} {e.cpu_time_total / 1e3:.3f} ms x{e.count}"
+        for e in sorted(avgs, key=lambda e: e.key)
+        if e.key.startswith("swr.")), flush=True)
+    return {"launches": launches, "busy": busy_us / wall_us,
+            "profiled_ms": wall_us / 1e3}
+
+
+def phase_scan_cpu(torch, seed, card):
+    """One scan-path loss and its gradients at a small size on the card and
+    on the CPU, from the same params and inputs: full-matrix and windowed
+    (a split grid, per-sample shading, the distortion loss)."""
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import look_at
+    from taichi_nerfs_torch.models.pyramid import (
+        PyramidConfig,
+        init_pyramid_params,
+    )
+    from taichi_nerfs_torch.render.swr import sweep_axis
+    from taichi_nerfs_torch.train.swr_step import (
+        SwrTrainConfig,
+        _trainable,
+        make_swr_loss,
+        tree_leaves,
+        tree_map,
+    )
+
+    mcfg = PyramidConfig((8, 16), features=4, rgb_width=16, sigma_res=32,
+                         sigma_bias=-1.0, deferred=False)
+    tcfg = SwrTrainConfig(crop=24, n_chunks=4, tv_w=5e-3, sigma_l1=1e-3,
+                          distortion_w=1e-2)
+    params = init_pyramid_params(mcfg, torch.Generator().manual_seed(seed))
+    R = mcfg.grid_res
+    c = (torch.arange(R, dtype=torch.float32) + 0.5) / R - 0.5
+    xx, yy, zz = torch.meshgrid(c, c, c, indexing="ij")
+    params["levels"][-1][..., 0] += 3.0 * torch.exp(
+        -(xx**2 + yy**2 + zz**2) / 0.25**2)
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (40, 40, 3), dtype=np.uint8)
+    pose = look_at(np.array([0.4, -1.2, 0.5]), np.zeros(3),
+                   np.array([0.0, 0.0, 1.0]))
+    axis, flip = sweep_axis(pose)
+    worst = 0.0
+    for window, f in ((0, 36.0), (8, 96.0)):
+        K = np.array([[f, 0, 20], [0, f, 20], [0, 0, 1]], np.float32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = _trainable(tree_map(lambda t, d=dev: t.to(d), params))
+            loss, _ = make_swr_loss(
+                torch.as_tensor(img, device=dev), pose, K, (9, 5), mcfg,
+                tcfg, axis, flip, None, (2, 5), 40, "matmul", window,
+            )(p)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            res[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+        (lc, gc), (lh, gh) = res["cuda"], res["cpu"]
+        d_loss = abs(lc - lh) / abs(lh)
+        d_grad = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+                     for a, b in zip(gc, gh))
+        print(f"scan card vs CPU, slab window {window}: loss {lc:.8f} / "
+              f"{lh:.8f} (relative {d_loss:.3e}, must be <= {SCAN_LOSS_TOL}),"
+              f" worst gradient relative norm {d_grad:.3e} (must be <= "
+              f"{SCAN_GRAD_TOL}) ({card})", flush=True)
+        if not (d_loss <= SCAN_LOSS_TOL and d_grad <= SCAN_GRAD_TOL):
+            raise AssertionError("scan: the card and the CPU disagree")
+        worst = max(worst, d_grad)
+    return worst
+
+
+def phase_window(torch, seed, card):
+    """A narrow view of the record model whose slab window is 64: rendered
+    windowed (the scan) and with the full matrix (the sweep kernel) on the
+    card; the two must agree within ``RENDER_TOL``."""
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import look_at
+    from taichi_nerfs_torch.models import pyramid as pyr
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep
+    from taichi_nerfs_torch.render.serve import record_config
+    from taichi_nerfs_torch.render.swr import render_swr, slab_window_bound
+
+    device = torch.device("cuda")
+    cfg = record_config()
+    params = _record_params(torch, cfg, seed, device)
+    with torch.no_grad():
+        grid = pyr.bake(params, cfg)
+    w, h = RECORD_WH
+    crop = 32
+    K = np.array([[4.0 * w, 0, w / 2], [0, 4.0 * w, h / 2], [0, 0, 1]],
+                 np.float32)
+    pose = look_at(np.array([0.3, 0.2, -1.3]), np.zeros(3),
+                   np.array([0.0, 0.0, 1.0]))
+    window = slab_window_bound(pose[None], K, (w, h), cfg, crop=crop)
+    if window != 64:
+        raise AssertionError(f"slab_window_bound gave {window}, not 64")
+    x0, y0 = (w - crop) // 2, (h - crop) // 2
+    K_crop = K.copy()
+    K_crop[0, 2] -= x0
+    K_crop[1, 2] -= y0
+    outs, ms, launches = {}, {}, {}
+    with torch.no_grad():
+        for sw in (window, 0):
+            render_swr(params, grid, cfg, pose, K_crop, (crop, crop),
+                       n_chunks=16, slab_window=sw)  # warm-up
+            chunk_sweep.launches = 0
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[sw] = render_swr(params, grid, cfg, pose, K_crop,
+                                      (crop, crop), n_chunks=16,
+                                      slab_window=sw)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[sw], launches[sw] = _median(times), chunk_sweep.launches
+    a, b = outs[window], outs[0]
+    diffs = {k: float((a[k] - b[k]).abs().max()) for k in a}
+    op = float(b["opacity"].max())
+    print(f"window: 800x800 view, focal 4 w, {crop}x{crop} crop, R=256: "
+          f"slab window {window}; windowed scan vs full-matrix sweep max_abs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(diffs.items()))
+          + f" (must be <= {RENDER_TOL}); max opacity {op:.4f}; frame "
+          f"{ms[window]:.2f} ms windowed ({launches[window]} sweep launches),"
+          f" {ms[0]:.2f} ms full ({launches[0]}) ({card})", flush=True)
+    if launches[window] != 0 or launches[0] <= 0:
+        raise AssertionError(f"window: sweep launches {launches}")
+    if op <= 0.5 or not max(diffs.values()) <= RENDER_TOL:
+        raise AssertionError(f"window: windowed and full renders differ: "
+                             f"{diffs}, max opacity {op}")
+    return diffs, ms
+
+
 def _fixed_crops(torch, trainer, seed, n=4):
     """``n`` training inputs (image, crop, background, TV start 0): the
     centre crop of the first ``n`` training views, where the object is
@@ -733,9 +1114,10 @@ def _fixed_crops(torch, trainer, seed, n=4):
 def _fixed_loss(torch, trainer, evals):
     """Mean training loss of the current params over ``evals``."""
     from taichi_nerfs_torch.render.swr import pick_warp
-    from taichi_nerfs_torch.train.swr_step import make_swr_loss
+    from taichi_nerfs_torch.train.swr_step import make_swr_loss, tv_levels
 
     c = trainer.tcfg.crop
+    tv_starts = (0,) * len(tv_levels(trainer.state.params, trainer.cur_mcfg))
     total = 0.0
     with torch.no_grad():
         for i, xy, bg in evals:
@@ -744,8 +1126,8 @@ def _fixed_loss(torch, trainer, evals):
                              crop_xy=xy)
             loss, _ = make_swr_loss(
                 trainer.images[i], trainer.poses_np[i], trainer.K, xy,
-                trainer.cur_mcfg, trainer.tcfg, axis, flip, bg, (0,),
-                trainer.lat_size, warp,
+                trainer.cur_mcfg, trainer.tcfg, axis, flip, bg, tv_starts,
+                trainer.lat_size, warp, trainer.slab_window,
             )(trainer.state.params)
             total += float(loss)
     return total / len(evals)
@@ -977,7 +1359,8 @@ def main(argv=None):
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -994,6 +1377,20 @@ def main(argv=None):
           f"{_median(step_ms[4]):.3f} ms, first phase (R=64) "
           f"{_median(step_ms[2]):.3f} ms; worst level-gradient "
           f"difference {worst_grad:.3e}", flush=True)
+    lego, (dfl_fwd, dfl_bwd), dfl_ms, dfl_grad, dfl_gib = (
+        phase_default_flags(torch, args.seed, card))
+    scan = phase_scan(torch, args.seed, lego, card)
+    del lego
+    scan_cpu = phase_scan_cpu(torch, args.seed, card)
+    window_diffs, window_ms = phase_window(torch, args.seed, card)
+    print(f"summary ({card}): default-flag full-depth step "
+          f"{dfl_ms[4]:.3f} ms, peak {dfl_gib:.3f} GiB (swr_sweep_fwd "
+          f"{dfl_fwd} / swr_sweep_bwd "
+          f"{dfl_bwd} launches, gradients within {dfl_grad:.3e}); scan step "
+          f"{scan['step_ms']:.3f} ms, peak {scan['peak_gib']:.3f} GiB, capped "
+          f"frame {scan['frame_ms']:.2f} ms; scan card vs CPU gradients "
+          f"within {scan_cpu:.3e}; windowed frame {window_ms[64]:.2f} ms vs "
+          f"full {window_ms[0]:.2f} ms", flush=True)
     ngp = phase_ngp(torch, args.seed)
     print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
           f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
@@ -1008,8 +1405,11 @@ def main(argv=None):
         "route": "cuda",
         "source": "taichi_nerfs_torch/csrc/swr_sweep_fwd.cu",
         "replaces": "taichi_nerfs_tpu/ops/swr_pallas.py:116",
-        "launches": fwd_n,
-        "launches_by_path": {"serve": serve_launches, "train": fwd_n},
+        # the default-flag (linear) training steps
+        "launches": dfl_fwd,
+        "launches_by_path": {"serve": serve_launches, "train": fwd_n,
+                             "train_default_flags": dfl_fwd,
+                             "scan": scan["sweep_launches"][0]},
         "max_abs_err": worst,
         # one chunk of the uncapped 800x800 frame, cubic, warm
         "ms": fwd["warm"],
@@ -1025,8 +1425,9 @@ def main(argv=None):
         "route": "cuda",
         "source": "taichi_nerfs_torch/csrc/swr_sweep_bwd.cu",
         "replaces": "taichi_nerfs_tpu/ops/swr_pallas.py:178",
-        "launches": bwd_n,
-        "launches_by_path": {"train": bwd_n},
+        "launches": dfl_bwd,
+        "launches_by_path": {"train": bwd_n, "train_default_flags": dfl_bwd,
+                             "scan": scan["sweep_launches"][1]},
         "max_abs_err": worst_bwd,
         # the full-depth training shape, cubic, warm
         "ms": bwd["warm"],

@@ -32,7 +32,7 @@ from .cameras import look_at
 
 _INSIDE_TODO = (
     "the 'shell' scene's inside cameras are not ported yet; see ROADMAP "
-    "'Modules to port' item 10"
+    "'Modules to port' item 10.5"
 )
 _VARIANTS = ("sphere", "checker", "lego")
 

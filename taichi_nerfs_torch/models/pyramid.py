@@ -5,11 +5,10 @@ dict ``{"levels": [(r, r, r, F_l) tensors], "rgb_mlp": {"w0": ...}}`` with
 the JAX layouts: level grids are indexed ``[x, y, z]`` with channels last,
 MLP weights are stored ``(in, out)``.  ``bake`` fuses the levels into one
 ``(R, R, R, F)`` grid whose channel 0 is sigma (TruncExp of the capped
-logit) and whose other channels feed the rgb MLP.
-
-The split-resolution density level (``sigma_res``) is not ported yet:
-configs with it raise ``NotImplementedError`` (ROADMAP, "Modules to port",
-item 10).
+logit) and whose other channels feed the rgb MLP.  A split-resolution
+config (``sigma_res``) also has ``params["sigma_level"]``, a single-channel
+density level at twice the finest resolution, and bakes to the pair
+``(sigma (Rs, Rs, Rs), feats (R, R, R, F-1))``.
 """
 
 from __future__ import annotations
@@ -24,11 +23,6 @@ from .mlp import MLPSpec, apply_mlp, init_mlp
 from .ngp import trunc_exp
 
 Params = Dict[str, Any]
-
-_SPLIT_TODO = (
-    "split-resolution density (sigma_res) is not ported yet; see ROADMAP "
-    "'Modules to port' item 10"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,13 +103,13 @@ def init_pyramid_params(
     generator: torch.Generator | None = None,
     device=None,
 ) -> Params:
-    """Random params: levels ~ 1e-2 N(0, 1), Xavier-uniform rgb MLP.
+    """Random params: levels ~ 1e-2 N(0, 1), Xavier-uniform rgb MLP and,
+    for a split config, ``sigma_level`` ~ 1e-2 N(0, 1).
 
-    Drawn on the CPU from ``generator`` (so a seed gives the same params on
-    every device), then moved to ``device``.
+    Drawn on the CPU from ``generator`` in that order (so a seed gives the
+    same params on every device, and a split config the levels and MLP of
+    the unsplit one), then moved to ``device``.
     """
-    if cfg.split:
-        raise NotImplementedError(_SPLIT_TODO)
     levels = []
     for lv, r in enumerate(cfg.resolutions):
         g = torch.randn(
@@ -123,10 +117,16 @@ def init_pyramid_params(
             dtype=torch.float32,
         )
         levels.append((1e-2 * g).to(device))
-    return {
+    params = {
         "levels": levels,
         "rgb_mlp": init_mlp(rgb_mlp_spec(cfg), generator, device),
     }
+    if cfg.split:
+        rs = cfg.sigma_res
+        g = torch.randn((rs, rs, rs), generator=generator,
+                        dtype=torch.float32)
+        params["sigma_level"] = (1e-2 * g).to(device)
+    return params
 
 
 def _upsample_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
@@ -149,7 +149,7 @@ def _upsample3(g: torch.Tensor, r_out: int) -> torch.Tensor:
     return torch.einsum("xyzf,zu->xyuf", g, w)
 
 
-def bake(params: Params, cfg: PyramidConfig) -> torch.Tensor:
+def bake(params: Params, cfg: PyramidConfig):
     """Fuse the pyramid into one fp32 (R, R, R, F) grid.
 
     Levels accumulate progressively: the running sum is upsampled to each
@@ -157,9 +157,11 @@ def bake(params: Params, cfg: PyramidConfig) -> torch.Tensor:
     channels) adds into the leading channels only.  Channel 0 becomes
     ``trunc_exp(min(logit + sigma_bias, 11))``: the baked grid carries
     sigma, so the renderer's zero padding outside the scene is empty space.
+
+    A split config returns ``(sigma (Rs, Rs, Rs), feats (R, R, R, F-1))``:
+    the density logit is upsampled to ``Rs`` and refined by
+    ``params["sigma_level"]`` before TruncExp.
     """
-    if cfg.split:
-        raise NotImplementedError(_SPLIT_TODO)
     R = cfg.grid_res
     out = None
     for g in params["levels"]:
@@ -176,6 +178,11 @@ def bake(params: Params, cfg: PyramidConfig) -> torch.Tensor:
     if out.shape[0] != R:
         out = _upsample3(out, R)
     # forward logit ceiling (TruncExp clamps only its backward)
+    if cfg.split:
+        logit = _upsample3(out[..., :1], cfg.sigma_res)[..., 0]
+        logit = logit + params["sigma_level"].float()
+        sigma = trunc_exp(torch.clamp(logit + cfg.sigma_bias, max=11.0))
+        return sigma, out[..., 1:]
     sigma = trunc_exp(
         torch.clamp(out[..., 0] + cfg.sigma_bias, max=11.0)
     )

@@ -34,7 +34,7 @@ from ..models import pyramid as pyr
 from ..utils.device import resolve_device
 from .swr import _host_f32, render_swr, sweep_axis
 
-_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10"
+_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10.5"
 
 
 def _require_fp32_matmul():
@@ -50,7 +50,8 @@ class PyramidRenderer:
 
     Args:
         params: the port's pyramid params (``utils/convert.py``).
-        cfg: its ``PyramidConfig``; must be deferred-shading and unsplit.
+        cfg: its ``PyramidConfig`` (deferred or per-sample shading, split
+            ``sigma_res`` or not).
         K, img_wh: default intrinsics and image size.
         resample_kind: "linear" or "cubic"; must match the checkpoint's
             training kind (the record model trains cubic).
@@ -74,6 +75,10 @@ class PyramidRenderer:
             raise NotImplementedError(f"cam_carve is {_TODO}")
         exp = [(r, r, r, cfg.feat_of(i)) for i, r in enumerate(cfg.resolutions)]
         got = [tuple(g.shape) for g in params["levels"]]
+        if cfg.split:
+            exp.append((cfg.sigma_res,) * 3)
+            got.append(tuple(params["sigma_level"].shape)
+                       if "sigma_level" in params else None)
         if exp != got:
             raise ValueError(f"level shapes {got} != config {exp}")
         self.params = params
@@ -85,8 +90,9 @@ class PyramidRenderer:
         self._grid = None
 
     @property
-    def grid(self) -> torch.Tensor:
-        """The baked (R, R, R, F) grid, baked on first use."""
+    def grid(self):
+        """The baked (R, R, R, F) grid, or for a split config the pair
+        ``(sigma, feats)``, baked on first use."""
         if self._grid is None:
             _require_fp32_matmul()
             with torch.no_grad():
@@ -158,13 +164,16 @@ def record_config() -> pyr.PyramidConfig:
 
 def config_for_params(params, base: pyr.PyramidConfig) -> pyr.PyramidConfig:
     """``base`` with the resolutions and channel widths of ``params``'s
-    levels (as ``scripts/eval_fps.py`` derives them from a checkpoint)."""
+    levels (as ``scripts/eval_fps.py`` derives them from a checkpoint), and
+    the ``sigma_res`` of its ``sigma_level`` (0 without one)."""
     import dataclasses
 
     res = tuple(int(g.shape[0]) for g in params["levels"])
     lf = tuple(int(g.shape[-1]) for g in params["levels"])
+    sigma = params.get("sigma_level")
     return dataclasses.replace(
-        base, resolutions=res, features=lf[0], level_features=lf
+        base, resolutions=res, features=lf[0], level_features=lf,
+        sigma_res=0 if sigma is None else int(sigma.shape[0]),
     )
 
 

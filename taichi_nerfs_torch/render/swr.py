@@ -1,25 +1,30 @@
-"""Shear-warp frustum renderer — the dense pyramid's serving path.
+"""Shear-warp frustum renderer: the dense pyramid's serving and training
+path.
 
-Port of the JAX package's ``render/swr.py`` restricted to the configuration
-that every served frame of the record model takes: a camera outside the
-scene cube, deferred shading, an unsplit grid and full-matrix slab
-resamples (``slab_window=0``), with linear or Catmull-Rom weights.  Each
-other option of the JAX renderer raises ``NotImplementedError`` naming its
-ROADMAP entry; none of them silently takes another path.
+Port of the JAX package's ``render/swr.py`` for cameras outside the scene
+cube.  One frame (see the JAX module's docstring for the geometry):
 
-One frame (see the JAX module's docstring for the geometry):
-
-1. the baked ``(R, R, R, F)`` grid is transposed so the dominant view axis
-   leads and cut into ``n_chunks`` chunks of ``dc`` slabs;
+1. the baked grid is transposed so the dominant view axis leads and cut
+   into ``n_chunks`` chunks of ``dc`` slabs;
 2. per chunk, a lattice frame tightly covering the view frustum (and the
    cube's shadow) on the chunk's mean slab plane, and per slab the affine
    (start, step) of the resample onto it;
-3. the slab sweep (:func:`taichi_nerfs_torch.ops.swr_sweep.chunk_sweep`,
-   the CUDA kernel on the card) composites each chunk's slabs;
+3. the slabs composite front to back into one frame per chunk, either
+   - in the sweep (:func:`taichi_nerfs_torch.ops.swr_sweep.chunk_sweep`,
+     the CUDA kernels on the card) when the call is in its scope: deferred
+     shading, an unsplit grid, no distortion and full-matrix resamples
+     (``slab_window=0``), as the JAX package takes its Pallas kernel; or
+   - in the slab scan (the counterpart of the JAX ``chunk_body``): per
+     slab a full-matrix or windowed resample, the split grid's two sigma
+     sub-slabs, per-sample shading with the rgb MLP and the distortion
+     loss's running sums, each slab checkpointed for the backward;
 4. the chunk frames fold front to back into one global frame on the cube's
-   centre plane;
+   centre plane (with the distortion loss's cross-chunk term);
 5. a two-pass band-matrix warp (or a bilinear gather) takes that frame to
-   pixels, and the rgb MLP shades each pixel once.
+   pixels; deferred shading then runs the rgb MLP once per pixel.
+
+Inside cameras, ``debug_frames`` and bf16 resample operands raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Precision: the two 3x3 contractions that the JAX renderer runs at
 ``Precision.HIGHEST`` (the corner directions and the per-pixel directions)
@@ -38,43 +43,46 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import pyramid as pyr
+from ..ops.sh import sh_encode
 from ..ops.swr_sweep import chunk_sweep, chunk_sweep_reference
-from ..ops.warp import resample_matmul
+from ..ops.warp import (
+    resample_matmul,
+    resample_matmul_batched,
+    resample_matmul_windowed,
+    resample_window,
+)
 
 # profiler spans of the frame's stages (cheap while no profiler runs)
 _span = torch.profiler.record_function
 
-_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10"
+_TODO = "not ported yet; see ROADMAP 'Modules to port' item {}"
 
 
-def _out_of_scope(cfg, grid, *, debug_frames, slab_window, resample_dtype,
-                  want_distortion, inside, resample_kind):
+def _check_args(cfg, grid, *, debug_frames, slab_window, resample_dtype,
+                want_distortion, inside, resample_kind, early_exit):
     if inside:
-        raise NotImplementedError(f"inside cameras are {_TODO}")
-    if isinstance(grid, tuple) or cfg.split:
-        raise NotImplementedError(f"split sigma_res grids are {_TODO}")
-    if not cfg.deferred:
-        raise NotImplementedError(
-            f"per-sample (non-deferred) shading is {_TODO}"
-        )
-    if want_distortion:
-        raise NotImplementedError(f"the distortion loss is {_TODO}")
-    if slab_window:
-        raise NotImplementedError(
-            f"the windowed slab resample (slab_window > 0) is {_TODO}"
-        )
+        raise NotImplementedError(f"inside cameras are {_TODO.format('10.5')}")
     if debug_frames:
-        raise NotImplementedError(f"debug_frames is {_TODO}")
+        raise NotImplementedError(f"debug_frames is {_TODO.format('10.6')}")
     if resample_dtype != "float32":
         raise NotImplementedError(
-            f"resample_dtype={resample_dtype!r}: only float32 operands are "
-            "ported; the bf16 variant is queued in ROADMAP 'TPU kernels to "
-            "port'"
+            f"resample_dtype={resample_dtype!r}: bf16 resample operands are "
+            f"{_TODO.format('10.7')} (with the kernels' bf16 variant, "
+            "'TPU kernels to port' item 2)"
         )
     if resample_kind not in ("linear", "cubic"):
         raise ValueError(f"unknown resample kind {resample_kind!r}")
+    if resample_kind != "linear" and slab_window:
+        raise ValueError("cubic resampling needs the full-matrix path "
+                         "(slab_window=0)")
+    if early_exit and want_distortion:
+        raise ValueError("early_exit is eval-only: no distortion")
+    if isinstance(grid, tuple) != cfg.split:
+        raise ValueError("a split config (sigma_res) bakes to the pair "
+                         "(sigma, feats), an unsplit one to one grid")
 
 
 def _guard(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -110,7 +118,7 @@ def _dirs(pose: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
 
 def render_swr_fixed_axis(
     params,
-    grid: torch.Tensor,
+    grid,
     cfg: pyr.PyramidConfig,
     pose,  # (3, 4) camera-to-world
     K,  # (3, 3) pinhole intrinsics
@@ -135,22 +143,33 @@ def render_swr_fixed_axis(
     """Render with a given sweep axis and direction.
 
     Args mirror the JAX function.  ``grid`` is the baked fp32
-    ``(R, R, R, F)`` grid on the render device; ``pose`` and ``K`` may be
-    numpy arrays or tensors.  ``skip_empty`` is accepted and ignored, as on
-    the JAX package's Pallas path: the sweep composites every slab.
-    ``sweep_impl`` is "auto" (:func:`chunk_sweep`: the CUDA kernel for CUDA
-    tensors, the plain version on the CPU) or "reference" (the plain
-    PyTorch sweep on any device).  ``early_exit`` > 0 sweeps one chunk per
-    call, front to back, skipping empty chunks and stopping once every
-    pixel's transmittance is below it or no occupied chunk remains.
+    ``(R, R, R, F)`` grid on the render device, or for a split config the
+    pair ``(sigma (Rs, Rs, Rs), feats (R, R, R, F-1))``; ``pose`` and ``K``
+    may be numpy arrays or tensors.
 
-    Returns ``rgb`` (H*W, 3), ``depth`` (H*W,) and ``opacity`` (H*W,).
+    Dispatch, as in the JAX package: the sweep takes every call with
+    deferred shading, an unsplit grid, no distortion and ``slab_window=0``;
+    ``sweep_impl`` picks its implementation, "auto" (:func:`chunk_sweep`:
+    the CUDA kernels for CUDA tensors, the plain version on the CPU) or
+    "reference" (the plain PyTorch sweep on any device).  Every other call
+    takes the slab scan on the grid's device, whatever ``sweep_impl``.
+
+    ``slab_window`` > 0 resamples each slab from a source window of that
+    width (:func:`slab_window_bound` gives one that covers the support;
+    linear only).  ``skip_empty`` skips the scan's slabs whose max sigma is
+    <= 1e-4 (one host read per frame); the sweep composites every slab, as
+    the JAX package's kernel does.  ``early_exit`` > 0 stops once every
+    pixel's transmittance is below it (one host read per chunk); the sweep
+    then runs one chunk per call, skipping empty chunks and stopping once
+    no occupied chunk remains.
+
+    Returns ``rgb`` (H*W, 3), ``depth`` (H*W,) and ``opacity`` (H*W,), and
+    with ``want_distortion`` the per-pixel ``distortion`` (H*W,).
     """
-    del skip_empty
-    _out_of_scope(
+    _check_args(
         cfg, grid, debug_frames=debug_frames, slab_window=slab_window,
         resample_dtype=resample_dtype, want_distortion=want_distortion,
-        inside=inside, resample_kind=resample_kind,
+        inside=inside, resample_kind=resample_kind, early_exit=early_exit,
     )
     if sweep_impl == "auto":
         sweep = chunk_sweep
@@ -160,7 +179,8 @@ def render_swr_fixed_axis(
         raise ValueError(f"unknown sweep_impl {sweep_impl!r}")
     if warp not in ("matmul", "matmul_x", "gather"):
         raise ValueError(f"unknown warp {warp!r}")
-    dev = grid.device
+    split = isinstance(grid, tuple)
+    dev = grid[0].device if split else grid.device
     f32 = torch.float32
     pose = _as_f32(pose, dev)
     K = _as_f32(K, dev)
@@ -170,15 +190,35 @@ def render_swr_fixed_axis(
     h = 2.0 * s / R
     w_img, h_img = img_wh
     nq = lat_size if lat_size else max(w_img, h_img) + lat_pad
-    acc_ch = F - 1
+    # deferred shading composites the (F-1) feature channels, else rgb
+    acc_ch = (F - 1) if cfg.deferred else 3
     if R % n_chunks:
         raise ValueError(f"n_chunks={n_chunks} must divide R={R}")
+    in_sweep = cfg.deferred and not split and not want_distortion and (
+        slab_window == 0)
 
     with _span("swr.setup"):
         b_axis, c_axis = [d for d in range(3) if d != axis]
         zs = -s + (torch.arange(R, dtype=f32, device=dev) + 0.5) * h
-        # vol: (D, F, Rb, Rc), the sweep axis leading, channels next
-        vol = grid.permute(axis, 3, b_axis, c_axis)
+        if split:
+            # the sweep stays at feature granularity; each feature slab
+            # composites its two sigma sub-slabs (h_s = h / 2)
+            sigma_g, feat_g = grid
+            Rs = cfg.sigma_res
+            h_s = 2.0 * s / Rs
+            vol = feat_g.permute(axis, 3, b_axis, c_axis)
+            vol_s = sigma_g.permute(axis, b_axis, c_axis)
+            zs_s = -s + (torch.arange(Rs, dtype=f32, device=dev) + 0.5) * h_s
+            if flip:
+                vol_s = torch.flip(vol_s, dims=(0,))
+                zs_s = torch.flip(zs_s, dims=(0,))
+            # after a flip, consecutive sub-slab pairs still belong to one
+            # feature slab, near to far
+            vol_s = vol_s.reshape(R, 2, Rs, Rs)
+            zs_s2 = zs_s.reshape(R, 2)
+        else:
+            # vol: (D, F, Rb, Rc), the sweep axis leading, channels next
+            vol = grid.permute(axis, 3, b_axis, c_axis)
         if flip:
             vol = torch.flip(vol, dims=(0,))
             zs = torch.flip(zs, dims=(0,))
@@ -260,7 +300,6 @@ def render_swr_fixed_axis(
 
         dc_slabs = R // n_chunks
         zs_c = zs.reshape(n_chunks, dc_slabs)
-        vol_c = vol.reshape(n_chunks, dc_slabs, F, R, R)
 
         # global frame on the cube-centre plane
         z_g = torch.zeros((), dtype=f32, device=dev)
@@ -269,39 +308,21 @@ def render_swr_fixed_axis(
         # per-chunk reference planes + lattice frames, vectorised over chunks
         z_ref_c = zs_c.mean(dim=1)  # (n_chunks,)
         fb0_c, fdb_c, fc0_c, fdc_c = frame_at(z_ref_c)
-        # per-slab resample params (start_b, step_b, start_c, step_c)
-        rho = (z_ref_c[:, None] - o_a) / (zs_c - o_a)  # (n_chunks, dc)
-        rs_par = torch.stack(
-            [
-                (o_b + (fb0_c[:, None] - o_b) / rho + s) / h - 0.5,
-                fdb_c[:, None] / (rho * h),
-                (o_c + (fc0_c[:, None] - o_c) / rho + s) / h - 0.5,
-                fdc_c[:, None] / (rho * h),
-            ],
-            dim=-1,
-        ).contiguous()  # (n_chunks, dc, 4)
-        z_rel = (zs_c - o_a).contiguous()
-        ch_par = torch.stack(
-            [
-                fb0_c - o_b,
-                fdb_c,
-                fc0_c - o_c,
-                fdc_c,
-                z_ref_c - o_a,
-                torch.full_like(z_ref_c, h),
-            ],
-            dim=-1,
-        ).contiguous()  # (n_chunks, 6)
 
-    # global carry, channel-leading: acc (acc_ch, nq, nq), depth, T
-    acc_g = torch.zeros((acc_ch, nq, nq), dtype=f32, device=dev)
-    depth_g = torch.zeros((nq, nq), dtype=f32, device=dev)
-    t_g = torch.ones((nq, nq), dtype=f32, device=dev)
+    # global carry, channel-leading: acc (acc_ch, nq, nq), depth, T[, dist]
+    carry = (
+        torch.zeros((acc_ch, nq, nq), dtype=f32, device=dev),
+        torch.zeros((nq, nq), dtype=f32, device=dev),
+        torch.ones((nq, nq), dtype=f32, device=dev),
+    )
+    if want_distortion:
+        carry += (torch.zeros((nq, nq), dtype=f32, device=dev),)
 
-    def fold(g, fr, acc_g, depth_g, t_g):
-        """Fold chunk g's frame into the global frame: the ray at global
+    def fold(g, packed, carry):
+        """Fold chunk g's frame ``packed`` (acc, depth, opacity[, the
+        chunk's distortion]) into the global frame: the ray at global
         lattice q_g crosses the chunk plane at o + (q_g - o) * rho_cg."""
-        packed = fr[: acc_ch + 2]
+        acc_g, depth_g, t_g = carry[:3]
         rho_cg = (z_ref_c[g] - o_a) / (z_g - o_a)
         f_b0, f_db, f_c0, f_dc = fb0_c[g], fdb_c[g], fc0_c[g], fdc_c[g]
         start_b = (o_b * (1 - rho_cg) + g_b0 * rho_cg - f_b0) / f_db
@@ -314,40 +335,62 @@ def render_swr_fixed_axis(
         packed = resample_matmul(
             packed, start_c, step_c, nq, axis=2, kind=resample_kind
         )
-        acc_g = acc_g + t_g[None] * packed[:acc_ch]
-        depth_g = depth_g + t_g * packed[acc_ch]
+        depth_w = packed[acc_ch]
         # Catmull-Rom can overshoot the resampled opacity outside [0, 1]
         # at hard silhouettes; clamp (a no-op for linear)
-        t_g = t_g * (1.0 - torch.clamp(packed[acc_ch + 1], 0.0, 1.0))
-        return acc_g, depth_g, t_g
+        op_w = torch.clamp(packed[acc_ch + 1], 0.0, 1.0)
+        out = (
+            acc_g + t_g[None] * packed[:acc_ch],
+            depth_g + t_g * depth_w,
+            t_g * (1.0 - op_w),
+        )
+        if want_distortion:
+            # chunk-local pair terms scale by t_g^2 (a chunk sample's global
+            # weight is t_g * w); cross-chunk pairs close over the global
+            # prefix sums (S_W = 1 - t_g, S_Wt = depth_g)
+            out += (
+                carry[3]
+                + t_g * t_g * packed[acc_ch + 2]
+                + 2.0 * t_g * ((1.0 - t_g) * depth_w - depth_g * op_w),
+            )
+        return out
 
-    if early_exit > 0.0:
-        # one chunk per call, front to back; empty chunks (max sigma
-        # <= 1e-4) are skipped, and the loop stops once no occupied chunk
-        # remains or every pixel's transmittance is below early_exit
-        occ_chunk = vol_c[:, :, 0].amax(dim=(1, 2, 3)) > 1e-4
-        occ = occ_chunk.tolist()  # one host read per frame
-        rem_occ = [any(occ[g:]) for g in range(n_chunks)]
-        for g in range(n_chunks):
-            if not rem_occ[g]:
-                break
-            if not occ[g]:
-                continue  # t_g is unchanged: no need to read it
-            if t_g.max().item() <= early_exit:  # one host read per chunk
-                break
-            with _span("swr.sweep"):
-                fr = sweep(
-                    vol_c[g : g + 1], rs_par[g : g + 1], z_rel[g : g + 1],
-                    ch_par[g : g + 1], nq, resample_kind,
-                )[0]
-            with _span("swr.fold"):
-                acc_g, depth_g, t_g = fold(g, fr, acc_g, depth_g, t_g)
+    if in_sweep:
+        carry = _sweep_chunks(
+            sweep, fold, carry, vol, zs_c, z_ref_c, (fb0_c, fdb_c, fc0_c,
+                                                     fdc_c),
+            o, axis, s, h, nq, n_chunks, early_exit, resample_kind,
+        )
     else:
-        with _span("swr.sweep"):
-            frames = sweep(vol_c, rs_par, z_rel, ch_par, nq, resample_kind)
+        with _span("swr.setup"):
+            lat_i = torch.arange(nq, dtype=f32, device=dev)
+            slabs = vol.unbind(0)
+            sub = (vol_s.unbind(0), zs_s2) if split else None
+            occ = None
+            if skip_empty:  # one host read per frame
+                occ_t = (vol_s.amax(dim=(1, 2, 3)) if split
+                         else vol[:, 0].amax(dim=(1, 2)))
+                occ = (occ_t > 1e-4).tolist()
+        # the sigma sub-slab resample step is 2x the feature step in index
+        # units, so its source window doubles
+        sigma_window = 2 * slab_window if split and slab_window else 0
+        geo = dict(o=o, axis=axis, s=s, h=h, nq=nq, lat_i=lat_i,
+                   kind=resample_kind, slab_window=slab_window,
+                   sigma_window=sigma_window,
+                   h_s=h_s if split else None)
         for g in range(n_chunks):
+            if early_exit > 0.0 and float(carry[2].max()) <= early_exit:
+                break  # one host read per chunk
+            with _span("swr.scan"):
+                packed = _scan_chunk(
+                    params, cfg, geo, z_ref_c[g],
+                    (fb0_c[g], fdb_c[g], fc0_c[g], fdc_c[g]),
+                    slabs[g * dc_slabs:(g + 1) * dc_slabs],
+                    zs_c[g], sub, g * dc_slabs, occ, want_distortion,
+                )
             with _span("swr.fold"):
-                acc_g, depth_g, t_g = fold(g, frames[g], acc_g, depth_g, t_g)
+                carry = fold(g, packed, carry)
+    acc_g, depth_g, t_g = carry[:3]
 
     with _span("swr.warp"):
         # final projective warp: pixel -> global-frame lattice coords
@@ -374,8 +417,10 @@ def render_swr_fixed_axis(
         lj = torch.clamp((pc - g_c0) / g_dc, -1.0, float(nq))
         behind = (t_hit <= 0.0) | grazing
 
-        # (C, nq, nq) global frame, C = acc_ch + 2
-        img = torch.cat([acc_g, depth_g[None], (1.0 - t_g)[None]], dim=0)
+        # (C, nq, nq) global frame, C = acc_ch + 2 [+ 1]
+        img = torch.cat(
+            [acc_g, depth_g[None], (1.0 - t_g)[None]]
+            + ([carry[3][None]] if want_distortion else []), dim=0)
 
         if warp == "gather":
             i0 = torch.clamp(torch.floor(li).long(), 0, nq - 2)
@@ -446,21 +491,231 @@ def render_swr_fixed_axis(
     with _span("swr.shade"):
         depth = pix[acc_ch]
         opacity = pix[acc_ch + 1]
-        # deferred shading: shade the opacity-normalised features once per
-        # pixel and re-premultiply, so transparent pixels stay black
-        dirs_pix = dir_w / torch.linalg.norm(dir_w, dim=-1, keepdim=True)
-        feat_avg = pix[:acc_ch].permute(1, 2, 0) / torch.clamp(
-            opacity, min=1e-6
-        )[..., None]
-        rgb = pyr.rgb_from_features(params, cfg, feat_avg, dirs_pix)
-        rgb = rgb * opacity[..., None]
+        if cfg.deferred:
+            # shade the opacity-normalised features once per pixel and
+            # re-premultiply, so transparent pixels stay black
+            dirs_pix = dir_w / torch.linalg.norm(dir_w, dim=-1, keepdim=True)
+            feat_avg = pix[:acc_ch].permute(1, 2, 0) / torch.clamp(
+                opacity, min=1e-6
+            )[..., None]
+            rgb = pyr.rgb_from_features(params, cfg, feat_avg, dirs_pix)
+            rgb = rgb * opacity[..., None]
+        else:
+            rgb = pix[:3].permute(1, 2, 0)
         if white_bg:
             rgb = rgb + (1.0 - opacity)[..., None]
-    return {
+    out = {
         "rgb": rgb.reshape(h_img * w_img, 3),
         "depth": depth.reshape(h_img * w_img),
         "opacity": opacity.reshape(h_img * w_img),
     }
+    if want_distortion:
+        out["distortion"] = pix[acc_ch + 2].reshape(h_img * w_img)
+    return out
+
+
+def _sweep_chunks(sweep, fold, carry, vol, zs_c, z_ref_c, frames, o, axis,
+                  s, h, nq, n_chunks, early_exit, kind):
+    """The sweep's chunks, folded: every chunk in one call, or with
+    ``early_exit`` one chunk per call front to back, skipping empty chunks
+    (max sigma <= 1e-4) and stopping once no occupied chunk remains or every
+    pixel's transmittance is below ``early_exit``."""
+    b_axis, c_axis = [d for d in range(3) if d != axis]
+    o_a, o_b, o_c = o[axis], o[b_axis], o[c_axis]
+    fb0_c, fdb_c, fc0_c, fdc_c = frames
+    dc_slabs = zs_c.shape[1]
+    with _span("swr.setup"):
+        vol_c = vol.reshape(n_chunks, dc_slabs, *vol.shape[1:])
+        # per-slab resample params (start_b, step_b, start_c, step_c)
+        rho = (z_ref_c[:, None] - o_a) / (zs_c - o_a)  # (n_chunks, dc)
+        rs_par = torch.stack(
+            [
+                (o_b + (fb0_c[:, None] - o_b) / rho + s) / h - 0.5,
+                fdb_c[:, None] / (rho * h),
+                (o_c + (fc0_c[:, None] - o_c) / rho + s) / h - 0.5,
+                fdc_c[:, None] / (rho * h),
+            ],
+            dim=-1,
+        ).contiguous()  # (n_chunks, dc, 4)
+        z_rel = (zs_c - o_a).contiguous()
+        ch_par = torch.stack(
+            [
+                fb0_c - o_b,
+                fdb_c,
+                fc0_c - o_c,
+                fdc_c,
+                z_ref_c - o_a,
+                torch.full_like(z_ref_c, h),
+            ],
+            dim=-1,
+        ).contiguous()  # (n_chunks, 6)
+    acc_ch = vol.shape[1] - 1
+    if early_exit > 0.0:
+        occ_chunk = vol_c[:, :, 0].amax(dim=(1, 2, 3)) > 1e-4
+        occ = occ_chunk.tolist()  # one host read per frame
+        rem_occ = [any(occ[g:]) for g in range(n_chunks)]
+        for g in range(n_chunks):
+            if not rem_occ[g]:
+                break
+            if not occ[g]:
+                continue  # t_g is unchanged: no need to read it
+            if carry[2].max().item() <= early_exit:  # one host read a chunk
+                break
+            with _span("swr.sweep"):
+                fr = sweep(
+                    vol_c[g : g + 1], rs_par[g : g + 1], z_rel[g : g + 1],
+                    ch_par[g : g + 1], nq, kind,
+                )[0]
+            with _span("swr.fold"):
+                carry = fold(g, fr[: acc_ch + 2], carry)
+        return carry
+    with _span("swr.sweep"):
+        frames = sweep(vol_c, rs_par, z_rel, ch_par, nq, kind)
+    for g in range(n_chunks):
+        with _span("swr.fold"):
+            carry = fold(g, frames[g, : acc_ch + 2], carry)
+    return carry
+
+
+def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
+                want_distortion):
+    """One chunk of the slab scan: its ``dc`` slabs composited front to back
+    onto the chunk lattice (the JAX ``chunk_body``).
+
+    ``frame`` is the lattice's (b0, db, c0, dc); ``slabs`` the chunk's
+    (F, Rb, Rc) feature slabs at planes ``zs``; ``sub`` for a split grid the
+    (R,) list of (2, Rs, Rs) sigma sub-slab pairs and their (R, 2) planes;
+    ``first`` the index of the chunk's first slab; ``occ`` None, or per slab
+    whether its max sigma is above 1e-4 (empty slabs are skipped).  Each
+    slab is checkpointed under autograd: the backward recomputes its
+    resamples and MLP activations instead of storing them.
+
+    Returns (acc_ch + 2 [+ 1], nq, nq): the weighted features (deferred) or
+    rgb, the depth, the opacity and, with ``want_distortion``, the chunk's
+    distortion.
+    """
+    o, axis, s, h, nq = geo["o"], geo["axis"], geo["s"], geo["h"], geo["nq"]
+    kind = geo["kind"]
+    b_axis, c_axis = [d for d in range(3) if d != axis]
+    o_a, o_b, o_c = o[axis], o[b_axis], o[c_axis]
+    f_b0, f_db, f_c0, f_dc = frame
+    f32, dev = torch.float32, z_ref.device
+    qb = f_b0 + geo["lat_i"] * f_db  # world b coords on this frame
+    qc = f_c0 + geo["lat_i"] * f_dc
+    # rays through the chunk lattice: P = (z_ref at axis, qb, qc)
+    vb = qb[:, None] - o_b  # (nq, 1)
+    vc = qc[None, :] - o_c  # (1, nq)
+    va = z_ref - o_a
+    norm = torch.sqrt(va * va + vb * vb + vc * vc)  # (nq, nq)
+    inv_da = norm / torch.abs(va)
+    dt = h * inv_da  # per-lattice step length along the ray
+    sgn = torch.sign(va)
+    d_enc = None
+    if not cfg.deferred:
+        # world-order unit direction, SH-encoded once per chunk
+        comps = [None, None, None]
+        comps[axis] = (va / norm).expand(nq, nq)
+        comps[b_axis] = (vb / norm).expand(nq, nq)
+        comps[c_axis] = (vc / norm).expand(nq, nq)
+        d_enc = sh_encode((torch.stack(comps, dim=-1) + 1.0) / 2.0)
+
+    def affine(z_k, h_src):
+        # source index of lattice i: m(i) = (p_b + s)/h_src - 1/2 with
+        # p_b = o_b + (q_i - o_b)/rho
+        rho = (z_ref - o_a) / (z_k - o_a)
+        return ((o_b + (f_b0 - o_b) / rho + s) / h_src - 0.5,
+                f_db / (rho * h_src),
+                (o_c + (f_c0 - o_c) / rho + s) / h_src - 0.5,
+                f_dc / (rho * h_src))
+
+    def to_lattice(x, z_k, h_src, window):
+        sb, stb, sc, stc = affine(z_k, h_src)
+        if window:
+            x = resample_matmul_windowed(x, sb, stb, nq, 1, window)
+            return resample_matmul_windowed(x, sc, stc, nq, 2, window)
+        x = resample_matmul(x, sb, stb, nq, 1, kind=kind)
+        return resample_matmul(x, sc, stc, nq, 2, kind=kind)
+
+    def slab_work(acc, depth_acc, t_acc, dist_acc, f, z, sp, zp):
+        if sp is not None:
+            # features at slab granularity; alpha from the two sigma
+            # sub-slabs, each with its own affine map
+            feats = to_lattice(f, z, h, geo["slab_window"])
+            h_s, sw = geo["h_s"], geo["sigma_window"]
+            if sw:
+                s0 = to_lattice(sp[0:1], zp[0], h_s, sw)[0]
+                s1 = to_lattice(sp[1:2], zp[1], h_s, sw)[0]
+            else:
+                sb, stb, sc, stc = affine(zp, h_s)  # (2,) each
+                q = resample_matmul_batched(sp, sb, stb, nq, 1, kind=kind)
+                q = resample_matmul_batched(q, sc, stc, nq, 2, kind=kind)
+                s0, s1 = q[0], q[1]
+            dt_s = 0.5 * dt
+            a0 = 1.0 - torch.exp(-torch.clamp(s0, min=0.0) * dt_s)
+            a1 = 1.0 - torch.exp(-torch.clamp(s1, min=0.0) * dt_s)
+            w0 = a0 * t_acc
+            w1 = a1 * t_acc * (1.0 - a0)
+            w = w0 + w1
+            t0r = (zp[0] - o_a) * inv_da * sgn
+            t1r = (zp[1] - o_a) * inv_da * sgn
+            depth_contrib = w0 * t0r + w1 * t1r
+            t_next = t_acc * (1.0 - a0) * (1.0 - a1)
+            if dist_acc is not None:
+                s_w = 1.0 - t_acc
+                s_wt = depth_acc
+                dcon = 2.0 * w0 * (t0r * s_w - s_wt) + w0 * w0 * dt_s / 3.0
+                s_w = s_w + w0
+                s_wt = s_wt + w0 * t0r
+                dcon = dcon + (2.0 * w1 * (t1r * s_w - s_wt)
+                               + w1 * w1 * dt_s / 3.0)
+        else:
+            sq = to_lattice(f, z, h, geo["slab_window"])  # (F, nq, nq)
+            sigma = torch.clamp(sq[0], min=0.0)
+            feats = sq[1:]
+            alpha = 1.0 - torch.exp(-sigma * dt)
+            w = alpha * t_acc
+            t_ray = (z - o_a) * inv_da * sgn
+            depth_contrib = w * t_ray
+            t_next = t_acc * (1.0 - alpha)
+            if dist_acc is not None:
+                dcon = (2.0 * w * (t_ray * (1.0 - t_acc) - depth_acc)
+                        + w * w * dt / 3.0)
+        if cfg.deferred:
+            contrib = feats
+        else:
+            contrib = pyr.rgb_from_features_enc(
+                params, cfg, feats.permute(1, 2, 0), d_enc
+            ).permute(2, 0, 1)
+        out = (acc + w[None] * contrib, depth_acc + depth_contrib, t_next)
+        if dist_acc is not None:
+            out += (dist_acc + dcon,)
+        return out
+
+    acc_ch = (cfg.features - 1) if cfg.deferred else 3
+    carry = [
+        torch.zeros((acc_ch, nq, nq), dtype=f32, device=dev),
+        torch.zeros((nq, nq), dtype=f32, device=dev),
+        torch.ones((nq, nq), dtype=f32, device=dev),
+        torch.zeros((nq, nq), dtype=f32, device=dev)
+        if want_distortion else None,
+    ]
+    grad = torch.is_grad_enabled()
+    for k, f in enumerate(slabs):
+        if occ is not None and not occ[first + k]:
+            continue
+        args = (*carry, f, zs[k])
+        args += (sub[0][first + k], sub[1][first + k]) if sub else (None,
+                                                                   None)
+        # remat: without it the backward keeps every slab's resampled frame
+        # and MLP activations; recomputing them per slab keeps the live set
+        # at the carry
+        out = (checkpoint(slab_work, *args, use_reentrant=False) if grad
+               else slab_work(*args))
+        carry = [*out, None] if len(out) == 3 else list(out)
+    acc, depth, t, dist = carry
+    return torch.cat(
+        [acc, depth[None], (1.0 - t)[None]]
+        + ([dist[None]] if want_distortion else []), dim=0)
 
 
 def _pixel_slopes(pose, K, img_wh, axis, n_grid: int = 17):
@@ -553,6 +808,64 @@ def pick_warp(
     return _matmul_solve_choice(
         pose, axis, float(sc.min()), float(sc.max())
     )
+
+
+def _max_window_span(arr, k: int) -> float:
+    """Max (max - min) over any (k+1) x (k+1) sample window of a 2-D grid."""
+    n = arr.shape[0]
+    k = min(k, n - 1)
+    best = 0.0
+    for i in range(n - k):
+        for j in range(arr.shape[1] - k):
+            sub = arr[i : i + k + 1, j : j + k + 1]
+            best = max(best, float(sub.max() - sub.min()))
+    return best
+
+
+def slab_window_bound(
+    poses,
+    K,
+    img_wh: Tuple[int, int],
+    cfg: pyr.PyramidConfig,
+    crop: int | None = None,
+    lat_pad: int = 16,
+    safety: float = 1.1,
+    lat_size: int = 0,
+) -> int:
+    """Host: a source-window width covering every slab resample, or 0 (the
+    full matrix).
+
+    The per-slab resample step is ``frustum_width(z_k) / (h * (nq - 1 -
+    lat_pad))``; its max over the poses (and, with ``crop``, over every
+    ``crop`` x ``crop`` sub-frustum, from a 17 x 17 grid of pixel slopes)
+    bounds the source support (:func:`resample_window`).  Returns 0 when
+    the window would exceed a quarter of R: the windowed product then saves
+    too little over the full one.  ``lat_size`` overrides the lattice side
+    (as the render call's); the frustum span still comes from ``crop``.
+    """
+    R, s = cfg.grid_res, cfg.scale
+    h = 2.0 * s / R
+    w_img, h_img = img_wh
+    out_side = crop if crop else max(img_wh)
+    nq = lat_size if lat_size else out_side + lat_pad
+    denom = (nq - 1 - lat_pad) * h
+    n_grid = 17
+    if crop:
+        ku = int(np.ceil((crop - 1) / max(w_img - 1, 1) * (n_grid - 1))) + 1
+        kv = int(np.ceil((crop - 1) / max(h_img - 1, 1) * (n_grid - 1))) + 1
+        k = max(ku, kv)
+    else:
+        k = n_grid - 1
+    step_max = 0.0
+    for p in np.asarray(poses, np.float32).reshape(-1, 3, 4):
+        axis = int(np.argmax(np.abs(p[:, 2])))
+        sb, sc = _pixel_slopes(p, K, img_wh, axis, n_grid)
+        dist = abs(float(p[axis, 3])) + s
+        for arr in (sb, sc):
+            span = _max_window_span(arr, k)
+            step_max = max(step_max, dist * span / denom)
+    win = resample_window(step_max * safety, nq)
+    return 0 if win * 4 > R else win
 
 
 def sweep_axis(pose) -> Tuple[int, bool]:

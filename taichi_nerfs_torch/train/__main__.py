@@ -17,7 +17,10 @@ module name):
         --dataset_name synthetic --model_name ngp --max_steps 20000
 
 * ``--model_name pyramid``: the dense pyramid on the shear-warp renderer
-  for cameras outside the scene cube::
+  for cameras outside the scene cube.  The default flags train linear with
+  deferred shading (the sweep kernels on the card); ``--shading
+  per_sample``, ``--sigma_res`` and ``--distortion_loss_w`` train through
+  the renderer's slab scan.  The record recipe::
 
     python -m taichi_nerfs_torch.train \\
         --root_dir 'synthetic://lego?views=100&res=800' \\

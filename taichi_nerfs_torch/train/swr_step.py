@@ -4,16 +4,21 @@ Port of the JAX package's ``train/swr_step.py`` for cameras outside the
 scene cube on one device.  Each step draws a training image and a square
 crop (a crop of a pinhole image is a pinhole image with a shifted principal
 point), renders the crop with :func:`render_swr_fixed_axis`, and takes the
-MSE against the ground truth plus the opacity, sigma-L1 and per-level TV
-terms.  On the card the sweep runs the hand-written forward and backward
-kernels (``ops/swr_sweep.py``).
+MSE against the ground truth plus the opacity, distortion, sigma-L1 and
+per-level TV terms.  Deferred shading on an unsplit grid with full-matrix
+resamples (the defaults, linear or cubic) runs the hand-written sweep
+kernels on the card (``ops/swr_sweep.py``); per-sample shading, a split
+``sigma_res`` grid, the distortion loss and a windowed resample run the
+renderer's slab scan.  Linear training picks its slab window per phase as
+the JAX trainer does (:func:`slab_window_bound`).
 
 Randomness.  Every random input of the loss is an argument of
 :func:`make_swr_loss`: the crop offset, the random background ``(c^2, 3)``
-and the TV window start.  :class:`SwrTrainer` draws the image and the crop
-with ``np.random.RandomState(seed)`` in the JAX trainer's call order (so
-both packages pick the same crops), the background from a
-``torch.Generator`` on the training device and the TV window from one on
+and the TV window starts (one per windowed level: the finest level, and
+the sigma level of a split grid).  :class:`SwrTrainer` draws the image and
+the crop with ``np.random.RandomState(seed)`` in the JAX trainer's call
+order (so both packages pick the same crops), the background from a
+``torch.Generator`` on the training device and the TV windows from one on
 the host.
 
 Adam is ``train/state.py:Adam`` (one count for bias correction, one for
@@ -21,10 +26,8 @@ the cosine schedule, as the JAX optimizer keeps them), shared with the NGP
 trainer.
 
 Out of scope (each raises ``NotImplementedError`` naming its ROADMAP item):
-linear-resample training (the JAX trainer then runs the windowed slab
-resample), inside cameras, ``cam_carve``, ``distortion_w``, the bf16 bake,
-bf16 resample operands and ``adam_mu_bf16``, split ``sigma_res``,
-per-sample (non-deferred) shading, and a device mesh.
+inside cameras and ``cam_carve`` (item 10.5), the bf16 bake, bf16 resample
+operands and ``adam_mu_bf16`` (item 10.7), and a device mesh (item 12).
 """
 
 from __future__ import annotations
@@ -43,13 +46,14 @@ from ..render.swr import (
     pick_warp,
     render_swr,
     render_swr_fixed_axis,
+    slab_window_bound,
 )
 from ..utils.convert import load_pyramid_npz
 from ..utils.device import resolve_device
 from .state import Adam, AdamState, tree_leaves, tree_map
 from .state import trainable as _trainable
 
-_MODULES_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10"
+_MODULES_TODO = "not ported yet; see ROADMAP 'Modules to port' item {}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,22 +89,18 @@ class SwrTrainConfig:
 
 def _check_scope(tcfg: SwrTrainConfig) -> None:
     """Raise for the options of the JAX trainer the port does not train."""
-    if tcfg.distortion_w > 0:
-        raise NotImplementedError(f"distortion_w is {_MODULES_TODO}")
     if tcfg.cam_carve > 0:
-        raise NotImplementedError(f"cam_carve is {_MODULES_TODO}")
-    bf16 = ("the bf16 bake, resample operands and adam moments are not "
-            "ported yet; see ROADMAP 'TPU kernels to port' (the bf16 "
-            "variant)")
+        raise NotImplementedError(
+            f"cam_carve is {_MODULES_TODO.format('10.5')}")
     if (tcfg.bake_dtype != "float32" or tcfg.resample_dtype != "float32"
             or tcfg.adam_mu_bf16):
-        raise NotImplementedError(bf16)
-    if tcfg.resample_kind == "linear":
         raise NotImplementedError(
-            "linear-resample training runs the windowed slab resample "
-            f"(slab_window > 0), which is {_MODULES_TODO}"
+            "the bf16 bake, resample operands and adam moments are "
+            + _MODULES_TODO.format("10.7")
+            + " (with the kernels' bf16 variant, 'TPU kernels to port' "
+            "item 2)"
         )
-    if tcfg.resample_kind != "cubic":
+    if tcfg.resample_kind not in ("linear", "cubic"):
         raise ValueError(f"unknown resample kind {tcfg.resample_kind!r}")
     if tcfg.sweep_impl not in ("auto", "reference"):
         raise ValueError(f"unknown sweep_impl {tcfg.sweep_impl!r}")
@@ -110,13 +110,13 @@ def _check_scope(tcfg: SwrTrainConfig) -> None:
 
 
 def _grow_like_params(old, new):
-    """Shared levels and the rgb MLP keep ``old``; newly added levels keep
-    ``new``."""
-    return {
-        "levels": list(old["levels"]) + list(
-            new["levels"][len(old["levels"]):]),
-        "rgb_mlp": old["rgb_mlp"],
-    }
+    """Shared levels and every other entry (the rgb MLP) keep ``old``;
+    newly added levels keep ``new``."""
+    out = dict(new)
+    out.update({k: v for k, v in old.items() if k != "levels"})
+    out["levels"] = list(old["levels"]) + list(
+        new["levels"][len(old["levels"]):])
+    return out
 
 
 def make_optimizer(cfg: SwrTrainConfig) -> Adam:
@@ -166,8 +166,18 @@ def grow_swr_state(
 
 
 def tv_window(rf: int) -> int:
-    """Side of the finest level's stochastic TV window."""
+    """Side of a windowed level's stochastic TV window."""
     return max(rf // 4, 2)
+
+
+def tv_levels(params, mcfg: pyr.PyramidConfig):
+    """The levels whose TV is taken over a random window of their first
+    axis each step: the finest level and, for a split grid, the sigma
+    level (as a one-channel grid)."""
+    fines = [params["levels"][-1]]
+    if mcfg.split:
+        fines.append(params["sigma_level"][..., None])
+    return fines
 
 
 def make_swr_loss(
@@ -183,15 +193,16 @@ def make_swr_loss(
     tv_starts: Sequence[int] = (),
     lat_size: int = 0,
     warp: str = "matmul",
+    slab_window: int = 0,
 ):
     """Build ``loss_fn(params) -> (loss, mse)`` for one training crop.
 
     ``bg`` is the (c^2, 3) random background (needed with ``random_bg``);
-    ``tv_starts[0]`` the start of the finest level's TV window along its
-    first axis (needed with ``tv_w > 0``), in ``[0, r - tv_window(r)]``.
+    ``tv_starts[i]`` the start of the TV window of ``tv_levels``' level i
+    along its first axis (needed with ``tv_w > 0``), in ``[0, r -
+    tv_window(r)]``.  ``slab_window`` is the renderer's (0: full-matrix
+    resamples).
     """
-    if mcfg.split:
-        raise NotImplementedError(f"split sigma_res grids are {_MODULES_TODO}")
     c = tcfg.crop
     x0, y0 = int(crop_xy[0]), int(crop_xy[1])
     n_ch = gt_image.shape[-1]  # 3 = rgb, 4 = rgba (GT alpha channel)
@@ -213,8 +224,10 @@ def make_swr_loss(
             params, grid, mcfg, pose, K_crop, (c, c), axis, flip,
             n_chunks=min(tcfg.n_chunks, mcfg.grid_res),
             white_bg=tcfg.white_bg and not tcfg.random_bg,
+            slab_window=slab_window,
             lat_size=lat_size,
             warp=warp,
+            want_distortion=tcfg.distortion_w > 0,
             sweep_impl=tcfg.sweep_impl,
             resample_kind=tcfg.resample_kind,
         )
@@ -232,22 +245,26 @@ def make_swr_loss(
             loss = loss + tcfg.alpha_w * torch.mean(
                 (out["opacity"] - gt_alpha) ** 2
             )
+        if tcfg.distortion_w > 0:
+            loss = loss + tcfg.distortion_w * torch.mean(out["distortion"])
         if tcfg.sigma_l1 > 0:
-            loss = loss + tcfg.sigma_l1 * torch.mean(grid[..., 0])
+            sigma = grid[0] if mcfg.split else grid[..., 0]
+            loss = loss + tcfg.sigma_l1 * torch.mean(sigma)
         if tcfg.tv_w > 0:
             tv = 0.0
             for g in params["levels"][:-1]:
                 for ax in range(3):
                     d = torch.diff(g, dim=ax)
                     tv = tv + torch.mean(d * d)
-            # the finest level: a random window of its first axis each step
-            # (stochastic TV, ~1/4 of the traffic)
-            fine = params["levels"][-1]
-            s0 = int(tv_starts[0])
-            sl = fine[s0 : s0 + tv_window(fine.shape[0])]
-            for ax in range(3):
-                d = torch.diff(sl, dim=ax)
-                tv = tv + torch.mean(d * d)
+            # the finest level(s): a random window of the first axis each
+            # step (stochastic TV, ~1/4 of the traffic)
+            for fine, s0 in zip(tv_levels(params, mcfg), tv_starts,
+                                strict=True):
+                s0 = int(s0)
+                sl = fine[s0 : s0 + tv_window(fine.shape[0])]
+                for ax in range(3):
+                    d = torch.diff(sl, dim=ax)
+                    tv = tv + torch.mean(d * d)
             loss = loss + tcfg.tv_w * tv
         return loss, mse
 
@@ -268,11 +285,12 @@ def swr_train_step(
     tv_starts: Sequence[int] = (),
     lat_size: int = 0,
     warp: str = "matmul",
+    slab_window: int = 0,
 ) -> Tuple[SwrTrainState, Dict[str, torch.Tensor]]:
     """One Adam step on one crop; returns the new state (its tensors
     updated in place) and device-scalar ``loss`` and ``psnr``."""
     loss_fn = make_swr_loss(gt_image, pose, K, crop_xy, mcfg, tcfg, axis,
-                            flip, bg, tv_starts, lat_size, warp)
+                            flip, bg, tv_starts, lat_size, warp, slab_window)
     loss, mse = loss_fn(state.params)
     leaves = tree_leaves(state.params)
     grads = torch.autograd.grad(loss, leaves)
@@ -315,14 +333,10 @@ class SwrTrainer:
         which raises when there is no card (pass ``"cpu"`` for the CPU)."""
         if mesh is not None:
             raise NotImplementedError(
-                "crop-parallel training over a mesh is not ported yet; see "
-                "ROADMAP 'Modules to port' item 12"
+                "crop-parallel training over a mesh is "
+                + _MODULES_TODO.format(12)
             )
         _check_scope(tcfg)
-        if not mcfg.deferred:
-            raise NotImplementedError(
-                f"per-sample (non-deferred) shading is {_MODULES_TODO}"
-            )
         self.device = resolve_device(device, "device='cpu'")
         self.mcfg, self.tcfg = mcfg, tcfg
         self.seed = seed
@@ -349,7 +363,8 @@ class SwrTrainer:
         for p in self.poses_np:
             a = int(np.argmax(np.abs(p[:, 2])))
             if abs(float(p[a, 3])) <= mcfg.scale * 1.05:
-                raise NotImplementedError(f"inside cameras are {_MODULES_TODO}")
+                raise NotImplementedError(
+                    f"inside cameras are {_MODULES_TODO.format('10.5')}")
             self._axis_flip.append((a, bool(p[a, 3] > 0)))
         # coarse-to-fine phases: [(truncated mcfg, end_step), ...]; the last
         # phase is the full config and takes the remaining steps
@@ -379,6 +394,14 @@ class SwrTrainer:
         lat_pad = 16
         cap = int(1.25 * pm.grid_res) + lat_pad
         self.lat_size = cap if cap < self.tcfg.crop + lat_pad else 0
+        # linear resamples read a source window when it is a quarter of R or
+        # less; the full matrix otherwise, and always for cubic (every pose
+        # is outside: inside cameras raise)
+        self.slab_window = (
+            slab_window_bound(self.poses_np, self.K, self.img_wh, pm,
+                              crop=self.tcfg.crop, lat_size=self.lat_size)
+            if self.tcfg.resample_kind == "linear" else 0
+        )
         self._grid_cache = (None, None)
         gen = self._init_generator(idx)
         if idx == 0:
@@ -407,10 +430,12 @@ class SwrTrainer:
                             device=self.device)
         tv_starts = ()
         if self.tcfg.tv_w > 0:
-            rf = self.cur_mcfg.grid_res
-            tv_starts = (int(torch.randint(
-                0, rf - tv_window(rf) + 1, (1,), generator=self._gen_host
-            )),)
+            tv_starts = tuple(
+                int(torch.randint(0, rf - tv_window(rf) + 1, (1,),
+                                  generator=self._gen_host))
+                for rf in (g.shape[0] for g in tv_levels(self.state.params,
+                                                         self.cur_mcfg))
+            )
         return i, (x0, y0), bg, tv_starts
 
     def run_step(self):
@@ -424,7 +449,7 @@ class SwrTrainer:
         self.state, metrics = swr_train_step(
             self.state, self.images[i], self.poses_np[i], self.K, (x0, y0),
             self.cur_mcfg, self.tcfg, axis, flip, bg, tv_starts,
-            self.lat_size, warp,
+            self.lat_size, warp, self.slab_window,
         )
         self.step += 1
         return metrics
@@ -459,7 +484,8 @@ class SwrTrainer:
         pose_np = np.asarray(pose, np.float32).reshape(3, 4)
         a = int(np.argmax(np.abs(pose_np[:, 2])))
         if abs(float(pose_np[a, 3])) <= self.cur_mcfg.scale * 1.05:
-            raise NotImplementedError(f"inside cameras are {_MODULES_TODO}")
+            raise NotImplementedError(
+                f"inside cameras are {_MODULES_TODO.format('10.5')}")
         with torch.no_grad():
             return render_swr(
                 self.state.params, grid, self.cur_mcfg, pose_np,
@@ -548,6 +574,9 @@ class SwrTrainer:
         got = [tuple(g.shape) for g in params["levels"]]
         if exp != got:
             raise ValueError(f"ckpt level shapes {got} != config {exp}")
+        if ("sigma_level" in params) != self.mcfg.split:
+            raise ValueError(f"{path}: a sigma_level exactly when the config "
+                             f"is split (sigma_res={self.mcfg.sigma_res})")
         params = _trainable(params)
         self.state = SwrTrainState(params,
                                    make_optimizer(self.tcfg).init(params))

@@ -62,20 +62,26 @@ def pyramid_params_to_numpy(params) -> Dict[str, Any]:
     def _n(t):
         return t.detach().to("cpu", torch.float32).numpy()
 
-    return {
+    tree = {
         "levels": [_n(g) for g in params["levels"]],
         "rgb_mlp": {k: _n(v) for k, v in params["rgb_mlp"].items()},
     }
+    if "sigma_level" in params:
+        tree["sigma_level"] = _n(params["sigma_level"])
+    return tree
 
 
 def save_pyramid_npz(path: str, params) -> None:
-    """Write ``model_pyramid.npz`` with train.py's keys, ``level_{i}`` and
-    ``rgb_mlp_{name}`` (the port trains no split ``sigma_level``)."""
+    """Write ``model_pyramid.npz`` with train.py's keys: ``level_{i}``,
+    ``rgb_mlp_{name}`` and, for a split config, ``sigma_level``."""
     tree = pyramid_params_to_numpy(params)
+    extra = {"sigma_level": tree["sigma_level"]} if "sigma_level" in tree \
+        else {}
     np.savez(
         path,
         **{f"level_{i}": g for i, g in enumerate(tree["levels"])},
         **{f"rgb_mlp_{k}": v for k, v in tree["rgb_mlp"].items()},
+        **extra,
     )
 
 

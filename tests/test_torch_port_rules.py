@@ -88,8 +88,6 @@ def tiny():
     [
         dict(inside=True),
         dict(debug_frames=True),
-        dict(slab_window=8),
-        dict(want_distortion=True),
         dict(resample_dtype="bfloat16"),
     ],
     ids=lambda kw: next(iter(kw)),
@@ -99,22 +97,6 @@ def test_out_of_scope_render_options_raise(tiny, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tswr.render_swr(params, grid, cfg, pose, K, (16, 16), n_chunks=4,
                         **kw)
-
-
-def test_non_deferred_and_split_raise(tiny):
-    import dataclasses
-
-    cfg, params, grid, pose, K = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tswr.render_swr(params, grid, dataclasses.replace(cfg, deferred=False),
-                        pose, K, (16, 16), n_chunks=4)
-    split = tpyr.PyramidConfig(resolutions=(8, 16), features=4,
-                               sigma_res=32, deferred=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpyr.bake(params, split)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tswr.render_swr(params, (grid[..., 0], grid[..., 1:]), split, pose,
-                        K, (16, 16), n_chunks=4)
 
 
 def test_renderer_raises_for_inside_camera_and_cam_carve(tiny):

@@ -10,7 +10,8 @@
   1e-6.
 * The synthetic ground truth against the JAX package's at 32^2.
 * Port counterparts of ``tests/test_swr_train.py``'s training tests, in
-  cubic (the port trains cubic only), the npz round trip through both
+  cubic (the record recipe's kind; linear and the slab scan's options are
+  in ``tests/test_torch_swr_scan.py``), the npz round trip through both
   packages, save/load state, and ``python -m taichi_nerfs_torch.train``.
 """
 
@@ -346,13 +347,11 @@ def test_swr_trainer_save_load_state(sphere, tmp_path, light):
 
 @pytest.mark.parametrize(
     "over",
-    [dict(resample_kind="linear"), dict(cam_carve=0.1),
-     dict(distortion_w=0.01), dict(bake_dtype="bfloat16"),
+    [dict(cam_carve=0.1), dict(bake_dtype="bfloat16"),
      dict(resample_dtype="bfloat16"), dict(adam_mu_bf16=True),
-     dict(mcfg=dict(deferred=False)), dict(mesh=object()),
-     dict(inside=True)],
-    ids=["linear", "cam_carve", "distortion", "bf16_bake", "bf16_resample",
-         "adam_mu_bf16", "per_sample_shading", "mesh", "inside_camera"],
+     dict(mesh=object()), dict(inside=True)],
+    ids=["cam_carve", "bf16_bake", "bf16_resample", "adam_mu_bf16", "mesh",
+         "inside_camera"],
 )
 def test_out_of_scope_training_options_raise(sphere, over):
     over = dict(over)
