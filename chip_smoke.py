@@ -16,8 +16,9 @@ phases:
    {4, 8, 16}; the backward at the same cases and at clamp-binding inputs),
    at the serving and training shapes (forward) and at the three training
    shapes (backward, linear and cubic, with the difference of a second
-   run); both kernels are timed warm and cold (after 128 MB written to
-   evict the L2), each time beside its bound and its share of it;
+   run), and at the default flags' full-depth shape (F=16, linear); both
+   kernels are timed warm and cold (after 128 MB written to evict the L2),
+   each time beside its bound and its share of it;
 4. serve: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
    uncapped, with cubic resampling; the outputs are checked, the forward
    kernel's launch count during those frames must be > 0, and one view is
@@ -47,7 +48,20 @@ phases:
 9. window: a narrow 800x800 view (focal 4 w, a 32 x 32 crop) of the record
    model, whose slab window is 64 at R=256, rendered windowed (the scan)
    and with the full matrix (the sweep kernel), compared;
-10. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
+10. bf16: the bf16 variants and the repo's R=512 record configuration
+   (5 levels to 512, the last lean, bf16 bake, bf16 Adam moment, cubic):
+   (a) both kernels at every (volume, operand) dtype pair against their
+   plain versions, at small ragged and edge-case shapes and at the R=512
+   training shape (16, 32, 8, 512, 512, nq=272), timed warm and cold beside
+   the bound; (b) ``SwrTrainer`` on the lego views with the phases cut to
+   2 + 2 steps and 4 at full depth: both kernels launched with a bf16
+   volume at every step, losses finite, one full-depth step's level
+   gradients against the plain sweep's (2e-2), the slabs' column windows
+   against the row buffer, the steady step, the peak device memory and one
+   fp32-bake step's peak; (c) ``PyramidRenderer(bake_dtype="bfloat16")``
+   renders a capped and an uncapped 800x800 R=512 frame (finite, opacity
+   in [0, 1], rgb within 2e-2 of the fp32-bake frame);
+11. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
    (brick encoder, 128^3 occupancy grid, batch 8192) trains 320 steps with
    ``Trainer`` on 8 checker views made on the card (past the 256-step
    warmup, so the sparse grid refresh runs); every loss must be finite and
@@ -123,6 +137,39 @@ DEFAULT_PROG, DEFAULT_STEPS = (3, 3), 9
 SCAN_STEPS, SCAN_CROPS = 8, 2
 # scan loss and gradients, card against CPU (the CPU tests' tolerances)
 SCAN_LOSS_TOL, SCAN_GRAD_TOL = 1e-5, 2e-4
+# the bf16 phase: the repo's R=512 record
+# (docs/records/lego_proxy_r512_negative.manifest.json) and its full-depth
+# training step's sweep shape (n_chunks, dc, F, R, nq); its coarse-to-fine
+# phases cut to 2 + 2 steps, then 4 at full depth (3 steady)
+R512_LEVELS, R512_LEVEL_FEATURES = (32, 64, 128, 256, 512), (8, 8, 8, 8, 4)
+R512_SHAPE = (16, 32, 8, 512, 272)
+BF16_PROG, BF16_STEPS = (2, 2), 8
+# the (volume, operand) dtype pairs of both kernels
+DTYPE_PAIRS = (("float32", "float32"), ("float32", "bfloat16"),
+               ("bfloat16", "float32"), ("bfloat16", "bfloat16"))
+# kernel against plain version at the R=512 shape, max abs, by operand
+# dtype: fp32 operands compute the same fp32 function (a bf16 volume is
+# exact in fp32); bf16 operands round each pass-1 value, and a last-bit
+# difference of the fp32 tap sum can move it to the neighbouring bf16 value
+BF16_FWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# the same at the small ragged and edge-case shapes and the served chunks,
+# whose larger alphas carry such a one-ulp move further: the JAX package's
+# bf16 tolerance (tests/test_half.py)
+BF16_SMALL_FWD_TOL = 2e-2
+# Max abs cannot tell those moves from a kernel that skips the roundings
+# (scripts/torch_sweep_bf16_tol.py on the H100: the kernels within 2.0e-3
+# max abs at the small shapes, such a kernel 2.8e-4 to 3.1e-2).  Relative
+# norms can, and every bf16-operand case is held to them: frames (the
+# kernels within 6.0e-5, such a kernel 8.1e-4 or more) and d vol (the
+# kernels within 9.3e-5 at any dtype pair; such a backward 4.5e-3 or more,
+# one that rounds t per 64-column tile up to 2.7e-3, 4.7e-4 at R=512)
+BF16_FWD_REL_TOL = 3e-4
+BF16_DVOL_TOL = 2.5e-4
+# one full-depth step's level gradients through the kernels vs the plain
+# sweep, and the bf16-bake frame against the fp32-bake frame
+BF16_GRAD_TOL, BF16_RGB_TOL = 2e-2, 2e-2
+# the kernels' row buffer, columns (csrc/swr_sweep_common.cuh kRowCols)
+ROW_COLS = 160
 
 
 def _median(xs):
@@ -216,24 +263,29 @@ def _resample_flops(nc, dc, F, Rc, nq, kind):
     return 2 * nt * nc * dc * F * (nq * Rc + nq * nq)
 
 
-def sweep_fwd_bound(nc, dc, F, Rb, Rc, nq, kind):
-    """The forward's bound: each input read once (vol, rs_par, z_rel,
-    ch_par) and the frames written once; the separable resample plus the
-    composite's 2 (F - 1) + 10 flops per lattice point and slab."""
-    nbytes = 4 * (nc * dc * F * Rb * Rc + nc * dc * 5 + nc * 6
-                  + nc * (F + 2) * nq * nq)
+def sweep_fwd_bound(nc, dc, F, Rb, Rc, nq, kind, vol_bytes=4):
+    """The forward's bound: each input read once (vol, of ``vol_bytes`` a
+    voxel, rs_par, z_rel, ch_par) and the frames written once; the
+    separable resample plus the composite's 2 (F - 1) + 10 flops per
+    lattice point and slab."""
+    nbytes = (vol_bytes * nc * dc * F * Rb * Rc
+              + 4 * (nc * dc * 5 + nc * 6 + nc * (F + 2) * nq * nq))
     flops = (_resample_flops(nc, dc, F, Rc, nq, kind)
              + nc * dc * nq * nq * (2 * (F - 1) + 10))
     return (*_bound_ms(nbytes, flops), nbytes, flops)
 
 
-def sweep_bwd_bound(nc, dc, F, Rb, Rc, nq, kind):
+def sweep_bwd_bound(nc, dc, F, Rb, Rc, nq, kind, vol_bytes=4):
     """The backward's bound: vol, the parameters, the frames' tau channel
-    (the only one it reads) and g read once, dvol written once; the
-    forward's resample again, its transpose (the same count) and the
-    reverse composite's 4 (F - 1) + 20 flops per lattice point and slab."""
-    nbytes = 4 * (2 * nc * dc * F * Rb * Rc + nc * dc * 5 + nc * 6
-                  + nc * nq * nq + nc * (F + 2) * nq * nq)
+    (the only one it reads) and g read once, dvol (vol's dtype, of
+    ``vol_bytes`` a voxel) written once; the forward's resample again, its
+    transpose (the same count) and the reverse composite's 4 (F - 1) + 20
+    flops per lattice point and slab.  The fp32 scratch of the transposed
+    pass (a bf16 volume or bf16 operands) is the implementation's cost, not
+    the function's: it is not counted."""
+    nbytes = (vol_bytes * 2 * nc * dc * F * Rb * Rc
+              + 4 * (nc * dc * 5 + nc * 6 + nc * nq * nq
+                     + nc * (F + 2) * nq * nq))
     flops = (2 * _resample_flops(nc, dc, F, Rc, nq, kind)
              + nc * dc * nq * nq * (4 * (F - 1) + 20))
     return (*_bound_ms(nbytes, flops), nbytes, flops)
@@ -267,10 +319,12 @@ NON_FINITE_RS = ((0, 1, 2, float("nan")), (1, 0, 3, float("inf")),
                  (1, 1, 0, float("nan")))
 # the forward's timed shapes (n_chunks, dc, F, R, nq): one chunk of the
 # record model's 800x800 frame, uncapped and capped, and the full-depth
-# training step's 16 chunks
+# training step's 16 chunks, at the record's F=8 and at the default flags'
+# F=16 (which train linear only)
 FWD_TIMED = (("serving nq=816", (1, 16, 8, 256, 816)),
              ("serving nq=336", (1, 16, 8, 256, 336)),
-             ("training nq=272", (16, 16, 8, 256, 272)))
+             ("training nq=272", (16, 16, 8, 256, 272)),
+             ("training F=16 nq=272", (16, 16, 16, 256, 272)))
 
 
 def phase_kernels(torch):
@@ -302,7 +356,7 @@ def phase_kernels(torch):
     for label, shp in cases:
         nq = shp["nq"]
         args = _rand_sweep_inputs(torch, rng, **shp)
-        kinds = ("linear", "cubic")
+        kinds = ("linear",) if "F=16 nq" in label else ("linear", "cubic")
         if label.startswith("non-finite"):
             for c, s, k, v in NON_FINITE_RS:
                 args[1][c, s, k] = v
@@ -328,27 +382,32 @@ def phase_kernels(torch):
             worst = max(worst, max_abs)
             if shp["realistic"]:
                 del got, want
-                timing[(nq, kind)] = _time_fwd(
+                timing[(label, kind)] = _time_fwd(
                     torch, label, args, nq, kind, flush)
         del args
     torch.cuda.synchronize()
     return worst, timing
 
 
-def _time_fwd(torch, label, args, nq, kind, flush):
+def _time_fwd(torch, label, args, nq, kind, flush, dtype=None):
     """The forward kernel's warm and cold medians beside its bound, and the
-    plain version's warm median; printed and returned as a dict."""
+    plain version's warm median; printed and returned as a dict.  ``dtype``
+    is the resample operand dtype (fp32 by default)."""
     from taichi_nerfs_torch.ops.swr_sweep import (
         chunk_sweep,
         chunk_sweep_reference,
     )
 
+    dtype = dtype or torch.float32
     nc, dc, F, Rb, Rc = args[0].shape
-    warm = _time_ms(torch, lambda: chunk_sweep(*args, nq, kind), 20)
-    cold = _time_ms(torch, lambda: chunk_sweep(*args, nq, kind), 20, flush)
-    plain = _time_ms(torch, lambda: chunk_sweep_reference(*args, nq, kind),
-                     3 if nc > 1 else 10)
-    bound, by, nbytes, flops = sweep_fwd_bound(nc, dc, F, Rb, Rc, nq, kind)
+    warm = _time_ms(torch, lambda: chunk_sweep(*args, nq, kind, dtype=dtype),
+                    20)
+    cold = _time_ms(torch, lambda: chunk_sweep(*args, nq, kind, dtype=dtype),
+                    20, flush)
+    plain = _time_ms(torch, lambda: chunk_sweep_reference(
+        *args, nq, kind, dtype=dtype), 3 if nc > 1 else 10)
+    bound, by, nbytes, flops = sweep_fwd_bound(
+        nc, dc, F, Rb, Rc, nq, kind, args[0].element_size())
     print(f"  time {label} {kind}: kernel warm {warm:.4f} ms, cold "
           f"{cold:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB,"
           f" {flops / 1e9:.3f} GFLOP), share warm {bound / warm:.1%}, cold "
@@ -386,6 +445,11 @@ def phase_bwd_kernels(torch):
         (f"training R={R} nq={nq}", dict(nc=16, dc=dc, F=8, R=R, nq=nq,
                                          realistic=True), both)
         for R, dc, nq in TRAIN_SHAPES
+    ] + [
+        # the default flags' full-depth step: F=16, linear
+        ("training F=16 R=256 nq=272", dict(nc=16, dc=16, F=16, R=256,
+                                            nq=272, realistic=True),
+         ("linear",)),
     ]
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     worst = 0.0
@@ -431,9 +495,9 @@ def phase_bwd_kernels(torch):
                 again = chunk_sweep_bwd(*args, frames, g, nq, kind)
                 rerun = float((again - got).abs().max())
                 del got, want, again
-                timing[(nq, kind)] = _time_bwd(
+                timing[(label, kind)] = _time_bwd(
                     torch, label, args, frames, g, out, v, nq, kind, flush)
-                timing[(nq, kind)]["rerun_max_abs"] = rerun
+                timing[(label, kind)]["rerun_max_abs"] = rerun
                 print(f"  second run of {label} {kind}: max |difference| "
                       f"from the first {rerun:.3e}", flush=True)
             del out, v
@@ -441,26 +505,55 @@ def phase_bwd_kernels(torch):
     return worst, timing
 
 
-def _time_bwd(torch, label, args, frames, g, out, v, nq, kind, flush):
+def _time_bwd(torch, label, args, frames, g, out, v, nq, kind, flush,
+              dtype=None):
     """The backward kernel's warm and cold medians beside its bound, and the
     plain backward's warm median (autograd through the plain sweep's
     retained graph); printed and returned as a dict."""
     from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep_bwd
 
+    dtype = dtype or torch.float32
+
     def run():
-        return chunk_sweep_bwd(*args, frames, g, nq, kind)
+        return chunk_sweep_bwd(*args, frames, g, nq, kind, dtype=dtype)
 
     warm = _time_ms(torch, run, 10)
     cold = _time_ms(torch, run, 10, flush)
     plain = _time_ms(torch, lambda: torch.autograd.grad(
         out, v, g, retain_graph=True), 5)
-    bound, by, nbytes, flops = sweep_bwd_bound(*args[0].shape, nq, kind)
+    bound, by, nbytes, flops = sweep_bwd_bound(
+        *args[0].shape, nq, kind, args[0].element_size())
     print(f"  time {label} {kind}: kernel warm {warm:.4f} ms, cold "
           f"{cold:.4f} ms; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB,"
           f" {flops / 1e9:.3f} GFLOP), share warm {bound / warm:.1%}, cold "
           f"{bound / cold:.1%}; plain backward {plain:.4f} ms (medians, CUDA "
           "events)", flush=True)
     return dict(warm=warm, cold=cold, plain=plain, bound=bound, by=by)
+
+
+def _device_ms_by_kernel(torch, fn, reps=5):
+    """Device ms of each kernel (and memset) that ``fn`` launches once, by
+    short name: the mean over the launches ``torch.profiler``'s CUDA
+    activity recorded in ``reps`` runs (it may record fewer than it ran)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.count:
+            continue
+        m = re.search(r"swr_sweep_\w+_kernel|Memset", e.key)
+        name = m.group(0) if m else e.key[:40]
+        out[name] = e.self_device_time_total / (1e3 * e.count)
+    return out
 
 
 def _keep_off_the_gate(torch, rng, args, nq):
@@ -742,10 +835,10 @@ def phase_train(torch, seed, device="cuda"):
     return launches, by_phase, worst_grad
 
 
-def _grads_kernel_vs_plain(torch, trainer, tag):
+def _grads_kernel_vs_plain(torch, trainer, tag, tol=GRAD_TOL):
     """One full-depth step's level gradients through the kernels and
     through the plain sweep, on one drawn crop, background and TV window;
-    raises beyond ``GRAD_TOL``.  Returns the worst relative norm."""
+    raises beyond ``tol``.  Returns the worst relative norm."""
     import dataclasses
 
     from taichi_nerfs_torch.render.swr import pick_warp
@@ -775,9 +868,9 @@ def _grads_kernel_vs_plain(torch, trainer, tag):
         worst = max(worst, rel)
         print(f"{tag}: level {lv} gradient, kernels vs plain sweep: "
               f"relative norm {rel:.3e}", flush=True)
-        if not rel <= GRAD_TOL:
+        if not rel <= tol:
             raise AssertionError(f"{tag}: level {lv} gradient differs by "
-                                 f"{rel} > {GRAD_TOL}")
+                                 f"{rel} > {tol}")
     return worst
 
 
@@ -1132,6 +1225,514 @@ def _fixed_loss(torch, trainer, evals):
             total += float(loss)
     return total / len(evals)
 
+# ------------------------------------------------------------------ bf16
+
+
+def r512_config():
+    """The repo's R=512 record (``docs/records/
+    lego_proxy_r512_negative.manifest.json``): 5 levels 32 ... 512, the
+    last one lean (4 channels), deferred shading."""
+    from taichi_nerfs_torch.models.pyramid import PyramidConfig
+
+    return PyramidConfig(resolutions=R512_LEVELS, features=8,
+                         level_features=R512_LEVEL_FEATURES, rgb_width=64,
+                         rgb_depth=2, scale=0.5, sigma_bias=-2.0,
+                         deferred=True)
+
+
+def _r512_sweep_inputs(torch, seed):
+    """The R=512 training step's sweep operands, made on the card: random
+    channels around 0.3, sigma voxels in [0.5, 1.5] and a lattice inside
+    [2, R - 3] (``_keep_off_the_gate``: resampled sigma stays off the clamp
+    gate, where kernel and plain version may round to opposite sides), the
+    chunk geometry of ``_rand_sweep_inputs(realistic=True)``."""
+    nc, dc, F, R, nq = R512_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def uni(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    vol = torch.randn((nc, dc, F, R, R), generator=gen, device=dev).add_(0.3)
+    vol[:, :, 0] = uni(0.5, 1.5, (nc, dc, R, R))
+    span = (R - 5.0) / (nq - 1)
+    st = uni(2.0, 2.5, (nc, dc, 2))
+    sp = span * uni(0.95, 1.0, (nc, dc, 2))
+    rs = torch.stack([st[..., 0], sp[..., 0], st[..., 1], sp[..., 1]],
+                     -1).contiguous()
+    z_rel = torch.linspace(1.0, 2.0, nc * dc, device=dev).reshape(nc, dc)
+    ch = torch.stack([
+        uni(-0.5, 0.0, (nc,)), torch.full((nc,), 1.0 / (nq - 16), device=dev),
+        uni(-0.5, 0.0, (nc,)), torch.full((nc,), 1.0 / (nq - 16), device=dev),
+        torch.full((nc,), 1.5, device=dev), torch.full((nc,), 1.0 / R,
+                                                       device=dev),
+    ], -1).contiguous()
+    g = torch.randn((nc, F + 2, nq, nq), generator=gen, device=dev)
+    return [vol, rs, z_rel, ch], g, nq
+
+
+def _rel_norm(got, want):
+    """||got - want|| / ||want|| in fp64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm()) / max(float(want.norm()), 1e-30)
+
+
+def _pair_label(vol_dtype, op_dtype):
+    short = {"float32": "f32", "bfloat16": "bf16"}
+    return f"vol={short[vol_dtype]} ops={short[op_dtype]}"
+
+
+def _bf16_small_cases(torch):
+    """Both kernels for the three pairs with a bf16 volume or bf16
+    operands, against their plain versions, at ragged shapes (F 4/8/16) and
+    the forward's edge cases (F=8), linear and cubic.  Forward within
+    ``BF16_SMALL_FWD_TOL`` max abs and ``BF16_FWD_REL_TOL`` relative norm
+    where the operands are bf16 (else KERNEL_TOL), ``d vol`` of the
+    volume's dtype within ``BF16_DVOL_TOL`` relative norm.
+    Returns the worst forward error and ``d vol`` relative norm."""
+    import numpy as np
+
+    from taichi_nerfs_torch.ops.swr_sweep import (
+        chunk_sweep,
+        chunk_sweep_bwd,
+        chunk_sweep_bwd_reference,
+        chunk_sweep_reference,
+    )
+
+    rng = np.random.default_rng(2)
+    cases = [(f"ragged F={F}", dict(nc=2, dc=3, F=F, R=40, nq=37,
+                                    realistic=False)) for F in (4, 8, 16)]
+    cases += [(f"{label} F=8", dict(shp, F=8, realistic=False))
+              for label, shp in FWD_EDGE_CASES]
+    worst_fwd, worst_dvol = 0.0, 0.0
+    for label, shp in cases:
+        nq = shp["nq"]
+        args = _rand_sweep_inputs(torch, rng, **shp)
+        kinds = ("linear", "cubic")
+        if label.startswith("non-finite"):
+            for c, s, k, v in NON_FINITE_RS:
+                args[1][c, s, k] = v
+            kinds = ("cubic",)
+        nc, _, F = args[0].shape[:3]
+        g = torch.randn((nc, F + 2, nq, nq), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        for vdt, odt in DTYPE_PAIRS[1:]:
+            v = args[0].to(getattr(torch, vdt))
+            a = [v, *args[1:]]
+            dt = getattr(torch, odt)
+            tol = BF16_SMALL_FWD_TOL if odt == "bfloat16" else KERNEL_TOL
+            for kind in kinds:
+                got = chunk_sweep(*a, nq, kind, dtype=dt)
+                want = chunk_sweep_reference(*a, nq, kind, dtype=dt)
+                dv = chunk_sweep_bwd(*a, got, g, nq, kind, dtype=dt)
+                dw = chunk_sweep_bwd_reference(*a, g, nq, kind, dtype=dt)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                frel = _rel_norm(got, want)
+                rel = _rel_norm(dv, dw)
+                ok = (err <= tol and rel <= BF16_DVOL_TOL
+                      and (odt == "float32" or frel <= BF16_FWD_REL_TOL)
+                      and dv.dtype == v.dtype
+                      and bool(torch.isfinite(got).all())
+                      and bool(torch.isfinite(dv).all()))
+                print(f"bf16 kernels {label} {_pair_label(vdt, odt)} {kind}: "
+                      f"forward max_abs={err:.3e} relative norm {frel:.3e}, "
+                      f"d vol ({dv.dtype}) relative norm {rel:.3e} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(
+                        f"bf16 kernels disagree with the plain versions "
+                        f"({label}, {vdt}/{odt}, {kind}): forward {err:.3e} "
+                        f"(limit {tol}), relative norm {frel:.3e} (limit "
+                        f"{BF16_FWD_REL_TOL} with bf16 operands), d vol "
+                        f"{rel:.3e} (limit {BF16_DVOL_TOL}), d vol dtype "
+                        f"{dv.dtype}")
+                worst_fwd = max(worst_fwd, err)
+                worst_dvol = max(worst_dvol, rel)
+        del args
+    return worst_fwd, worst_dvol
+
+
+def phase_bf16_kernels(torch, seed, card):
+    """Both kernels at every (volume, operand) dtype pair: at small ragged
+    and edge-case shapes, then at the R=512 training shape, cubic, against
+    their plain versions (forward max abs within ``BF16_FWD_TOL``, and
+    with bf16 operands relative norm within ``BF16_FWD_REL_TOL``; ``d vol``
+    within ``BF16_DVOL_TOL`` relative norm, in the volume's dtype), each
+    timed warm and cold beside its bound and share, with the plain
+    version's time and the backward's device time by kernel."""
+    from taichi_nerfs_torch.ops.swr_sweep import (
+        chunk_sweep,
+        chunk_sweep_bwd,
+        chunk_sweep_reference,
+    )
+
+    small_fwd, small_dvol = _bf16_small_cases(torch)
+    base, g, nq = _r512_sweep_inputs(torch, seed)
+    nc, dc, F, R, _ = R512_SHAPE
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    res = {}
+    for vdt, odt in DTYPE_PAIRS:
+        pair = _pair_label(vdt, odt)
+        label = f"R=512 nq={nq} {pair}"
+        args = [base[0].to(getattr(torch, vdt)), *base[1:]]
+        dt = getattr(torch, odt)
+        frames = chunk_sweep(*args, nq, "cubic", dtype=dt)
+        want = chunk_sweep_reference(*args, nq, "cubic", dtype=dt)
+        got_d = chunk_sweep_bwd(*args, frames, g, nq, "cubic", dtype=dt)
+        v = args[0].clone().requires_grad_(True)
+        out = chunk_sweep_reference(v, *args[1:], nq, "cubic", dtype=dt)
+        (want_d,) = torch.autograd.grad(out, v, g, retain_graph=True)
+        torch.cuda.synchronize()
+        err = float((frames - want).abs().max())
+        frel = _rel_norm(frames, want)
+        rel = _rel_norm(got_d, want_d)
+        tol = BF16_FWD_TOL[odt]
+        ok = (err <= tol and rel <= BF16_DVOL_TOL
+              and (odt == "float32" or frel <= BF16_FWD_REL_TOL)
+              and got_d.dtype == args[0].dtype
+              and bool(torch.isfinite(frames).all())
+              and bool(torch.isfinite(got_d).all()))
+        print(f"bf16 kernels {label} cubic: forward max_abs={err:.3e} "
+              f"(limit {tol}) relative norm {frel:.3e}, d vol "
+              f"({got_d.dtype}) relative norm {rel:.3e} (limit "
+              f"{BF16_DVOL_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(
+                f"bf16 kernels at the R=512 shape ({pair}): forward "
+                f"{err:.3e} > {tol}, relative norm {frel:.3e} > "
+                f"{BF16_FWD_REL_TOL} (bf16 operands) or d vol {rel:.3e} > "
+                f"{BF16_DVOL_TOL} or d vol dtype {got_d.dtype}")
+        del want, got_d, want_d
+        fwd = _time_fwd(torch, f"{label} forward", args, nq, "cubic", flush,
+                        dt)
+        bwd = _time_bwd(torch, f"{label} backward", args, frames, g, out, v,
+                        nq, "cubic", flush, dt)
+        # the backward's launches apart: the memset, the sweep kernel and,
+        # with a bf16 volume or bf16 operands, swr_sweep_bwd_rows_kernel
+        bwd["parts"] = _device_ms_by_kernel(torch, lambda: chunk_sweep_bwd(
+            *args, frames, g, nq, "cubic", dtype=dt))
+        print(f"  {label} backward, device ms by kernel: " + ", ".join(
+            f"{k} {x:.4f}" for k, x in bwd["parts"].items()), flush=True)
+        res[pair] = {"fwd": dict(fwd, max_abs_err=err, rel_norm_err=frel),
+                     "bwd": dict(bwd, rel_norm_err=rel)}
+        del out, v, frames, args
+    del base, g, flush
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"bf16 kernels ({card}): small shapes forward within "
+          f"{small_fwd:.3e}, d vol within {small_dvol:.3e} relative norm; "
+          "R=512 nq=272 cubic, warm ms (forward / backward) and share of "
+          "the bound: " + "; ".join(
+              f"{p} " + " / ".join(
+                  f"{r[k]['warm']:.4f} ({r[k]['bound'] / r[k]['warm']:.1%})"
+                  for k in ("fwd", "bwd"))
+              for p, r in res.items()), flush=True)
+    return {"small_fwd": small_fwd, "small_dvol": small_dvol, "r512": res}
+
+
+def _window_paths(rs, nq, Rc, widen4, NT=4):
+    """The kernels' column windows at these slab parameters (a mirror of
+    ``axis_window`` in ``csrc/swr_sweep_common.cuh``, in fp32, over every
+    (chunk, slab, 64-column tile); ``widen4``: the backward's widening to
+    whole float4s): the widest window and the tiles wider than the row
+    buffer (``ROW_COLS``, which then read tap by tap)."""
+    import numpy as np
+
+    f32 = np.float32
+    rs = np.asarray(rs, np.float32)
+    j0 = np.arange(0, nq, 64)
+    j1 = np.minimum(j0 + 64, nq) - 1
+    with np.errstate(invalid="ignore", over="ignore"):
+        pa = rs[..., 2:3] + f32(j0) * rs[..., 3:4]
+        pz = rs[..., 2:3] + f32(j1) * rs[..., 3:4]
+        finite = np.isfinite(pa) & np.isfinite(pz)
+        p_lo = np.clip(np.fmin(pa, pz), -8, Rc + 8)
+        p_hi = np.clip(np.fmax(pa, pz), -8, Rc + 8)
+        lo = np.floor(p_lo) - (NT // 2 - 1)
+        hi = np.floor(p_hi) + NT // 2
+    empty = (hi < 0) | (lo >= Rc)
+    c0 = np.maximum(lo - 1, 0)
+    end = np.minimum(hi + 1, Rc - 1) + 1
+    if widen4:
+        end = np.minimum((end + 3) // 4 * 4, Rc)
+        c0 = c0 // 4 * 4
+    ncol = np.where(empty | ~finite, 0, end - c0)
+    return int(ncol.max()), int(ncol.size), int(((ncol > ROW_COLS)
+                                                 | ~finite).sum())
+
+
+def phase_bf16_train(torch, seed, train, card):
+    """The R=512 record's recipe (bf16 bake, bf16 Adam moment, cubic) on
+    the lego views, the coarse-to-fine phases cut to BF16_PROG so that
+    full-depth steps run: both kernels launched with a bf16 volume at every
+    step, losses finite, one full-depth step's level gradients through the
+    kernels against the plain sweep's; the steady step median, the peak
+    device memory over the steps and, for comparison, one fp32-bake step's
+    peak.  Returns a dict of the numbers."""
+    import dataclasses
+
+    import numpy as np
+
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.render import swr as rswr
+    from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
+
+    device = torch.device("cuda")
+    mcfg = r512_config()
+    tcfg = SwrTrainConfig(
+        crop=256, lr=1e-2, max_steps=BF16_STEPS, n_chunks=16,
+        resample_kind="cubic", alpha_w=0.2, random_bg=True, tv_w=5e-4,
+        sigma_l1=1e-5, prog_steps=BF16_PROG, bake_dtype="bfloat16",
+        adam_mu_bf16=True,
+    )
+    trainer = SwrTrainer(mcfg, tcfg, train.rays, train.poses, train.K,
+                         train.img_wh, seed=seed, alphas=train.alphas,
+                         device=device)
+    # record each sweep call's volume dtype and slab parameters
+    real_sweep, seen = rswr.chunk_sweep, []
+
+    def recording(vol, rs, *rest, **kw):
+        seen.append((vol.dtype, kw.get("dtype"), rs.detach().cpu().numpy(),
+                     vol.shape[-1], rest[2]))
+        return real_sweep(vol, rs, *rest, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunk_sweep.launches = 0
+    chunk_sweep_bwd.launches = 0
+    chunk_sweep_bwd.finish_launches = 0
+    rswr.chunk_sweep = recording
+    losses, step_ms, levels, fwd_n, bwd_n = [], [], [], [], []
+    try:
+        for _ in range(BF16_STEPS):
+            f0, b0 = chunk_sweep.launches, chunk_sweep_bwd.launches
+            t0 = time.perf_counter()
+            m = trainer.run_step()
+            loss = float(m["loss"])  # waits for the step
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            levels.append(len(trainer.state.params["levels"]))
+            fwd_n.append(chunk_sweep.launches - f0)
+            bwd_n.append(chunk_sweep_bwd.launches - b0)
+            print(f"bf16 train step {trainer.step - 1}: {levels[-1]} levels "
+                  f"(R={trainer.cur_mcfg.grid_res}, lattice "
+                  f"{trainer.lat_size or tcfg.crop + 16}) loss={loss:.6f} "
+                  f"{step_ms[-1]:.2f} ms; launches forward {fwd_n[-1]}, "
+                  f"backward {bwd_n[-1]}", flush=True)
+    finally:
+        rswr.chunk_sweep = real_sweep
+    peak = torch.cuda.max_memory_allocated()
+    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    finish = chunk_sweep_bwd.finish_launches
+    vol_dtypes = {str(d) for d, _, _, _, _ in seen}
+    op_dtypes = {str(o) for _, o, _, _, _ in seen}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bf16 train: non-finite loss: {losses}")
+    if set(levels) != {3, 4, 5}:
+        raise AssertionError(f"bf16 train: levels {levels}")
+    if min(fwd_n) < 1 or min(bwd_n) < 1:
+        raise AssertionError(f"bf16 train: a step launched no kernel: "
+                             f"forward {fwd_n}, backward {bwd_n}")
+    if finish != launches[1]:
+        raise AssertionError(f"bf16 train: {finish} launches of "
+                             "swr_sweep_bwd_rows_kernel for "
+                             f"{launches[1]} backward launches")
+    if vol_dtypes != {"torch.bfloat16"} or len(seen) != BF16_STEPS:
+        raise AssertionError(f"bf16 train: sweep volumes {vol_dtypes} over "
+                             f"{len(seen)} calls")
+    # the column windows of the full-depth steps' slabs
+    full = [(rs, Rc, nq) for _, _, rs, Rc, nq in seen if Rc == 512]
+    paths = [(*_window_paths(rs, nq, Rc, False),
+              *_window_paths(rs, nq, Rc, True)) for rs, Rc, nq in full]
+    widest_f = max(p[0] for p in paths)
+    widest_b = max(p[3] for p in paths)
+    tiles = sum(p[1] for p in paths)
+    taps_f = sum(p[2] for p in paths)
+    taps_b = sum(p[5] for p in paths)
+    steps = np.array([np.abs(rs[..., 1::2]) for rs, _, _ in full])
+    print(f"bf16 train: R=512 slabs' |step| {steps.min():.3f} to "
+          f"{steps.max():.3f} voxels; widest column window forward "
+          f"{widest_f}, backward {widest_b} columns (row buffer "
+          f"{ROW_COLS}); tiles on the tap-by-tap path: forward {taps_f}, "
+          f"backward {taps_b} of {tiles}", flush=True)
+    full_idx = [k for k, lv in enumerate(levels) if lv == 5]
+    steady = [step_ms[k] for k in full_idx[1:]]
+    if len(steady) < 3:
+        raise AssertionError(f"bf16 train: {len(steady)} steady full-depth "
+                             "steps")
+    worst = _grads_kernel_vs_plain(torch, trainer, "bf16 train",
+                                   BF16_GRAD_TOL)
+    del trainer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # one full-depth step of the fp32-bake configuration, for its peak
+    tcfg32 = dataclasses.replace(tcfg, bake_dtype="float32",
+                                 adam_mu_bf16=False, prog_steps=())
+    tr32 = SwrTrainer(mcfg, tcfg32, train.rays, train.poses, train.K,
+                      train.img_wh, seed=seed, alphas=train.alphas,
+                      device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss32 = float(tr32.run_step()["loss"])
+    torch.cuda.synchronize()
+    ms32 = (time.perf_counter() - t0) * 1e3
+    peak32 = torch.cuda.max_memory_allocated()
+    del tr32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if not np.isfinite(loss32):
+        raise AssertionError(f"fp32-bake R=512 step: loss {loss32}")
+    out = {"step_ms": _median(steady), "steady": steady,
+           "peak_gib": peak / 2**30, "peak32_gib": peak32 / 2**30,
+           "step32_ms": ms32, "launches": launches,
+           "finish_launches": finish, "grad": worst,
+           "widest": (widest_f, widest_b), "tap_tiles": (taps_f, taps_b),
+           "tiles": tiles, "op_dtypes": sorted(op_dtypes)}
+    print(f"bf16 train ({card}): R=512 record recipe, crop 256, cubic, bf16 "
+          f"bake and Adam moment: steady full-depth step median "
+          f"{out['step_ms']:.3f} ms (steps {[round(x, 3) for x in steady]}),"
+          f" peak device memory over the {BF16_STEPS} steps "
+          f"{out['peak_gib']:.3f} GiB; one fp32-bake full-depth step "
+          f"{ms32:.2f} ms (first of its trainer), peak {out['peak32_gib']:.3f}"
+          f" GiB; launches forward {launches[0]}, backward {launches[1]}, "
+          f"each with a bf16 volume (and {finish} of the backward's rows "
+          f"kernel); level "
+          f"gradients within {worst:.3e}",
+          flush=True)
+    return out
+
+
+def phase_bf16_serve(torch, seed, card):
+    """``PyramidRenderer(bake_dtype="bfloat16")`` at R=512: one capped and
+    one uncapped 800x800 frame, finite, opacity in [0, 1], rgb within
+    BF16_RGB_TOL of the fp32-bake frame; the frame times and the forward
+    kernel's launches.  One chunk's sweep inputs of each frame, of each
+    bake, are recorded, and the forward kernel is held against the plain
+    sweep on them, with fp32 and with bf16 operands (BF16_FWD_TOL)."""
+    from taichi_nerfs_torch.data.cameras import intrinsics, orbit_poses
+    from taichi_nerfs_torch.ops.swr_sweep import (
+        chunk_sweep,
+        chunk_sweep_reference,
+    )
+    from taichi_nerfs_torch.render import swr as rswr
+    from taichi_nerfs_torch.render.serve import PyramidRenderer
+
+    device = torch.device("cuda")
+    cfg = r512_config()
+    params = _record_params(torch, cfg, seed, device)
+    w, h = RECORD_WH
+    K = intrinsics(w, h)
+    pose = orbit_poses(4)[1]
+    res = {}
+    frames = {}
+    chunks = {}
+    real_sweep = rswr.chunk_sweep
+    for bake in ("float32", "bfloat16"):
+        rend = PyramidRenderer(params, cfg, K, (w, h), resample_kind="cubic",
+                               bake_dtype=bake)
+        t0 = time.perf_counter()
+        grid = rend.grid
+        torch.cuda.synchronize()
+        bake_ms = (time.perf_counter() - t0) * 1e3
+        if grid.dtype != getattr(torch, bake):
+            raise AssertionError(f"bake {bake}: grid {grid.dtype}")
+        for name, cap in (("capped", "auto"), ("uncapped", None)):
+            rend.render(pose, lat_cap=cap)  # warm-up
+            torch.cuda.synchronize()
+            chunk_sweep.launches = 0
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = rend.render(pose, lat_cap=cap)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = chunk_sweep.launches
+            rgb, op = out["rgb"], out["opacity"]
+            if not bool(torch.isfinite(rgb).all() and torch.isfinite(
+                    op).all()):
+                raise AssertionError(f"bf16 serve {bake} {name}: not finite")
+            lo, hi = float(op.min()), float(op.max())
+            if lo < -1e-6 or hi > 1.0 + 1e-6:
+                raise AssertionError(f"bf16 serve {bake} {name}: opacity in "
+                                     f"[{lo}, {hi}]")
+            if launches <= 0:
+                raise AssertionError(f"bf16 serve {bake} {name}: no kernel "
+                                     "launch")
+            frames[(bake, name)] = rgb
+            res[(bake, name)] = {"ms": _median(times), "launches": launches}
+            # one more frame with the sweep's inputs recorded; the middle
+            # chunk it swept is kept
+            calls = []
+
+            def recording(*a, **kw):
+                calls.append(a)
+                return real_sweep(*a, **kw)
+
+            rswr.chunk_sweep = recording
+            try:
+                rend.render(pose, lat_cap=cap)
+            finally:
+                rswr.chunk_sweep = real_sweep
+            chunks[(bake, name)] = tuple(
+                x.clone() if torch.is_tensor(x) else x
+                for x in calls[len(calls) // 2])
+            del calls
+            print(f"bf16 serve R=512 {bake} bake {name} 800x800: "
+                  f"{_median(times):.3f} ms/frame (median of 3), forward "
+                  f"launches {launches} in 3 frames, opacity in "
+                  f"[{lo:.4f}, {hi:.4f}]; bake {bake_ms:.1f} ms", flush=True)
+        del rend, grid
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for name in ("capped", "uncapped"):
+        d = float((frames[("bfloat16", name)]
+                   - frames[("float32", name)]).abs().max())
+        worst = max(worst, d)
+        print(f"bf16 serve {name}: rgb bf16 bake vs fp32 bake max_abs="
+              f"{d:.3e} (limit {BF16_RGB_TOL})", flush=True)
+        if not d <= BF16_RGB_TOL:
+            raise AssertionError(f"bf16 serve {name}: rgb differs by {d} > "
+                                 f"{BF16_RGB_TOL}")
+    # the forward kernel against the plain sweep on the recorded chunks
+    kernel_err = {}
+    for (bake, name), (vol, rs, z_rel, ch, nq, kind) in chunks.items():
+        for odt in ("float32", "bfloat16"):
+            dt = getattr(torch, odt)
+            got = chunk_sweep(vol, rs, z_rel, ch, nq, kind, dtype=dt)
+            want = chunk_sweep_reference(vol, rs, z_rel, ch, nq, kind,
+                                         dtype=dt)
+            err = float((got - want).abs().max())
+            frel = _rel_norm(got, want)
+            bf = odt == "bfloat16"
+            tol = BF16_SMALL_FWD_TOL if bf else KERNEL_TOL
+            ok = (err <= tol and (not bf or frel <= BF16_FWD_REL_TOL)
+                  and bool(torch.isfinite(got).all()))
+            label = f"{bake} bake {name} {tuple(vol.shape)} nq={nq}"
+            kernel_err[f"{label} ops={odt}"] = err
+            print(f"bf16 serve kernel {label} {kind} ops={odt}: forward "
+                  f"max_abs={err:.3e} (limit {tol}), relative norm "
+                  f"{frel:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(
+                    f"swr_sweep_fwd disagrees with the plain sweep on a "
+                    f"served chunk ({label}, ops {odt}): {err:.3e} > {tol} "
+                    f"or relative norm {frel:.3e} > {BF16_FWD_REL_TOL}")
+            del got, want
+    del chunks
+    print(f"bf16 serve ({card}): R=512 800x800 frames, bf16 bake: capped "
+          f"{res[('bfloat16', 'capped')]['ms']:.3f} ms, uncapped "
+          f"{res[('bfloat16', 'uncapped')]['ms']:.3f} ms (fp32 bake "
+          f"{res[('float32', 'capped')]['ms']:.3f} / "
+          f"{res[('float32', 'uncapped')]['ms']:.3f} ms)", flush=True)
+    return {"ms": {f"{b} {n}": r["ms"] for (b, n), r in res.items()},
+            "launches": sum(r["launches"] for (b, _), r in res.items()
+                            if b == "bfloat16"),
+            "rgb_max_abs": worst, "kernel_max_abs": kernel_err}
+
 
 def _occupied_share(torch, bitfield):
     words = bitfield.long() & 0xFFFFFFFF
@@ -1302,16 +1903,23 @@ def phase_ngp(torch, seed):
 
 def ptxas_summary(log):
     """One line per kernel of nvcc's ``-Xptxas -v`` output: the kernel with
-    its template arguments, its registers and, if any, its spills."""
+    its template arguments (F, kind, the volume's type, operand bf16), its
+    registers and, if any, its spills."""
     import re
 
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(swr_[a-z_]+)I"
-                      r"((?:Li\d+E)+)E", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(2))
-            name = f"{m.group(1)}<{', '.join(args)}>"
+            mangled = m.group(1)
+            base = re.search(r"(swr_[a-z_]+_kernel)", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            if "swr_" in mangled:
+                args.append("bf16" if "bfloat16" in mangled else "float")
+                args += [f"ops_bf16={b}"
+                         for b in re.findall(r"Lb([01])E", mangled)]
+            name = (base.group(1) if base else mangled) + (
+                f"<{', '.join(args)}>" if args else "")
         elif "spill" in line and not line.strip().startswith(
                 "0 bytes stack frame, 0 bytes spill stores"):
             spill = "; " + line.strip()
@@ -1380,7 +1988,10 @@ def main(argv=None):
     lego, (dfl_fwd, dfl_bwd), dfl_ms, dfl_grad, dfl_gib = (
         phase_default_flags(torch, args.seed, card))
     scan = phase_scan(torch, args.seed, lego, card)
+    bf16_k = phase_bf16_kernels(torch, args.seed, card)
+    bf16_t = phase_bf16_train(torch, args.seed, lego, card)
     del lego
+    bf16_s = phase_bf16_serve(torch, args.seed, card)
     scan_cpu = phase_scan_cpu(torch, args.seed, card)
     window_diffs, window_ms = phase_window(torch, args.seed, card)
     print(f"summary ({card}): default-flag full-depth step "
@@ -1391,6 +2002,13 @@ def main(argv=None):
           f"frame {scan['frame_ms']:.2f} ms; scan card vs CPU gradients "
           f"within {scan_cpu:.3e}; windowed frame {window_ms[64]:.2f} ms vs "
           f"full {window_ms[0]:.2f} ms", flush=True)
+    print(f"summary bf16 ({card}): R=512 record recipe steady full-depth "
+          f"step {bf16_t['step_ms']:.3f} ms, peak {bf16_t['peak_gib']:.3f} "
+          f"GiB (fp32 bake: one step's peak {bf16_t['peak32_gib']:.3f} GiB),"
+          f" gradients within {bf16_t['grad']:.3e}; R=512 800x800 bf16-bake "
+          f"frames capped {bf16_s['ms']['bfloat16 capped']:.3f} ms, "
+          f"uncapped {bf16_s['ms']['bfloat16 uncapped']:.3f} ms, rgb within "
+          f"{bf16_s['rgb_max_abs']:.3e} of the fp32 bake", flush=True)
     ngp = phase_ngp(torch, args.seed)
     print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
           f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
@@ -1398,8 +2016,15 @@ def main(argv=None):
           f"{100.0 * ngp['busy']:.1f}% of 3 profiled steps", flush=True)
 
 
-    fwd = timing[(816, "cubic")]
-    bwd = bwd_timing[(TRAIN_SHAPES[-1][2], "cubic")]
+    fwd = timing[("serving nq=816", "cubic")]
+    bwd = bwd_timing[("training R=256 nq=272", "cubic")]
+
+    def bf16_shapes(which):
+        keys = ("warm", "cold", "bound", "plain", "max_abs_err",
+                "rel_norm_err", "parts")
+        return {f"R=512 nq=272 cubic {pair}": {
+            k: r[which][k] for k in keys if k in r[which]}
+            for pair, r in bf16_k["r512"].items()}
     print(json.dumps({"kernels": [{
         "name": "swr_sweep_fwd",
         "route": "cuda",
@@ -1409,17 +2034,24 @@ def main(argv=None):
         "launches": dfl_fwd,
         "launches_by_path": {"serve": serve_launches, "train": fwd_n,
                              "train_default_flags": dfl_fwd,
-                             "scan": scan["sweep_launches"][0]},
+                             "scan": scan["sweep_launches"][0],
+                             "train_bf16": bf16_t["launches"][0],
+                             "serve_bf16": bf16_s["launches"]},
         "max_abs_err": worst,
+        # on one recorded chunk of each R=512 frame, each bake and operand
+        # dtype
+        "max_abs_err_serve_bf16": bf16_s["kernel_max_abs"],
         # one chunk of the uncapped 800x800 frame, cubic, warm
         "ms": fwd["warm"],
         "plain_ms": fwd["plain"],
         "bound_ms": fwd["bound"],
         "bound_by": fwd["by"],
         "library_ms": None,  # no single PyTorch call computes the sweep
-        "ms_by_shape": {f"nq={nq} {kind}": {k: t[k] for k in
-                                            ("warm", "cold", "bound")}
-                        for (nq, kind), t in sorted(timing.items())},
+        "ms_by_shape": {**{f"{label} {kind}": {k: t[k] for k in
+                                               ("warm", "cold", "bound",
+                                                "plain")}
+                           for (label, kind), t in sorted(timing.items())},
+                        **bf16_shapes("fwd")},
     }, {
         "name": "swr_sweep_bwd",
         "route": "cuda",
@@ -1427,7 +2059,12 @@ def main(argv=None):
         "replaces": "taichi_nerfs_tpu/ops/swr_pallas.py:178",
         "launches": dfl_bwd,
         "launches_by_path": {"train": bwd_n, "train_default_flags": dfl_bwd,
-                             "scan": scan["sweep_launches"][1]},
+                             "scan": scan["sweep_launches"][1],
+                             "train_bf16": bf16_t["launches"][1]},
+        # the backward's second kernel, swr_sweep_bwd_rows_kernel (a bf16
+        # volume or bf16 operands)
+        "finish_launches_by_path": {"train_bf16":
+                                    bf16_t["finish_launches"]},
         "max_abs_err": worst_bwd,
         # the full-depth training shape, cubic, warm
         "ms": bwd["warm"],
@@ -1436,10 +2073,11 @@ def main(argv=None):
         "bound_ms": bwd["bound"],
         "bound_by": bwd["by"],
         "library_ms": None,
-        "ms_by_shape": {f"nq={nq} {kind}": {k: t[k] for k in
-                                            ("warm", "cold", "bound",
-                                             "rerun_max_abs")}
-                        for (nq, kind), t in sorted(bwd_timing.items())},
+        "ms_by_shape": {**{f"{label} {kind}": {k: t[k] for k in
+                                               ("warm", "cold", "bound",
+                                                "plain", "rerun_max_abs")}
+                           for (label, kind), t in sorted(bwd_timing.items())},
+                        **bf16_shapes("bwd")},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -28,7 +28,8 @@ difference from "new", whether two runs of each give the same bits, the
 warm and cold medians in the order given and reversed, and the device time
 of each kernel that a version launches (``torch.profiler``), which splits
 a version of two launches (the first, with its ``dx2`` scratch) into its
-parts.  A version whose C entry still takes the ``dx2`` scratch gets one.
+parts.  A version whose C entry still takes the ``dx2`` scratch gets one;
+every version runs fp32 (a C entry with dtype codes gets the fp32 codes).
 
 Ends with one JSON line of the times (the mean of the two medians).  Needs
 a CUDA device::
@@ -58,8 +59,10 @@ sys.path.insert(0, ROOT)
 def bind_version(path, name="swr_sweep_fwd"):
     """``(fn, scratch)``: the C entry ``name`` of the source ``path``, built
     into the package's build directory with its flags (headers from
-    ``csrc/``) and bound as the package binds it; ``scratch`` is whether the
-    entry takes the first backward's ``dx2`` scratch (one more pointer)."""
+    ``csrc/``) and bound as the package binds it.  Returns the function and
+    its ABI: ``dx2``, whether the entry takes the first backward's ``dx2``
+    scratch (one more pointer), and ``dtypes``, whether it takes the dtype
+    codes (two more ints, and for the backward the bf16 scratch pointer)."""
     import re
 
     from taichi_nerfs_torch.ops import _build
@@ -74,13 +77,23 @@ def bind_version(path, name="swr_sweep_fwd"):
         subprocess.run([_build.find_nvcc(), *flags, "-o", out, path],
                        check=True, capture_output=True, text=True)
     entry = re.search(rf'extern "C" int {name}\(([^)]*)\)', text.decode())
-    scratch = entry is not None and "dx2" in entry.group(1)
+    params = entry.group(1) if entry else ""
+    abi = {"dx2": "dx2" in params, "dtypes": "vol_dtype" in params}
     fn = getattr(ctypes.CDLL(out), name)
     fn.restype = ctypes.c_int
-    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 7}[name] + scratch
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    return fn, scratch
+    n_ptr = ({"swr_sweep_fwd": 5, "swr_sweep_bwd": 7}[name] + abi["dx2"]
+             + (abi["dtypes"] and name == "swr_sweep_bwd"))
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (
+        9 if abi["dtypes"] else 7) + [ctypes.c_void_p]
+    return fn, abi
+
+
+def fp32_args(abi, kernel):
+    """The arguments a version's entry takes beyond the older ABI's, for
+    fp32 operands: (extra pointers after dvol, extra ints after kind)."""
+    if not abi["dtypes"]:
+        return [], []
+    return ([None] if kernel == "bwd" else []), [0, 0]
 
 
 def main(argv=None):
@@ -107,14 +120,15 @@ def main(argv=None):
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     entry = f"swr_sweep_{args.kernel}"
-    fns, scratch = {}, {}
+    fns, abis = {}, {}
     for spec in args.version:
         name, path = spec.split("=", 1)
-        fns[name], scratch[name] = bind_version(os.path.abspath(path), entry)
-    fns["new"], scratch["new"] = sw._kernel_fn(entry), False
+        fns[name], abis[name] = bind_version(os.path.abspath(path), entry)
+    fns["new"], abis["new"] = sw._kernel_fn(entry), {"dx2": False,
+                                                       "dtypes": True}
     if args.kernel == "bwd":
         out = {"device": torch.cuda.get_device_name(0),
-               "sweep_bwd_ms": bwd_ab(torch, cs, sw, fns, scratch, args.seed)}
+               "sweep_bwd_ms": bwd_ab(torch, cs, sw, fns, abis, args.seed)}
         print(json.dumps(out), flush=True)
         return
 
@@ -122,9 +136,10 @@ def main(argv=None):
         nc, dc, F, Rb, Rc = vol.shape
         out = torch.empty((nc, F + 2, nq, nq), dtype=torch.float32,
                           device=vol.device)
+        _, ints = fp32_args(abis[version], "fwd")
         rc = fns[version](
             vol.data_ptr(), rs.data_ptr(), z_rel.data_ptr(), ch.data_ptr(),
-            out.data_ptr(), nc, dc, F, Rb, Rc, nq, sw._KINDS[kind],
+            out.data_ptr(), nc, dc, F, Rb, Rc, nq, sw._KINDS[kind], *ints,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{version} kernel launch failed: {rc}")
@@ -172,11 +187,11 @@ def main(argv=None):
     del flush
     out = {"device": torch.cuda.get_device_name(0), "sweep_fwd_ms": results}
     if args.frames:
-        out["frames"] = frames(torch, cs, sw, fns, args.seed)
+        out["frames"] = frames(torch, cs, sw, fns, abis, args.seed)
     print(json.dumps(out), flush=True)
 
 
-def bwd_ab(torch, cs, sw, fns, scratch, seed):
+def bwd_ab(torch, cs, sw, fns, abis, seed):
     """The backward versions at the training shapes; returns, per shape and
     kind, each version's mean warm and cold medians, the bound, and each
     version's per-kernel device ms."""
@@ -188,14 +203,15 @@ def bwd_ab(torch, cs, sw, fns, scratch, seed):
         nc, dc, F, Rb, Rc = vol.shape
         dvol = torch.empty_like(vol)
         extra = []
-        if scratch[version]:
+        if abis[version]["dx2"]:
             dx2 = torch.empty((nc, dc, F, nq, nq), dtype=torch.float32,
                               device=vol.device)
             extra = [dx2.data_ptr()]
+        ptrs, ints = fp32_args(abis[version], "bwd")
         rc = fns[version](
             vol.data_ptr(), rs.data_ptr(), z_rel.data_ptr(), ch.data_ptr(),
-            frames.data_ptr(), g.data_ptr(), *extra, dvol.data_ptr(),
-            nc, dc, F, Rb, Rc, nq, sw._KINDS[kind],
+            frames.data_ptr(), g.data_ptr(), *extra, dvol.data_ptr(), *ptrs,
+            nc, dc, F, Rb, Rc, nq, sw._KINDS[kind], *ints,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{version} kernel launch failed: {rc}")
@@ -265,7 +281,7 @@ def bwd_ab(torch, cs, sw, fns, scratch, seed):
     return results
 
 
-def frames(torch, cs, sw, fns, seed):
+def frames(torch, cs, sw, fns, abis, seed):
     """Record frames rendered with each version of the kernel in turn (the
     renderer's kernel lookup is pointed at it); returns, per version and
     mode, the median frame ms, the swr.* spans' device ms per frame and the
@@ -305,10 +321,16 @@ def frames(torch, cs, sw, fns, seed):
         seen.clear()
     rswr.chunk_sweep = real_sweep
 
+    def new_abi(v):
+        # the wrapper passes the dtype codes; an older entry takes none
+        if abis[v]["dtypes"]:
+            return fns[v]
+        return lambda *a: fns[v](*a[:12], a[14])
+
     built = sw._kernel_fn
     current = ["new"]
     sw._kernel_fn = lambda name: (
-        fns[current[0]] if name == "swr_sweep_fwd" else built(name))
+        new_abi(current[0]) if name == "swr_sweep_fwd" else built(name))
     res = {}
     try:
         for v in list(fns) + list(fns)[::-1]:

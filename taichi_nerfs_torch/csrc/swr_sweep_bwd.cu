@@ -28,8 +28,8 @@
 // resample:
 //   dvol[c, s, f, m, n] = sum_i sum_j Wb[i, m] Wc[j, n] dx2[c, s, f, i, j].
 //
-// The design: one kernel after a memset of dvol, no scratch; dx2 never
-// leaves the chip.
+// The design (fp32 volume and operands; the bf16 variants below): one
+// kernel after a memset of dvol, no scratch; dx2 never leaves the chip.
 //   * Tiles.  A block of 4 warps owns 4 lattice rows (one a warp) by 64
 //     columns (two a lane) of one chunk and loops over its slabs in reverse
 //     with each point's carries in registers (tau, U, dt, tb) and its F + 2
@@ -78,7 +78,24 @@
 // forward), a quarter the transposed resample in shared memory, and a
 // quarter dvol's memset and atomics (537 MB, each line read back from
 // device memory by the atomics).  The bound counts dvol written once.
-// Operands are fp32 only.
+//
+// bf16.  The forward's two template axes (csrc/swr_sweep_fwd.cu): the
+// volume's type T and the operand flag OPB.  With OPB the recomputed
+// forward rounds as the forward does, and the backward rounds what the
+// Pallas _bwd_kernel casts to its dtype: each dx2 value before pass 2
+// transposed reads it, and each value of the transposed pass 2 (the
+// Pallas kernel's t = dx2 @ Wc^T, summed over the whole lattice row)
+// before pass 1 transposed reads it.  dvol comes back in the volume's
+// type, each voxel's fp32 sum rounded once (bf16 atomics would round at
+// every add).  Both ask for a sum to be complete before it is rounded,
+// and a tile holds 64 lattice columns of a row (a source column near a
+// tile's edge gets terms from two tiles) and 4 lattice rows.  So with a
+// bf16 volume or OPB (TB below) the work is split in two kernels: the
+// sweep kernel adds its unrounded t (the tap-by-tap path each point's
+// terms) into an fp32 buffer t (n_chunks, dc, F, nq, Rc) with atomics, and
+// swr_sweep_bwd_rows_kernel rounds each t once (OPB) and runs pass 1
+// transposed, each voxel of dvol a sum over the lattice rows whose taps
+// reach it, stored once in the volume's type (no memset, no atomics).
 
 #include "swr_sweep_common.cuh"
 
@@ -136,17 +153,21 @@ __device__ __forceinline__ void reaching_cols(float start, float step,
   *hi = min(j1, (int)ceilf(h) + 2);
 }
 
-template <int F, int KIND>
+template <int F, int KIND, typename VT, bool OPB>
 __global__ void __launch_bounds__(kThreads, MinBlocks<F>::value)
-swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
+swr_sweep_bwd_kernel(const VT* __restrict__ vol,        // (nc, dc, F, Rb, Rc)
                      const float* __restrict__ rs_par,  // (nc, dc, 4)
                      const float* __restrict__ z_rel,   // (nc, dc)
                      const float* __restrict__ ch_par,  // (nc, 6)
                      const float* __restrict__ frames,  // (nc, F + 2, nq, nq)
                      const float* __restrict__ g,       // (nc, F + 2, nq, nq)
-                     float* __restrict__ dvol,          // (nc, dc, F, Rb, Rc), zeroed
-                     int dc, int Rb, int Rc, int nq) {
+                     // dvol (nc, dc, F, Rb, Rc), or with TB the sums t
+                     // (nc, dc, F, nq, Rc); zeroed
+                     float* __restrict__ out,
+                     int dc, int Rb, int Rc, int nq, bool vec8) {
   constexpr int NT = KIND == 0 ? 2 : 4;
+  // t goes to the buffer and pass 1 transposed to the second kernel
+  constexpr bool TB = OPB || sizeof(VT) == 2;
   using S = Smem<F, NT>;
   extern __shared__ __align__(16) float smem[];
   float* ybuf = smem;
@@ -208,15 +229,18 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
   finite_geom = __all_sync(kFullMask, finite_geom);
 
   const size_t plane = (size_t)Rb * Rc;
+  // with TB: the warp's lattice row of t, channel f at f * tplane
+  const size_t tplane = (size_t)nq * Rc;
   for (int s = dc - 1; s >= 0; --s) {
     const size_t cs = (size_t)c * dc + s;
     const float* rs = rs_par + 4 * cs;
-    const float* slab = vol + cs * F * plane;
-    float* dslab = dvol + cs * F * plane;
+    const VT* slab = vol + cs * F * plane;
+    float* dslab = out + cs * F * plane;
+    float* trow = out + cs * F * tplane + (size_t)(live_row ? i : 0) * Rc;
     int ib[NT];
     float wb[NT];
     const float pb = lat_pos(rs[0], rs[1], i);
-    const bool row_in = warp_taps<KIND, NT>(pb, Rb, ib, wb) && live_row;
+    const bool row_in = warp_taps<KIND, NT, OPB>(pb, Rb, ib, wb) && live_row;
     // block-uniform: the tile's column window (widened to whole float4s of
     // dvol's rows when Rc allows), and whether it fits
     int c0 = 0, ncol = 0;
@@ -236,7 +260,8 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
     if (lane == 0) rm[w] = kNone;
     if (!skip) {
       if (rows) {
-        resample_row<F, NT>(slab, plane, Rc, c0, ncol, ib, wb, yrow);
+        resample_row<F, NT, OPB>(slab, plane, Rc, c0, ncol, ib, wb, yrow,
+                                 vec8);
         __syncwarp();
       }
 #pragma unroll
@@ -245,14 +270,14 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
         const float pc = lat_pos(rs[2], rs[3], j0 + jj);
         int jc[NT];
         float wc[NT], x[F];
-        taps<KIND, NT>(pc, Rc, jc, wc);
+        taps<KIND, NT, OPB>(pc, Rc, jc, wc);
         if (rows && ncol == 0) {  // (non-finite geometry or z)
 #pragma unroll
           for (int f = 0; f < F; ++f) x[f] = 0.0f;
         } else if (rows)
           resample_col<F, NT>(yrow, c0, ncol, jc, wc, x);
         else
-          resample_taps<F, NT>(slab, plane, Rc, ib, wb, jc, wc, x);
+          resample_taps<F, NT, OPB>(slab, plane, Rc, ib, wb, jc, wc, x);
 
         const float sdt = fmaxf(x[0], 0.0f) * dt[q];
         const float one_m_a = expf(-sdt);
@@ -265,10 +290,12 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
         for (int f = 1; f < F; ++f) phi += x[f] * wgs[(f - 1) * kTileJ + jj];
         const float da = t_k * (phi - U[q]);
         const float dsigma = da * one_m_a * dt[q] + g_tau[q] * dt[q];
+        // dx2, rounded to the operand dtype
         float d[F];
-        d[0] = x[0] > 0.0f ? dsigma : 0.0f;
+        d[0] = op_round<OPB>(x[0] > 0.0f ? dsigma : 0.0f);
 #pragma unroll
-        for (int f = 1; f < F; ++f) d[f] = wgt * wgs[(f - 1) * kTileJ + jj];
+        for (int f = 1; f < F; ++f)
+          d[f] = op_round<OPB>(wgt * wgs[(f - 1) * kTileJ + jj]);
         tau[q] = tau_k;
         U[q] = one_m_a * U[q] + a * phi;
 
@@ -278,7 +305,16 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
 #pragma unroll
           for (int tc = 0; tc < NT; ++tc) wcw[tc * kTileJ + jj] = wc[tc];
           wcm[jj] = live[q] ? first_tap<NT>(pc, Rc) : kNone;
-        } else if (live[q]) {
+        } else if (TB && live[q] && row_in) {
+          // tap path: add this point's terms of t at its c taps
+#pragma unroll
+          for (int tc = 0; tc < NT; ++tc) {
+            if (wc[tc] == 0.0f) continue;
+#pragma unroll
+            for (int f = 0; f < F; ++f)
+              atomicAdd(trow + f * tplane + jc[tc], wc[tc] * d[f]);
+          }
+        } else if (!TB && live[q]) {
           // tap path: scatter this point's dx2 to its taps
 #pragma unroll
           for (int ub = 0; ub < NT; ++ub) {
@@ -295,7 +331,9 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
       }
       if (rows) {
         __syncwarp();  // yrow read, dx2 and the c taps written
-        // pass 2 transposed: y[f, n] = sum_j Wc[j, n] dx2[f, j] into yrow
+        // pass 2 transposed: y[f, n] = sum_j Wc[j, n] dx2[f, j] into yrow,
+        // or with TB added into t (a row that reaches no source row adds
+        // nothing: its b weights are 0)
         const float inv_step = 1.0f / rs[3];
         for (int nn = lane; nn < ncol; nn += kWarp) {
           const int n = c0 + nn;
@@ -312,10 +350,18 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
 #pragma unroll
             for (int f = 0; f < F; ++f) acc[f] += wt * wdx[f * kTileJ + jj];
           }
+          if constexpr (TB) {
+            if (row_in) {
 #pragma unroll
-          for (int f = 0; f < F; ++f) yrow[f * kRowCols + nn] = acc[f];
+              for (int f = 0; f < F; ++f)
+                if (acc[f] != 0.0f) atomicAdd(trow + f * tplane + n, acc[f]);
+            }
+          } else {
+#pragma unroll
+            for (int f = 0; f < F; ++f) yrow[f * kRowCols + nn] = acc[f];
+          }
         }
-        if (lane == 0 && row_in) {
+        if (!TB && lane == 0 && row_in) {
           rm[w] = first_tap<NT>(pb, Rb);
 #pragma unroll
           for (int ub = 0; ub < NT; ++ub) rw[w * NT + ub] = wb[ub];
@@ -324,8 +370,9 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
     }
     __syncthreads();  // every warp's y and b taps in shared memory
 
-    // pass 1 transposed: the source rows the block's warps reach
-    if (rows && ncol > 0) {
+    // pass 1 transposed: the source rows the block's warps reach (with TB
+    // in swr_sweep_bwd_rows_kernel, once t is complete)
+    if (!TB && rows && ncol > 0) {
       int rlo = Rb, rhi = -1;
 #pragma unroll
       for (int v = 0; v < kTileI; ++v) {
@@ -383,43 +430,169 @@ swr_sweep_bwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
   }
 }
 
-template <int F, int KIND>
-cudaError_t launch(const float* vol, const float* rs_par, const float* z_rel,
+// Pass 1 transposed of the backward with a bf16 volume or bf16 operands,
+// after every tile has added its t: dvol[z, r, n] = sum_i Wb[i, r]
+// t[z, i, n] for each plane z = (chunk, slab, channel), over the lattice
+// rows i whose b taps reach source row r (the weights the forward's taps()
+// gives), in increasing i, stored once in dvol's type VT; with OPB the
+// weights and each t are rounded to bf16.  A block owns
+// kRowsT source rows by 256 columns (a thread a column) of one plane: its
+// threads make the first tap and weights of each lattice row that reaches
+// them once into shared memory, then each thread reads each such row's t
+// at its column once and adds it, times each weight, to the rows it
+// reaches, in accumulators of its own in shared memory.  A weight of 0
+// adds nothing.
+constexpr int kRowsThreads = 256;
+constexpr int kRowsT = 32;
+
+template <int KIND, typename VT, bool OPB>
+__global__ void __launch_bounds__(kRowsThreads)
+swr_sweep_bwd_rows_kernel(const float* __restrict__ t,       // (nz, nq, Rc)
+                          const float* __restrict__ rs_par,  // (nc, dc, 4)
+                          VT* __restrict__ dvol,             // (nz, Rb, Rc)
+                          int nz, int F, int Rb, int Rc, int nq) {
+  constexpr int NT = KIND == 0 ? 2 : 4;
+  __shared__ float acc[kRowsT * kRowsThreads];  // [row][column]
+  __shared__ float ws[kRowsThreads * NT];       // weights of lattice rows
+  __shared__ int fs[kRowsThreads];              // and their first taps
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x * kRowsThreads + tid;
+  const bool live = n < Rc;
+  for (int z = blockIdx.z; z < nz; z += gridDim.z) {
+    const float* rs = rs_par + 4 * (z / F);
+    const float* tz = t + (size_t)z * nq * Rc + (live ? n : 0);
+    const float inv_step = 1.0f / rs[1];
+    for (int r0 = blockIdx.y * kRowsT; r0 < Rb; r0 += gridDim.y * kRowsT) {
+      const int nr = min(kRowsT, Rb - r0);
+      // the lattice rows whose taps can reach rows r0 ... r0 + nr - 1
+      int lo0, hi0, lo1, hi1;
+      reaching_cols<NT>(rs[0], rs[1], inv_step, r0, 0, nq - 1, &lo0, &hi0);
+      reaching_cols<NT>(rs[0], rs[1], inv_step, r0 + nr - 1, 0, nq - 1,
+                        &lo1, &hi1);
+      const int ilo = min(lo0, lo1), ihi = max(hi0, hi1);
+      for (int k = 0; k < nr; ++k) acc[k * kRowsThreads + tid] = 0.0f;
+      for (int i0 = ilo; i0 <= ihi; i0 += kRowsThreads) {
+        const int cnt = min(kRowsThreads, ihi - i0 + 1);
+        __syncthreads();  // the last chunk's weights read
+        if (tid < cnt) {
+          const float pb = lat_pos(rs[0], rs[1], i0 + tid);
+          int ib[NT];
+          float wb[NT];
+          taps<KIND, NT, OPB>(pb, Rb, ib, wb);
+          fs[tid] = first_tap<NT>(pb, Rb);
+#pragma unroll
+          for (int u = 0; u < NT; ++u) ws[tid * NT + u] = wb[u];
+        }
+        __syncthreads();
+        if (!live) continue;
+#pragma unroll 4
+        for (int q = 0; q < cnt; ++q) {
+          // every row in range is read, so the loads need not wait on a branch
+          const float tv = op_round<OPB>(tz[(size_t)(i0 + q) * Rc]);
+          const int m0 = fs[q] - r0;
+#pragma unroll
+          for (int u = 0; u < NT; ++u) {
+            const float w = ws[q * NT + u];
+            if (m0 + u >= 0 && m0 + u < nr && w != 0.0f)
+              acc[(m0 + u) * kRowsThreads + tid] += w * tv;
+          }
+        }
+      }
+      if (live) {
+        VT* o = dvol + ((size_t)z * Rb + r0) * Rc + n;
+        for (int k = 0; k < nr; ++k) {
+          const float v = acc[k * kRowsThreads + tid];
+          if constexpr (sizeof(VT) == 2)
+            o[(size_t)k * Rc] = __float2bfloat16_rn(v);
+          else
+            o[(size_t)k * Rc] = v;
+        }
+      }
+    }
+  }
+}
+
+template <int F, int KIND, typename VT, bool OPB>
+cudaError_t launch(const void* vol, const float* rs_par, const float* z_rel,
                    const float* ch_par, const float* frames, const float* g,
-                   float* dvol, int n_chunks, int dc, int Rb, int Rc, int nq,
-                   cudaStream_t stream) {
+                   void* dvol, float* scratch, int n_chunks, int dc, int Rb,
+                   int Rc, int nq, cudaStream_t stream) {
   constexpr size_t smem = Smem<F, KIND == 0 ? 2 : 4>::kBytes;
   static_assert(smem <= 227 * 1024, "shared memory above the SM's 227 KB");
-  auto kernel = swr_sweep_bwd_kernel<F, KIND>;
+  auto kernel = swr_sweep_bwd_kernel<F, KIND, VT, OPB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(
-      dvol, 0, sizeof(float) * (size_t)n_chunks * dc * F * Rb * Rc, stream);
+  // the tiles add into dvol itself (fp32 volume and operands), or t into
+  // the fp32 scratch
+  constexpr bool TB = OPB || sizeof(VT) == 2;
+  float* acc = TB ? scratch : static_cast<float*>(dvol);
+  const size_t n_acc = (size_t)n_chunks * dc * F * (TB ? nq : Rb) * Rc;
+  err = cudaMemsetAsync(acc, 0, sizeof(float) * n_acc, stream);
   if (err != cudaSuccess) return err;
+  const bool vec8 = sizeof(VT) == 2 && Rc % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(vol) % 16 == 0;
   dim3 block(kWarp, kTileI);
   dim3 grid((nq + kTileJ - 1) / kTileJ, (nq + kTileI - 1) / kTileI, n_chunks);
-  kernel<<<grid, block, smem, stream>>>(vol, rs_par, z_rel, ch_par, frames, g,
-                                        dvol, dc, Rb, Rc, nq);
-  return cudaGetLastError();
+  kernel<<<grid, block, smem, stream>>>(static_cast<const VT*>(vol), rs_par,
+                                        z_rel, ch_par, frames, g, acc, dc, Rb,
+                                        Rc, nq, vec8);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (TB) {
+    const int nz = n_chunks * dc * F;
+    const int row_blocks = (Rb + kRowsT - 1) / kRowsT;
+    dim3 rgrid((Rc + kRowsThreads - 1) / kRowsThreads,
+               row_blocks < 65535 ? row_blocks : 65535,
+               nz < 65535 ? nz : 65535);
+    swr_sweep_bwd_rows_kernel<KIND, VT, OPB>
+        <<<rgrid, kRowsThreads, 0, stream>>>(
+            acc, rs_par, static_cast<VT*>(dvol), nz, F, Rb, Rc, nq);
+    return cudaGetLastError();
+  }
+  return err;
+}
+
+// dtype codes: 0 float32, 1 bfloat16
+template <int F, int KIND>
+cudaError_t dispatch_types(int vol_dtype, int op_dtype, const void* vol,
+                           const float* rs_par, const float* z_rel,
+                           const float* ch_par, const float* frames,
+                           const float* g, void* dvol, float* scratch,
+                           int n_chunks, int dc, int Rb, int Rc, int nq,
+                           cudaStream_t stream) {
+#define SWR_BWD_LAUNCH(T, OPB)                                               \
+  return launch<F, KIND, T, OPB>(vol, rs_par, z_rel, ch_par, frames, g, dvol, \
+                                 scratch, n_chunks, dc, Rb, Rc, nq, stream)
+  if (vol_dtype == 0 && op_dtype == 0) SWR_BWD_LAUNCH(float, false);
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  if (vol_dtype == 0 && op_dtype == 1) SWR_BWD_LAUNCH(float, true);
+  if (vol_dtype == 1 && op_dtype == 0) SWR_BWD_LAUNCH(__nv_bfloat16, false);
+  if (vol_dtype == 1 && op_dtype == 1) SWR_BWD_LAUNCH(__nv_bfloat16, true);
+#undef SWR_BWD_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 template <int KIND>
-cudaError_t dispatch_f(int F, const float* vol, const float* rs_par,
-                       const float* z_rel, const float* ch_par,
-                       const float* frames, const float* g, float* dvol,
+cudaError_t dispatch_f(int F, int vol_dtype, int op_dtype, const void* vol,
+                       const float* rs_par, const float* z_rel,
+                       const float* ch_par, const float* frames,
+                       const float* g, void* dvol, float* scratch,
                        int n_chunks, int dc, int Rb, int Rc, int nq,
                        cudaStream_t stream) {
   switch (F) {
     case 4:
-      return launch<4, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dvol,
-                             n_chunks, dc, Rb, Rc, nq, stream);
+      return dispatch_types<4, KIND>(vol_dtype, op_dtype, vol, rs_par, z_rel,
+                                     ch_par, frames, g, dvol, scratch,
+                                     n_chunks, dc, Rb, Rc, nq, stream);
     case 8:
-      return launch<8, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dvol,
-                             n_chunks, dc, Rb, Rc, nq, stream);
+      return dispatch_types<8, KIND>(vol_dtype, op_dtype, vol, rs_par, z_rel,
+                                     ch_par, frames, g, dvol, scratch,
+                                     n_chunks, dc, Rb, Rc, nq, stream);
     case 16:
-      return launch<16, KIND>(vol, rs_par, z_rel, ch_par, frames, g, dvol,
-                              n_chunks, dc, Rb, Rc, nq, stream);
+      return dispatch_types<16, KIND>(vol_dtype, op_dtype, vol, rs_par,
+                                      z_rel, ch_par, frames, g, dvol, scratch,
+                                      n_chunks, dc, Rb, Rc, nq, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -427,25 +600,32 @@ cudaError_t dispatch_f(int F, const float* vol, const float* rs_par,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  kind: 0 linear, 1 cubic.
-// dvol is written whole (zeroed, then the sums added).  Returns
-// cudaGetLastError() after the launch (0 on success); an F other than 4,
-// 8, 16, an unknown kind, more than 65535 chunks or a lattice of more than
-// 65535 tile rows returns cudaErrorInvalidValue.
-extern "C" int swr_sweep_bwd(const float* vol, const float* rs_par,
+// Plain C entry point (bound with ctypes).  kind: 0 linear, 1 cubic;
+// vol_dtype (vol's and dvol's element type) and op_dtype (the resample
+// operands'): 0 float32, 1 bfloat16.  dvol is written whole.  scratch is an
+// fp32 buffer (n_chunks, dc, F, nq, Rc) for t: unused (may be null) with
+// an fp32 volume and fp32 operands.
+// Returns cudaGetLastError() after the launches (0 on success); an F other
+// than 4, 8, 16, an unknown kind or dtype code, a missing scratch, more
+// than 65535 chunks or a lattice of more than 65535 tile rows returns
+// cudaErrorInvalidValue.
+extern "C" int swr_sweep_bwd(const void* vol, const float* rs_par,
                              const float* z_rel, const float* ch_par,
-                             const float* frames, const float* g, float* dvol,
-                             int n_chunks, int dc, int F, int Rb, int Rc,
-                             int nq, int kind, void* stream) {
+                             const float* frames, const float* g, void* dvol,
+                             float* scratch, int n_chunks, int dc, int F,
+                             int Rb, int Rc, int nq, int kind, int vol_dtype,
+                             int op_dtype, void* stream) {
   if (n_chunks <= 0 || n_chunks > 65535 || dc <= 0 || Rb <= 0 || Rc <= 0 ||
       nq <= 0 || (nq + kTileI - 1) / kTileI > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0)
-    return (int)dispatch_f<0>(F, vol, rs_par, z_rel, ch_par, frames, g, dvol,
-                              n_chunks, dc, Rb, Rc, nq, st);
+    return (int)dispatch_f<0>(F, vol_dtype, op_dtype, vol, rs_par, z_rel,
+                              ch_par, frames, g, dvol, scratch, n_chunks, dc,
+                              Rb, Rc, nq, st);
   if (kind == 1)
-    return (int)dispatch_f<1>(F, vol, rs_par, z_rel, ch_par, frames, g, dvol,
-                              n_chunks, dc, Rb, Rc, nq, st);
+    return (int)dispatch_f<1>(F, vol_dtype, op_dtype, vol, rs_par, z_rel,
+                              ch_par, frames, g, dvol, scratch, n_chunks, dc,
+                              Rb, Rc, nq, st);
   return (int)cudaErrorInvalidValue;
 }

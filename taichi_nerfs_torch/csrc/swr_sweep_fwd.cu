@@ -97,8 +97,18 @@
 // per lattice point, slab and channel 4 shared loads and 4 FMA in pass 2,
 // and (window columns / 64) x (4 L1 loads + 4 FMA + 1 store) in pass 1,
 // plus the c taps (4 kernel evaluations a point and slab).  The tensor-core
-// form (the banded products as wgmma fed by TMA tiles) and bf16 operands
-// are later work.  Operands are fp32 only.
+// form (the banded products as wgmma fed by TMA tiles) is later work.
+//
+// bf16.  Two template axes, as the Pallas kernel's dtype and its input's
+// dtype: the volume's type T (float or __nv_bfloat16) and the operand
+// flag OPB (csrc/swr_sweep_common.cuh rounds the weights, the fp32 voxels
+// and each pass-1 value to bf16 where the Pallas kernel casts them; every
+// sum stays fp32, so a bf16 volume with fp32 operands computes exactly
+// what the fp32 kernel computes on the same, bf16-valued, voxels).  A bf16
+// slab is read 16 bytes (8 voxels) a load in pass 1 when its rows hold
+// whole 16-byte groups (Rc % 8 == 0 and an aligned volume), 2 bytes a load
+// otherwise and on the tap-by-tap path; the row buffers stay fp32.  The
+// frames are fp32 whatever the types.
 
 #include "swr_sweep_common.cuh"
 
@@ -116,14 +126,14 @@ struct Tile {
   static constexpr int kThreads = kWarp * kTileI;
 };
 
-template <int F, int KIND>
+template <int F, int KIND, typename VT, bool OPB>
 __global__ void __launch_bounds__(Tile<KIND>::kThreads)
-swr_sweep_fwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
+swr_sweep_fwd_kernel(const VT* __restrict__ vol,        // (nc, dc, F, Rb, Rc)
                      const float* __restrict__ rs_par,  // (nc, dc, 4)
                      const float* __restrict__ z_rel,   // (nc, dc)
                      const float* __restrict__ ch_par,  // (nc, 6)
                      float* __restrict__ out,           // (nc, F + 2, nq, nq)
-                     int dc, int Rb, int Rc, int nq) {
+                     int dc, int Rb, int Rc, int nq, bool vec8) {
   constexpr int NT = KIND == 0 ? 2 : 4;
   constexpr int kCols = Tile<KIND>::kCols, kTileJ = Tile<KIND>::kTileJ;
   extern __shared__ float smem[];  // one row buffer per warp (cubic)
@@ -171,12 +181,12 @@ swr_sweep_fwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
   for (int s = 0; s < dc; ++s) {
     const size_t cs = (size_t)c * dc + s;
     const float* rs = rs_par + 4 * cs;
-    const float* slab = vol + cs * F * plane;
+    const VT* slab = vol + cs * F * plane;
     int ib[NT];
     float wb[NT];
     const float pb = lat_pos(rs[0], rs[1], i);
-    const bool row_in = KIND == 1 ? warp_taps<KIND, NT>(pb, Rb, ib, wb)
-                                  : taps<KIND, NT>(pb, Rb, ib, wb);
+    const bool row_in = KIND == 1 ? warp_taps<KIND, NT, OPB>(pb, Rb, ib, wb)
+                                  : taps<KIND, NT, OPB>(pb, Rb, ib, wb);
     int c0 = 0, ncol = 0;
     const bool rows = KIND == 1 &&
                       axis_window<NT>(rs[2], rs[3], j0, j1, Rc, &c0, &ncol) &&
@@ -189,7 +199,8 @@ swr_sweep_fwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
         (!row_in || (rows && ncol == 0)))
       continue;
     if (rows) {
-      resample_row<F, NT>(slab, plane, Rc, c0, ncol, ib, wb, yrow);
+      resample_row<F, NT, OPB>(slab, plane, Rc, c0, ncol, ib, wb, yrow,
+                               vec8);
       __syncwarp();
     }
 #pragma unroll
@@ -197,11 +208,11 @@ swr_sweep_fwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
       const int j = j0 + q * kWarp + threadIdx.x;
       int jc[NT];
       float wc[NT], x[F];
-      taps<KIND, NT>(lat_pos(rs[2], rs[3], j), Rc, jc, wc);
+      taps<KIND, NT, OPB>(lat_pos(rs[2], rs[3], j), Rc, jc, wc);
       if (rows)
         resample_col<F, NT>(yrow, c0, ncol, jc, wc, x);
       else
-        resample_taps<F, NT>(slab, plane, Rc, ib, wb, jc, wc, x);
+        resample_taps<F, NT, OPB>(slab, plane, Rc, ib, wb, jc, wc, x);
 
       const float sdt = fmaxf(x[0], 0.0f) * dt[q];
       const float one_m_a = expf(-sdt);
@@ -229,8 +240,8 @@ swr_sweep_fwd_kernel(const float* __restrict__ vol,     // (nc, dc, F, Rb, Rc)
   }
 }
 
-template <int F, int KIND>
-cudaError_t launch(const float* vol, const float* rs_par, const float* z_rel,
+template <int F, int KIND, typename VT, bool OPB>
+cudaError_t launch(const void* vol, const float* rs_par, const float* z_rel,
                    const float* ch_par, float* out, int n_chunks, int dc,
                    int Rb, int Rc, int nq, cudaStream_t stream) {
   using Tl = Tile<KIND>;
@@ -240,29 +251,54 @@ cudaError_t launch(const float* vol, const float* rs_par, const float* z_rel,
       KIND == 1 ? sizeof(float) * Tl::kTileI * F * kRowCols : 0;
   static_assert(smem <= 48 * 1024, "row buffers above 48 KB need "
                 "cudaFuncAttributeMaxDynamicSharedMemorySize");
+  const VT* v = static_cast<const VT*>(vol);
+  // bf16 rows read 16 bytes at a time: whole 16-byte groups, aligned
+  const bool vec8 = sizeof(VT) == 2 && Rc % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(vol) % 16 == 0;
   dim3 block(kWarp, Tl::kTileI);
   dim3 grid((nq + Tl::kTileJ - 1) / Tl::kTileJ,
             (nq + Tl::kTileI - 1) / Tl::kTileI, n_chunks);
-  swr_sweep_fwd_kernel<F, KIND><<<grid, block, smem, stream>>>(
-      vol, rs_par, z_rel, ch_par, out, dc, Rb, Rc, nq);
+  swr_sweep_fwd_kernel<F, KIND, VT, OPB><<<grid, block, smem, stream>>>(
+      v, rs_par, z_rel, ch_par, out, dc, Rb, Rc, nq, vec8);
   return cudaGetLastError();
 }
 
+// dtype codes: 0 float32, 1 bfloat16
+template <int F, int KIND>
+cudaError_t dispatch_types(int vol_dtype, int op_dtype, const void* vol,
+                           const float* rs_par, const float* z_rel,
+                           const float* ch_par, float* out, int n_chunks,
+                           int dc, int Rb, int Rc, int nq,
+                           cudaStream_t stream) {
+#define SWR_FWD_LAUNCH(T, OPB)                                             \
+  return launch<F, KIND, T, OPB>(vol, rs_par, z_rel, ch_par, out, n_chunks, \
+                                 dc, Rb, Rc, nq, stream)
+  if (vol_dtype == 0 && op_dtype == 0) SWR_FWD_LAUNCH(float, false);
+  if (vol_dtype == 0 && op_dtype == 1) SWR_FWD_LAUNCH(float, true);
+  if (vol_dtype == 1 && op_dtype == 0) SWR_FWD_LAUNCH(__nv_bfloat16, false);
+  if (vol_dtype == 1 && op_dtype == 1) SWR_FWD_LAUNCH(__nv_bfloat16, true);
+#undef SWR_FWD_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
 template <int KIND>
-cudaError_t dispatch_f(int F, const float* vol, const float* rs_par,
-                       const float* z_rel, const float* ch_par, float* out,
-                       int n_chunks, int dc, int Rb, int Rc, int nq,
-                       cudaStream_t stream) {
+cudaError_t dispatch_f(int F, int vol_dtype, int op_dtype, const void* vol,
+                       const float* rs_par, const float* z_rel,
+                       const float* ch_par, float* out, int n_chunks, int dc,
+                       int Rb, int Rc, int nq, cudaStream_t stream) {
   switch (F) {
     case 4:
-      return launch<4, KIND>(vol, rs_par, z_rel, ch_par, out, n_chunks, dc,
-                             Rb, Rc, nq, stream);
+      return dispatch_types<4, KIND>(vol_dtype, op_dtype, vol, rs_par, z_rel,
+                                     ch_par, out, n_chunks, dc, Rb, Rc, nq,
+                                     stream);
     case 8:
-      return launch<8, KIND>(vol, rs_par, z_rel, ch_par, out, n_chunks, dc,
-                             Rb, Rc, nq, stream);
+      return dispatch_types<8, KIND>(vol_dtype, op_dtype, vol, rs_par, z_rel,
+                                     ch_par, out, n_chunks, dc, Rb, Rc, nq,
+                                     stream);
     case 16:
-      return launch<16, KIND>(vol, rs_par, z_rel, ch_par, out, n_chunks, dc,
-                              Rb, Rc, nq, stream);
+      return dispatch_types<16, KIND>(vol_dtype, op_dtype, vol, rs_par,
+                                      z_rel, ch_par, out, n_chunks, dc, Rb,
+                                      Rc, nq, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -270,23 +306,25 @@ cudaError_t dispatch_f(int F, const float* vol, const float* rs_par,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  kind: 0 linear, 1 cubic.
-// Returns cudaGetLastError() after the launch (0 on success); an F other
-// than 4, 8, 16, an unknown kind or more than 65535 chunks returns
-// cudaErrorInvalidValue.
-extern "C" int swr_sweep_fwd(const float* vol, const float* rs_par,
+// Plain C entry point (bound with ctypes).  kind: 0 linear, 1 cubic;
+// vol_dtype (the volume's element type) and op_dtype (the resample
+// operands'): 0 float32, 1 bfloat16.  Returns cudaGetLastError() after the
+// launch (0 on success); an F other than 4, 8, 16, an unknown kind or
+// dtype code, or more than 65535 chunks returns cudaErrorInvalidValue.
+extern "C" int swr_sweep_fwd(const void* vol, const float* rs_par,
                              const float* z_rel, const float* ch_par,
                              float* out, int n_chunks, int dc, int F, int Rb,
-                             int Rc, int nq, int kind, void* stream) {
+                             int Rc, int nq, int kind, int vol_dtype,
+                             int op_dtype, void* stream) {
   if (n_chunks <= 0 || n_chunks > 65535 || dc <= 0 || Rb <= 0 || Rc <= 0 ||
       nq <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0)
-    return (int)dispatch_f<0>(F, vol, rs_par, z_rel, ch_par, out, n_chunks,
-                              dc, Rb, Rc, nq, st);
+    return (int)dispatch_f<0>(F, vol_dtype, op_dtype, vol, rs_par, z_rel,
+                              ch_par, out, n_chunks, dc, Rb, Rc, nq, st);
   if (kind == 1)
-    return (int)dispatch_f<1>(F, vol, rs_par, z_rel, ch_par, out, n_chunks,
-                              dc, Rb, Rc, nq, st);
+    return (int)dispatch_f<1>(F, vol_dtype, op_dtype, vol, rs_par, z_rel,
+                              ch_par, out, n_chunks, dc, Rb, Rc, nq, st);
   return (int)cudaErrorInvalidValue;
 }

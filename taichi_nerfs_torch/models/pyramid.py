@@ -149,8 +149,8 @@ def _upsample3(g: torch.Tensor, r_out: int) -> torch.Tensor:
     return torch.einsum("xyzf,zu->xyuf", g, w)
 
 
-def bake(params: Params, cfg: PyramidConfig):
-    """Fuse the pyramid into one fp32 (R, R, R, F) grid.
+def bake(params: Params, cfg: PyramidConfig, dtype=torch.float32):
+    """Fuse the pyramid into one (R, R, R, F) grid of ``dtype``.
 
     Levels accumulate progressively: the running sum is upsampled to each
     next level's resolution, then that level is added.  A lean level (fewer
@@ -161,11 +161,16 @@ def bake(params: Params, cfg: PyramidConfig):
     A split config returns ``(sigma (Rs, Rs, Rs), feats (R, R, R, F-1))``:
     the density logit is upsampled to ``Rs`` and refined by
     ``params["sigma_level"]`` before TruncExp.
+
+    ``dtype=torch.bfloat16`` runs the whole chain in bf16, as the JAX
+    ``bake`` does: the levels are cast, and the upsample matrices, the
+    products, the adds, the cap and TruncExp are bf16, so the R^3 F buffers
+    and their cotangents are half-width (what lets R=512 train).
     """
     R = cfg.grid_res
     out = None
     for g in params["levels"]:
-        g = g.float()
+        g = g.to(dtype)
         if out is not None and out.shape[0] != g.shape[0]:
             out = _upsample3(out, g.shape[0])
         if out is None:
@@ -180,7 +185,7 @@ def bake(params: Params, cfg: PyramidConfig):
     # forward logit ceiling (TruncExp clamps only its backward)
     if cfg.split:
         logit = _upsample3(out[..., :1], cfg.sigma_res)[..., 0]
-        logit = logit + params["sigma_level"].float()
+        logit = logit + params["sigma_level"].to(dtype)
         sigma = trunc_exp(torch.clamp(logit + cfg.sigma_bias, max=11.0))
         return sigma, out[..., 1:]
     sigma = trunc_exp(

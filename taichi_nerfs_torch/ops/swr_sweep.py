@@ -18,6 +18,14 @@ with channels ``[acc features (F-1) | depth | opacity | tau]``.
   only for CPU tensors.  On CUDA it is a ``torch.autograd.Function`` whose
   backward is the hand-written ``csrc/swr_sweep_bwd.cu``
   (:func:`chunk_sweep_bwd`; plain version :func:`chunk_sweep_bwd_reference`).
+
+Two dtypes, as the Pallas kernels take them: ``vol_cs`` is float32 or
+bfloat16 (a bf16 baked grid), and ``dtype`` is the resample operand dtype
+(float32 or bfloat16).  With bf16 operands the interpolation weights, the
+slab and the pass-1 product are rounded to bf16 (and, in the backward,
+``dx2`` and the transposed pass's intermediate ``t``); every product
+accumulates in fp32.  The frames are fp32; ``d vol_cs`` has ``vol_cs``'s
+dtype.  The other operands are fp32.
 """
 
 from __future__ import annotations
@@ -31,6 +39,60 @@ from .warp import interp_kernel
 
 _KINDS = {"linear": 0, "cubic": 1}
 _KERNEL_F = (4, 8, 16)
+# the kernels' dtype codes, of the volume and of the resample operands
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to bf16 (round to nearest even), kept fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+class _RoundFwd(torch.autograd.Function):
+    """Round to bf16 in the forward; pass the cotangent unrounded (an fp32
+    slab cast to bf16 operands: its gradient stays fp32)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _to_bf16(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _RoundBoth(torch.autograd.Function):
+    """Round to bf16 in the forward and the cotangent in the backward: the
+    pass-1 product, whose transpose (the Pallas backward's ``t``) is
+    rounded too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _to_bf16(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_bf16(g)
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity in the forward; round the cotangent in the backward: the
+    pass-2 output, whose cotangent (the Pallas backward's ``dx2``) is
+    rounded."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_bf16(g)
+
+
+def _check_dtype(dtype) -> None:
+    if dtype not in _DTYPES:
+        raise TypeError(f"resample operand dtype {dtype}: float32 or "
+                        "bfloat16 only")
 
 
 def chunk_sweep_reference(
@@ -40,12 +102,20 @@ def chunk_sweep_reference(
     ch_par: torch.Tensor,  # (n_chunks, 6) f32
     nq: int,
     kind: str = "linear",
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain PyTorch sweep: dense interpolation matrices, fp32 matmuls.
 
     Batched over chunks, one step per slab.  Differentiable in ``vol_cs``
-    through autograd.
+    through autograd.  With ``dtype=torch.bfloat16`` the operands the
+    Pallas kernel casts are rounded to bf16 and multiplied in fp32 (a
+    product of two bf16 values is exact in fp32): the weights, the slab
+    (its gradient unrounded), the pass-1 product (its cotangent rounded
+    too) and the pass-2 output's cotangent, so that autograd rounds what
+    the Pallas backward rounds.
     """
+    _check_dtype(dtype)
+    bf16 = dtype == torch.bfloat16
     nc, dc, F, Rb, Rc = vol_cs.shape
     dev = vol_cs.device
     lat = torch.arange(nq, dtype=torch.float32, device=dev)
@@ -54,7 +124,8 @@ def chunk_sweep_reference(
         # (nc, nq, n): W[c, i, m] = k(m - (start_c + i * step_c))
         m = torch.arange(n, dtype=torch.float32, device=dev)
         pos = start[:, None, None] + lat[None, :, None] * step[:, None, None]
-        return interp_kernel(m[None, None, :] - pos, kind)
+        w = interp_kernel(m[None, None, :] - pos, kind)
+        return _to_bf16(w) if bf16 else w
 
     b0r, db, c0r, dcc, va, h = (ch_par[:, k, None, None] for k in range(6))
     vb = b0r + db * lat[None, :, None]
@@ -64,12 +135,23 @@ def chunk_sweep_reference(
     acc = torch.zeros((nc, F - 1, nq, nq), dtype=torch.float32, device=dev)
     dep = torch.zeros((nc, nq, nq), dtype=torch.float32, device=dev)
     tau = torch.zeros((nc, nq, nq), dtype=torch.float32, device=dev)
+    # one unbind: each slab's gradient lands in one stack, not a full-size
+    # zero tensor per slab
+    slabs = vol_cs.unbind(1)
     for s in range(dc):
         sb, stb, sc, stc = (rs_par[:, s, k] for k in range(4))
         wb = interp_T(sb, stb, Rb)  # (nc, nq, Rb)
         wc = interp_T(sc, stc, Rc)  # (nc, nq, Rc)
-        x1 = torch.matmul(wb[:, None], vol_cs[:, s].float())  # (nc, F, nq, Rc)
+        # a bf16 slab is exact in fp32 (its gradient is cast back once)
+        slab = slabs[s].float()
+        if bf16 and vol_cs.dtype != torch.bfloat16:
+            slab = _RoundFwd.apply(slab)
+        x1 = torch.matmul(wb[:, None], slab)  # (nc, F, nq, Rc)
+        if bf16:
+            x1 = _RoundBoth.apply(x1)
         x2 = torch.matmul(x1, wc[:, None].transpose(-1, -2))  # (nc, F, nq, nq)
+        if bf16:
+            x2 = _RoundGrad.apply(x2)
         # relu, not clamp: no gradient at x2 == 0, as the kernels gate
         # d sigma on x2 > 0
         sigma = torch.relu(x2[:, 0])
@@ -86,9 +168,11 @@ def chunk_sweep_reference(
     )
 
 
-def _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind):
+def _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind,
+                       dtype=torch.float32):
     if kind not in _KINDS:
         raise ValueError(f"unknown resample kind {kind!r}")
+    _check_dtype(dtype)
     if vol_cs.dim() != 5:
         raise ValueError(f"vol_cs must be 5-D, got {tuple(vol_cs.shape)}")
     nc, dc, F, Rb, Rc = vol_cs.shape
@@ -104,11 +188,12 @@ def _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind):
         if t.device != vol_cs.device:
             raise ValueError(f"{name} is on {t.device}, vol_cs on "
                              f"{vol_cs.device}")
-        if t.dtype != torch.float32:
+        ok = (torch.float32, torch.bfloat16) if name == "vol_cs" else (
+            torch.float32,)
+        if t.dtype not in ok:
             raise TypeError(
-                f"{name} is {t.dtype}; the sweep kernels take float32 "
-                "operands only (the bf16 variant: ROADMAP 'TPU kernels to "
-                "port')"
+                f"{name} is {t.dtype}; the sweep kernels take "
+                f"{' or '.join(map(str, ok))}"
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -138,9 +223,10 @@ def _kernel_fn(name: str):
 
     fn = getattr(load(name), name)
     fn.restype = ctypes.c_int
-    # pointers, then (n_chunks, dc, F, Rb, Rc, nq, kind), then the stream
-    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 7}[name]
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
+    # pointers, then (n_chunks, dc, F, Rb, Rc, nq, kind, vol dtype, operand
+    # dtype), then the stream
+    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 8}[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
     return fn
@@ -155,7 +241,7 @@ def _launch(name: str, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind):
+def _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
     nc, dc, F, Rb, Rc = vol_cs.shape
     out = torch.empty(
         (nc, F + 2, nq, nq), dtype=torch.float32, device=vol_cs.device
@@ -164,52 +250,68 @@ def _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind):
         "swr_sweep_fwd", vol_cs.device,
         vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
         ch_par.data_ptr(), out.data_ptr(),
-        nc, dc, F, Rb, Rc, nq, _KINDS[kind],
+        nc, dc, F, Rb, Rc, nq, _KINDS[kind], _DTYPES[vol_cs.dtype],
+        _DTYPES[dtype],
     )
     chunk_sweep.launches += 1
     return out
 
 
 def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
-                              kind="linear"):
+                              kind="linear", dtype=torch.float32):
     """Plain PyTorch backward: autograd of :func:`chunk_sweep_reference`,
-    ``d<g, frames>/d vol_cs``."""
+    ``d<g, frames>/d vol_cs``, in ``vol_cs``'s dtype."""
     with torch.enable_grad():
         v = vol_cs.detach().requires_grad_(True)
-        out = chunk_sweep_reference(v, rs_par, z_rel, ch_par, nq, kind)
+        out = chunk_sweep_reference(v, rs_par, z_rel, ch_par, nq, kind, dtype)
         (dvol,) = torch.autograd.grad(out, v, g)
     return dvol
 
 
 def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
-                    kind="linear"):
-    """``d<g, frames>/d vol_cs`` of the sweep whose forward gave ``frames``.
+                    kind="linear", dtype=torch.float32):
+    """``d<g, frames>/d vol_cs`` of the sweep whose forward gave ``frames``,
+    in ``vol_cs``'s dtype.
 
     On a CUDA tensor it runs ``csrc/swr_sweep_bwd.cu`` on the current
-    stream (a memset of ``dvol`` and one launch that adds the tiles' sums
-    with atomics, so the last bits may differ from run to run; counted in
-    ``chunk_sweep_bwd.launches``) or raises; on a CPU tensor it runs
+    stream or raises: a memset and the sweep kernel, which adds the tiles'
+    sums with atomics (so the last bits may differ from run to run),
+    counted in ``chunk_sweep_bwd.launches``.  With an fp32 ``vol_cs`` and
+    fp32 operands the sums are ``dvol``'s.  With a bf16 ``vol_cs`` or bf16
+    operands they are the transposed pass's ``t``, added into an fp32
+    scratch ``(n_chunks, dc, F, nq, Rc)``, and a second kernel
+    (``swr_sweep_bwd_rows_kernel``, counted in
+    ``chunk_sweep_bwd.finish_launches``) rounds each ``t`` once (bf16
+    operands) and resamples them back along b into ``dvol``, each voxel
+    stored once in ``vol_cs``'s dtype.  On a CPU tensor it runs
     :func:`chunk_sweep_bwd_reference` (``frames`` unused there).
     """
     if vol_cs.device.type == "cpu":
         return chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g,
-                                         nq, kind)
+                                         nq, kind, dtype)
     if vol_cs.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {vol_cs.device}")
-    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind)
+    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
     # the kernel indexes g[c, ch, i, j] directly: a cotangent that reaches
     # here as a strided view of the fold's frame slices is copied once
     g = g.contiguous()
     _check_bwd_args(vol_cs, frames, g, nq)
     nc, dc, F, Rb, Rc = vol_cs.shape
     dvol = torch.empty_like(vol_cs)
+    scratch = None
+    if torch.bfloat16 in (vol_cs.dtype, dtype):
+        scratch = torch.empty((nc, dc, F, nq, Rc), dtype=torch.float32,
+                              device=vol_cs.device)
     _launch(
         "swr_sweep_bwd", vol_cs.device,
         vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
         ch_par.data_ptr(), frames.data_ptr(), g.data_ptr(), dvol.data_ptr(),
-        nc, dc, F, Rb, Rc, nq, _KINDS[kind],
+        None if scratch is None else scratch.data_ptr(),
+        nc, dc, F, Rb, Rc, nq, _KINDS[kind], _DTYPES[vol_cs.dtype],
+        _DTYPES[dtype],
     )
     chunk_sweep_bwd.launches += 1
+    chunk_sweep_bwd.finish_launches += int(scratch is not None)
     return dvol
 
 
@@ -219,18 +321,19 @@ class _ChunkSweep(torch.autograd.Function):
     and ``ch_par`` get ``None``, as the JAX VJP returns zeros for them."""
 
     @staticmethod
-    def forward(ctx, vol_cs, rs_par, z_rel, ch_par, nq, kind):
-        frames = _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind)
+    def forward(ctx, vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
+        frames = _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind,
+                                   dtype)
         ctx.save_for_backward(vol_cs, rs_par, z_rel, ch_par, frames)
-        ctx.nq, ctx.kind = nq, kind
+        ctx.nq, ctx.kind, ctx.dtype = nq, kind, dtype
         return frames
 
     @staticmethod
     def backward(ctx, g):
         vol_cs, rs_par, z_rel, ch_par, frames = ctx.saved_tensors
         dvol = chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g,
-                               ctx.nq, ctx.kind)
-        return dvol, None, None, None, None, None
+                               ctx.nq, ctx.kind, ctx.dtype)
+        return dvol, None, None, None, None, None, None
 
 
 def chunk_sweep(
@@ -240,23 +343,28 @@ def chunk_sweep(
     ch_par: torch.Tensor,
     nq: int,
     kind: str = "linear",
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Composite every chunk's slabs into per-chunk frames.
 
     Returns (n_chunks, F+2, nq, nq) fp32 frames with channels
-    ``[acc features (F-1) | depth | opacity | tau]``.  On a CUDA tensor it
-    launches ``csrc/swr_sweep_fwd.cu`` on the current stream (counted in
+    ``[acc features (F-1) | depth | opacity | tau]``.  ``vol_cs`` is fp32
+    or bf16; ``dtype`` is the resample operand dtype (the JAX
+    ``chunk_sweep``'s ``dtype``).  On a CUDA tensor it launches
+    ``csrc/swr_sweep_fwd.cu`` on the current stream (counted in
     ``chunk_sweep.launches``) or raises, and a gradient asked of ``vol_cs``
     runs :func:`chunk_sweep_bwd`'s kernel; on a CPU tensor it runs
     :func:`chunk_sweep_reference` under autograd.
     """
     if vol_cs.device.type == "cpu":
-        return chunk_sweep_reference(vol_cs, rs_par, z_rel, ch_par, nq, kind)
+        return chunk_sweep_reference(vol_cs, rs_par, z_rel, ch_par, nq, kind,
+                                     dtype)
     if vol_cs.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {vol_cs.device}")
-    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind)
-    return _ChunkSweep.apply(vol_cs, rs_par, z_rel, ch_par, nq, kind)
+    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
+    return _ChunkSweep.apply(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
 
 
 chunk_sweep.launches = 0
 chunk_sweep_bwd.launches = 0
+chunk_sweep_bwd.finish_launches = 0

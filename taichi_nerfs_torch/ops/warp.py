@@ -8,9 +8,14 @@ static window helpers ``residual_window`` and ``drift_window``.  The
 roll-select ``resample_affine`` of the JAX module exists for TPU grid sizes
 and is not carried.
 
-Operands are fp32.  Every resample runs as a plain fp32 ``torch.matmul``;
-on CUDA that is full fp32 as long as
-``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's default).
+Operand dtypes follow the JAX module: the interpolation weights take
+``dtype`` if it is given, else ``x``'s dtype; products accumulate in fp32
+and the result is fp32, cast to ``dtype`` only when it is given.  Every
+resample runs as a plain fp32 ``torch.matmul`` of the operands (a product
+of two bf16 values is exact in fp32, so bf16 operands give the JAX
+``preferred_element_type=float32`` product); on CUDA that is full fp32 as
+long as ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's
+default).
 """
 
 from __future__ import annotations
@@ -68,8 +73,10 @@ def interp_matrix(
     out_len: int,
     kind: str = "linear",
     device=None,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Dense (n, out_len) fp32 matrix ``W[m, i] = k(m - (start + i*step))``.
+    """Dense (n, out_len) matrix ``W[m, i] = k(m - (start + i*step))``,
+    computed in fp32 and cast to ``dtype``.
 
     ``out = x @ W`` reproduces the affine resample with zero padding
     outside the source.
@@ -79,7 +86,14 @@ def interp_matrix(
     m = torch.arange(n, dtype=torch.float32, device=device)[:, None]
     i = torch.arange(out_len, dtype=torch.float32, device=device)[None, :]
     pos = start + i * step
-    return interp_kernel(m - pos, kind)
+    return interp_kernel(m - pos, kind).to(dtype)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """``x @ w`` with fp32 accumulation and an fp32 result, cast to
+    ``dtype`` when it is given."""
+    out = torch.matmul(x.float(), w.float())
+    return out if dtype is None else out.to(dtype)
 
 
 def resample_matmul(
@@ -89,14 +103,17 @@ def resample_matmul(
     out_len: int,
     axis: int,
     kind: str = "linear",
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Affine 1D resample of fp32 ``x`` along ``axis`` as one matmul."""
+    """Affine 1D resample of ``x`` along ``axis`` as one matmul; weights in
+    ``dtype or x.dtype``."""
     axis = axis % x.ndim
     w = interp_matrix(
-        start, step, x.shape[axis], out_len, kind=kind, device=x.device
+        start, step, x.shape[axis], out_len, kind=kind, device=x.device,
+        dtype=dtype or x.dtype,
     )
     # contract on the last axis, then put the new axis back in place
-    out = torch.matmul(torch.movedim(x, axis, -1), w)
+    out = _dot(torch.movedim(x, axis, -1), w, dtype)
     return torch.movedim(out, -1, axis)
 
 
@@ -107,11 +124,13 @@ def resample_matmul_batched(
     out_len: int,
     axis: int,
     kind: str = "linear",
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Affine 1D resample along ``axis`` with one affine map per leading
     batch entry: ``x`` is (B, ..., N, ...), ``start`` and ``step`` are (B,)
     and batch b uses its own interpolation matrix, in one batched matmul
-    (a slab's two sigma sub-slabs lie on two world planes)."""
+    (a slab's two sigma sub-slabs lie on two world planes); weights in
+    ``dtype or x.dtype``."""
     axis = axis % x.ndim
     if axis == 0:
         raise ValueError("axis 0 is the batch dimension")
@@ -119,9 +138,9 @@ def resample_matmul_batched(
     m = torch.arange(n, dtype=torch.float32, device=x.device)[None, :, None]
     i = torch.arange(out_len, dtype=torch.float32, device=x.device)
     pos = start[:, None, None] + i[None, None, :] * step[:, None, None]
-    w = interp_kernel(m - pos, kind)  # (B, N, out_len)
+    w = interp_kernel(m - pos, kind).to(dtype or x.dtype)  # (B, N, out_len)
     xm = torch.movedim(x, axis, -1)
-    out = torch.bmm(xm.reshape(x.shape[0], -1, n), w)
+    out = _dot(xm.reshape(x.shape[0], -1, n), w, dtype)
     out = out.reshape(*xm.shape[:-1], out_len)
     return torch.movedim(out, -1, axis)
 
@@ -143,9 +162,10 @@ def resample_matmul_windowed(
     out_len: int,
     axis: int,
     window: int,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Affine 1D linear resample as a window of the source, then one
-    ``(window, out_len)`` matrix product.
+    ``(window, out_len)`` matrix product; weights in ``dtype or x.dtype``.
 
     The window starts one cell below the support's low end (an offset
     computed on the device, so no host read) in the source zero-padded by
@@ -157,7 +177,7 @@ def resample_matmul_windowed(
     axis = axis % x.ndim
     n = x.shape[axis]
     if window >= n:
-        return resample_matmul(x, start, step, out_len, axis)
+        return resample_matmul(x, start, step, out_len, axis, dtype=dtype)
     dev = x.device
     start = torch.as_tensor(start, dtype=torch.float32, device=dev)
     step = torch.as_tensor(step, dtype=torch.float32, device=dev)
@@ -169,5 +189,5 @@ def resample_matmul_windowed(
     idx = off + torch.arange(window, device=dev)
     xw = torch.index_select(xp, -1, idx)
     w = interp_matrix(start - (off - window).to(torch.float32), step,
-                      window, out_len)
-    return torch.movedim(torch.matmul(xw, w), -1, axis)
+                      window, out_len, dtype=dtype or x.dtype)
+    return torch.movedim(_dot(xw, w, dtype), -1, axis)

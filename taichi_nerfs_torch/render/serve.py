@@ -10,14 +10,18 @@ Precision: every fp32 matmul of the path (bake, sweep plain version, fold,
 pixel warp) runs in full fp32 on CUDA because
 ``torch.backends.cuda.matmul.allow_tf32`` is False, PyTorch's default; the
 renderer refuses to run with it switched on.  The rgb MLP rounds its
-operands to bf16 and accumulates in fp32, as the JAX package does.
+operands to bf16 and accumulates in fp32, as the JAX package does.  A
+renderer may bake in bf16 (``bake_dtype``, as ``scripts/eval_fps.py``
+serves every grid) and round the resample operands to bf16
+(``resample_dtype``); both default to fp32.
 
 Run as a module to render an orbit of a checkpoint written by the JAX
 package's ``train.py`` (``results/model_pyramid.npz``)::
 
     python -m taichi_nerfs_torch.render.serve \\
         --ckpt_path results/model_pyramid.npz --img_wh 800 800 \\
-        --n_views 4 --resample_kind cubic
+        --n_views 4 --resample_kind cubic [--bake_dtype bfloat16]
+        [--resample_dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from ..models import pyramid as pyr
 from ..utils.device import resolve_device
-from .swr import _host_f32, render_swr, sweep_axis
+from .swr import _RS_DTYPES, _host_f32, render_swr, sweep_axis
 
 _TODO = "not ported yet; see ROADMAP 'Modules to port' item 10.5"
 
@@ -58,6 +62,8 @@ class PyramidRenderer:
         sweep_impl: "auto" (the CUDA kernel on the card) or "reference"
             (the plain PyTorch sweep).
         cam_carve: camera-carving of the JAX trainer; only 0 is ported.
+        bake_dtype: "float32" or "bfloat16", the baked grid's dtype.
+        resample_dtype: "float32" or "bfloat16", the resample operands'.
     """
 
     def __init__(
@@ -70,9 +76,15 @@ class PyramidRenderer:
         resample_kind: str = "linear",
         sweep_impl: str = "auto",
         cam_carve: float = 0.0,
+        bake_dtype: str = "float32",
+        resample_dtype: str = "float32",
     ):
         if cam_carve:
             raise NotImplementedError(f"cam_carve is {_TODO}")
+        for name, v in (("bake_dtype", bake_dtype),
+                        ("resample_dtype", resample_dtype)):
+            if v not in _RS_DTYPES:
+                raise ValueError(f"unknown {name} {v!r}")
         exp = [(r, r, r, cfg.feat_of(i)) for i, r in enumerate(cfg.resolutions)]
         got = [tuple(g.shape) for g in params["levels"]]
         if cfg.split:
@@ -87,6 +99,8 @@ class PyramidRenderer:
         self.img_wh = img_wh
         self.resample_kind = resample_kind
         self.sweep_impl = sweep_impl
+        self.bake_dtype = bake_dtype
+        self.resample_dtype = resample_dtype
         self._grid = None
 
     @property
@@ -96,7 +110,8 @@ class PyramidRenderer:
         if self._grid is None:
             _require_fp32_matmul()
             with torch.no_grad():
-                self._grid = pyr.bake(self.params, self.cfg)
+                self._grid = pyr.bake(self.params, self.cfg,
+                                      _RS_DTYPES[self.bake_dtype])
         return self._grid
 
     def render(
@@ -143,6 +158,7 @@ class PyramidRenderer:
                 skip_empty=skip_empty,
                 early_exit=float(early_exit),
                 resample_kind=self.resample_kind,
+                resample_dtype=self.resample_dtype,
                 sweep_impl=self.sweep_impl,
             )
 
@@ -189,6 +205,12 @@ def main(argv=None):
     ap.add_argument("--n_views", type=int, default=4)
     ap.add_argument("--resample_kind", default="linear",
                     choices=("linear", "cubic"))
+    ap.add_argument("--bake_dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the baked grid's dtype")
+    ap.add_argument("--resample_dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the resample operands' dtype (fp32 accumulation)")
     ap.add_argument("--lat_cap", default="auto",
                     help="'auto' (int(1.25 R) + 16), 'none' or an integer")
     ap.add_argument("--out_dir", default="results/serve")
@@ -210,11 +232,14 @@ def main(argv=None):
         lat_cap = int(args.lat_cap)
     rend = PyramidRenderer(
         params, cfg, intrinsics(w, h), (w, h),
-        resample_kind=args.resample_kind,
+        resample_kind=args.resample_kind, bake_dtype=args.bake_dtype,
+        resample_dtype=args.resample_dtype,
     )
     os.makedirs(args.out_dir, exist_ok=True)
     print(f"device={device} R={cfg.grid_res} F={cfg.features} {w}x{h} "
-          f"lat_cap={args.lat_cap} kind={args.resample_kind}", flush=True)
+          f"lat_cap={args.lat_cap} kind={args.resample_kind} "
+          f"bake={args.bake_dtype} resample={args.resample_dtype}",
+          flush=True)
     rend.grid  # bake (and move to the device) outside the frame timings
     poses = orbit_poses(args.n_views)
     for i, pose in enumerate(poses):

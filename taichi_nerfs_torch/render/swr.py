@@ -23,8 +23,16 @@ cube.  One frame (see the JAX module's docstring for the geometry):
 5. a two-pass band-matrix warp (or a bilinear gather) takes that frame to
    pixels; deferred shading then runs the rgb MLP once per pixel.
 
-Inside cameras, ``debug_frames`` and bf16 resample operands raise
-``NotImplementedError`` naming their ROADMAP item.
+Inside cameras and ``debug_frames`` raise ``NotImplementedError`` naming
+their ROADMAP item.
+
+bf16: the grid may be a bf16 bake (``bake(..., dtype=torch.bfloat16)``);
+it reaches the sweep kernels, or the scan's resamples, without an fp32
+copy.  ``resample_dtype="bfloat16"`` rounds the operands where the JAX
+renderer casts them to its ``rs_dtype``: the scan's slab resamples, the
+first of the split sigma resamples, the sweep's operands and the final
+warp's band matrices and frames; products accumulate in fp32.  The fold
+stays fp32, as in the JAX package.
 
 Precision: the two 3x3 contractions that the JAX renderer runs at
 ``Precision.HIGHEST`` (the corner directions and the per-pixel directions)
@@ -59,6 +67,7 @@ from ..ops.warp import (
 _span = torch.profiler.record_function
 
 _TODO = "not ported yet; see ROADMAP 'Modules to port' item {}"
+_RS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _check_args(cfg, grid, *, debug_frames, slab_window, resample_dtype,
@@ -67,12 +76,8 @@ def _check_args(cfg, grid, *, debug_frames, slab_window, resample_dtype,
         raise NotImplementedError(f"inside cameras are {_TODO.format('10.5')}")
     if debug_frames:
         raise NotImplementedError(f"debug_frames is {_TODO.format('10.6')}")
-    if resample_dtype != "float32":
-        raise NotImplementedError(
-            f"resample_dtype={resample_dtype!r}: bf16 resample operands are "
-            f"{_TODO.format('10.7')} (with the kernels' bf16 variant, "
-            "'TPU kernels to port' item 2)"
-        )
+    if resample_dtype not in _RS_DTYPES:
+        raise ValueError(f"unknown resample_dtype {resample_dtype!r}")
     if resample_kind not in ("linear", "cubic"):
         raise ValueError(f"unknown resample kind {resample_kind!r}")
     if resample_kind != "linear" and slab_window:
@@ -104,6 +109,12 @@ def _host_f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
     return np.asarray(x, np.float32)
+
+
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to the operand ``dtype``, kept fp32 (a matmul of such
+    operands is the JAX fp32-accumulated product)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def _dirs(pose: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
@@ -142,10 +153,11 @@ def render_swr_fixed_axis(
 ) -> Dict[str, torch.Tensor]:
     """Render with a given sweep axis and direction.
 
-    Args mirror the JAX function.  ``grid`` is the baked fp32
+    Args mirror the JAX function.  ``grid`` is the baked fp32 or bf16
     ``(R, R, R, F)`` grid on the render device, or for a split config the
     pair ``(sigma (Rs, Rs, Rs), feats (R, R, R, F-1))``; ``pose`` and ``K``
-    may be numpy arrays or tensors.
+    may be numpy arrays or tensors.  ``resample_dtype`` ("float32" or
+    "bfloat16") is the resample operand dtype.
 
     Dispatch, as in the JAX package: the sweep takes every call with
     deferred shading, an unsplit grid, no distortion and ``slab_window=0``;
@@ -182,6 +194,7 @@ def render_swr_fixed_axis(
     split = isinstance(grid, tuple)
     dev = grid[0].device if split else grid.device
     f32 = torch.float32
+    rs_dtype = _RS_DTYPES[resample_dtype]
     pose = _as_f32(pose, dev)
     K = _as_f32(K, dev)
     s = cfg.scale
@@ -359,7 +372,7 @@ def render_swr_fixed_axis(
         carry = _sweep_chunks(
             sweep, fold, carry, vol, zs_c, z_ref_c, (fb0_c, fdb_c, fc0_c,
                                                      fdc_c),
-            o, axis, s, h, nq, n_chunks, early_exit, resample_kind,
+            o, axis, s, h, nq, n_chunks, early_exit, resample_kind, rs_dtype,
         )
     else:
         with _span("swr.setup"):
@@ -375,7 +388,8 @@ def render_swr_fixed_axis(
         # units, so its source window doubles
         sigma_window = 2 * slab_window if split and slab_window else 0
         geo = dict(o=o, axis=axis, s=s, h=h, nq=nq, lat_i=lat_i,
-                   kind=resample_kind, slab_window=slab_window,
+                   kind=resample_kind, rs_dtype=rs_dtype,
+                   slab_window=slab_window,
                    sigma_window=sigma_window,
                    h_s=h_s if split else None)
         for g in range(n_chunks):
@@ -470,18 +484,20 @@ def render_swr_fixed_axis(
             )  # (J, N): source-i position for (row j, output line n)
             posA = torch.where(torch.isfinite(posA), posA, -1e9)
             i_ar = torch.arange(nq, dtype=f32, device=dev)
-            WA = torch.clamp(
+            WA = _round_to(torch.clamp(
                 1.0 - torch.abs(i_ar[None, :, None] - posA[:, None, :]), min=0.0
-            )  # (J, I, N)
+            ), rs_dtype)  # (J, I, N)
             # inter[j, c, n] = sum_i img[c, i, j] * WA[j, i, n]
-            inter = torch.bmm(img.permute(2, 0, 1), WA)  # (J, C, N)
+            inter = torch.bmm(_round_to(img.permute(2, 0, 1), rs_dtype),
+                              WA)  # (J, C, N)
             posB = lj if warp == "matmul_x" else lj.T  # (N', N)
             posB = torch.where(torch.isfinite(posB), posB, -1e9)
-            WB = torch.clamp(
+            WB = _round_to(torch.clamp(
                 1.0 - torch.abs(j_ar[None, :, None] - posB[:, None, :]), min=0.0
-            )  # (N, J, N')
+            ), rs_dtype)  # (N, J, N')
             # pixT[n, c, n'] = sum_j inter[j, c, n] * WB[n, j, n']
-            pixT = torch.bmm(inter.permute(2, 1, 0), WB)  # (N, C, N')
+            pixT = torch.bmm(_round_to(inter.permute(2, 1, 0), rs_dtype),
+                             WB)  # (N, C, N')
             if warp == "matmul_x":
                 pix = pixT.permute(1, 0, 2)  # (C, H, W)
             else:
@@ -515,7 +531,7 @@ def render_swr_fixed_axis(
 
 
 def _sweep_chunks(sweep, fold, carry, vol, zs_c, z_ref_c, frames, o, axis,
-                  s, h, nq, n_chunks, early_exit, kind):
+                  s, h, nq, n_chunks, early_exit, kind, dtype):
     """The sweep's chunks, folded: every chunk in one call, or with
     ``early_exit`` one chunk per call front to back, skipping empty chunks
     (max sigma <= 1e-4) and stopping once no occupied chunk remains or every
@@ -564,13 +580,13 @@ def _sweep_chunks(sweep, fold, carry, vol, zs_c, z_ref_c, frames, o, axis,
             with _span("swr.sweep"):
                 fr = sweep(
                     vol_c[g : g + 1], rs_par[g : g + 1], z_rel[g : g + 1],
-                    ch_par[g : g + 1], nq, kind,
+                    ch_par[g : g + 1], nq, kind, dtype=dtype,
                 )[0]
             with _span("swr.fold"):
                 carry = fold(g, fr[: acc_ch + 2], carry)
         return carry
     with _span("swr.sweep"):
-        frames = sweep(vol_c, rs_par, z_rel, ch_par, nq, kind)
+        frames = sweep(vol_c, rs_par, z_rel, ch_par, nq, kind, dtype=dtype)
     for g in range(n_chunks):
         with _span("swr.fold"):
             carry = fold(g, frames[g, : acc_ch + 2], carry)
@@ -595,7 +611,7 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
     distortion.
     """
     o, axis, s, h, nq = geo["o"], geo["axis"], geo["s"], geo["h"], geo["nq"]
-    kind = geo["kind"]
+    kind, rs_dtype = geo["kind"], geo["rs_dtype"]
     b_axis, c_axis = [d for d in range(3) if d != axis]
     o_a, o_b, o_c = o[axis], o[b_axis], o[c_axis]
     f_b0, f_db, f_c0, f_dc = frame
@@ -629,12 +645,16 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
                 f_dc / (rho * h_src))
 
     def to_lattice(x, z_k, h_src, window):
+        # each resample: operands in rs_dtype (the weights take x's),
+        # fp32 accumulation, an fp32 result
         sb, stb, sc, stc = affine(z_k, h_src)
         if window:
-            x = resample_matmul_windowed(x, sb, stb, nq, 1, window)
-            return resample_matmul_windowed(x, sc, stc, nq, 2, window)
-        x = resample_matmul(x, sb, stb, nq, 1, kind=kind)
-        return resample_matmul(x, sc, stc, nq, 2, kind=kind)
+            x = resample_matmul_windowed(x.to(rs_dtype), sb, stb, nq, 1,
+                                         window)
+            return resample_matmul_windowed(x.to(rs_dtype), sc, stc, nq, 2,
+                                            window)
+        x = resample_matmul(x.to(rs_dtype), sb, stb, nq, 1, kind=kind)
+        return resample_matmul(x.to(rs_dtype), sc, stc, nq, 2, kind=kind)
 
     def slab_work(acc, depth_acc, t_acc, dist_acc, f, z, sp, zp):
         if sp is not None:
@@ -647,7 +667,10 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
                 s1 = to_lattice(sp[1:2], zp[1], h_s, sw)[0]
             else:
                 sb, stb, sc, stc = affine(zp, h_s)  # (2,) each
-                q = resample_matmul_batched(sp, sb, stb, nq, 1, kind=kind)
+                # as the JAX renderer: the first resample's operands in
+                # rs_dtype, the second's in its fp32 result's dtype
+                q = resample_matmul_batched(sp.to(rs_dtype), sb, stb, nq, 1,
+                                            kind=kind)
                 q = resample_matmul_batched(q, sc, stc, nq, 2, kind=kind)
                 s0, s1 = q[0], q[1]
             dt_s = 0.5 * dt

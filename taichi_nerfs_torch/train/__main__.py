@@ -33,7 +33,19 @@ module name):
   It trains, writes ``model_pyramid.npz`` (read by both packages),
   renders every test view uncapped for PSNR / SSIM, writes
   ``rgb_000.png`` and ``depth_000.png``, and writes
-  ``model_pyramid.manifest.json`` in ``train.py``'s schema.
+  ``model_pyramid.manifest.json`` in ``train.py``'s schema.  The R=512
+  record (``docs/records/lego_proxy_r512_negative.manifest.json``) trains
+  through the bf16 path: ``--bake_dtype bfloat16`` bakes in bf16 (the
+  sweep kernels read a bf16 volume) and keeps Adam's first moment in bf16,
+  as ``train.py`` sets ``adam_mu_bf16``::
+
+    python -m taichi_nerfs_torch.train \\
+        --root_dir 'synthetic://lego?views=100&res=800' \\
+        --dataset_name synthetic --model_name pyramid \\
+        --pyramid_levels 32,64,128,256,512 --features 8 \\
+        --level_features 8,8,8,8,4 --bake_dtype bfloat16 --lr 1e-2 \\
+        --alpha_w 0.2 --random_bg --tv_w 5e-4 --sigma_l1 1e-5 \\
+        --resample_kind cubic --prog_steps 2250,4500 --max_steps 9000
 
 Both train on the card: ``--device cuda`` is the default, and it raises
 when there is no card; ``--device cpu`` asks for the CPU (the flag is the

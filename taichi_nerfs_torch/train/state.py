@@ -14,7 +14,9 @@ restarts Adam's count but not the schedule's.  ``torch.optim.Adam`` counts
 per parameter, so :class:`Adam` is written out here; it updates parameters
 and moments in place, in fp32.  Both trainers use it: the NGP trainer with
 ``final_ratio = 1 / lr_final_div``, the shear-warp one
-(``train/swr_step.py``) with its ``lr_final_ratio``.
+(``train/swr_step.py``) with its ``lr_final_ratio`` and, with
+``adam_mu_bf16``, a bf16 first moment (the JAX optimizer's
+``mu_dtype``).
 
 Params are trees of dicts and lists; :func:`tree_leaves` orders them as
 ``jax.tree_util`` does (dict keys sorted).
@@ -73,16 +75,24 @@ class AdamState:
 
 class Adam:
     """Adam (b1 0.9, b2 0.999) on a cosine schedule from ``lr`` to ``lr *
-    final_ratio`` over ``max_steps``, fp32, in place."""
+    final_ratio`` over ``max_steps``, fp32, in place.
+
+    ``mu_dtype=torch.bfloat16`` stores the first moment in bf16 as the JAX
+    optimizer's Adam with ``mu_dtype=bf16`` does: the new moment is computed in
+    fp32 from the stored one (``b1 * mu`` in bf16, as JAX multiplies a bf16
+    array by a Python float), the update uses that fp32 moment, and only
+    then is it stored, rounded to bf16.  The second moment stays fp32.
+    """
 
     b1, b2 = 0.9, 0.999
 
     def __init__(self, lr: float, max_steps: int, final_ratio: float,
-                 eps: float = 1e-15):
+                 eps: float = 1e-15, mu_dtype: torch.dtype = torch.float32):
         self.base_lr = lr
         self.max_steps = max_steps
         self.final_ratio = final_ratio
         self.eps = eps
+        self.mu_dtype = mu_dtype
 
     def lr(self, count: int) -> float:
         c = min(float(count), float(self.max_steps))
@@ -91,12 +101,13 @@ class Adam:
         return self.base_lr * ((1.0 - a) * cos + a)
 
     def init(self, params, sched_count: int = 0) -> AdamState:
-        def zeros(p):
-            return torch.zeros_like(p, dtype=torch.float32,
-                                    requires_grad=False)
+        def zeros(dtype):
+            return lambda p: torch.zeros_like(p, dtype=dtype,
+                                              requires_grad=False)
 
-        return AdamState(0, sched_count, tree_map(zeros, params),
-                         tree_map(zeros, params))
+        return AdamState(0, sched_count,
+                         tree_map(zeros(self.mu_dtype), params),
+                         tree_map(zeros(torch.float32), params))
 
     @torch.no_grad()
     def update(self, grads, state: AdamState, params) -> AdamState:
@@ -110,9 +121,15 @@ class Adam:
         step = float(f32(-self.lr(state.sched_count)))
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
                               tree_leaves(state.nu), tree_leaves(params)):
-            m.copy_((1.0 - self.b1) * g + self.b1 * m)
+            if m.dtype == torch.float32:
+                m32 = m.copy_((1.0 - self.b1) * g + self.b1 * m)
+            else:
+                b1 = torch.tensor(self.b1, dtype=m.dtype, device=m.device)
+                m32 = (1.0 - self.b1) * g + m * b1
             v.copy_((1.0 - self.b2) * (g * g) + self.b2 * v)
-            p.add_(step * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)))
+            p.add_(step * ((m32 / bc1) / (torch.sqrt(v / bc2) + self.eps)))
+            if m32 is not m:
+                m.copy_(m32)  # stored rounded, after the update used it
         return AdamState(count, state.sched_count + 1, state.mu, state.nu)
 
 

@@ -25,9 +25,13 @@ Adam is ``train/state.py:Adam`` (one count for bias correction, one for
 the cosine schedule, as the JAX optimizer keeps them), shared with the NGP
 trainer.
 
+bf16, as the JAX trainer: ``bake_dtype="bfloat16"`` bakes in bf16 inside
+the loss (checkpointed at ``grid_res >= 384``, as JAX remats it) and for
+:meth:`SwrTrainer.render`; ``resample_dtype`` sets the loss's resample
+operands; ``adam_mu_bf16`` keeps Adam's first moment in bf16.
+
 Out of scope (each raises ``NotImplementedError`` naming its ROADMAP item):
-inside cameras and ``cam_carve`` (item 10.5), the bf16 bake, bf16 resample
-operands and ``adam_mu_bf16`` (item 10.7), and a device mesh (item 12).
+inside cameras and ``cam_carve`` (item 10.5) and a device mesh (item 12).
 """
 
 from __future__ import annotations
@@ -38,10 +42,12 @@ from typing import Any, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import pyramid as pyr
 from ..render.serve import _require_fp32_matmul
 from ..render.swr import (
+    _RS_DTYPES,
     _as_f32,
     pick_warp,
     render_swr,
@@ -92,14 +98,9 @@ def _check_scope(tcfg: SwrTrainConfig) -> None:
     if tcfg.cam_carve > 0:
         raise NotImplementedError(
             f"cam_carve is {_MODULES_TODO.format('10.5')}")
-    if (tcfg.bake_dtype != "float32" or tcfg.resample_dtype != "float32"
-            or tcfg.adam_mu_bf16):
-        raise NotImplementedError(
-            "the bf16 bake, resample operands and adam moments are "
-            + _MODULES_TODO.format("10.7")
-            + " (with the kernels' bf16 variant, 'TPU kernels to port' "
-            "item 2)"
-        )
+    for name in ("bake_dtype", "resample_dtype"):
+        if getattr(tcfg, name) not in _RS_DTYPES:
+            raise ValueError(f"unknown {name} {getattr(tcfg, name)!r}")
     if tcfg.resample_kind not in ("linear", "cubic"):
         raise ValueError(f"unknown resample kind {tcfg.resample_kind!r}")
     if tcfg.sweep_impl not in ("auto", "reference"):
@@ -120,7 +121,8 @@ def _grow_like_params(old, new):
 
 
 def make_optimizer(cfg: SwrTrainConfig) -> Adam:
-    return Adam(cfg.lr, cfg.max_steps, cfg.lr_final_ratio)
+    mu_dtype = torch.bfloat16 if cfg.adam_mu_bf16 else torch.float32
+    return Adam(cfg.lr, cfg.max_steps, cfg.lr_final_ratio, mu_dtype=mu_dtype)
 
 
 class SwrTrainState(NamedTuple):
@@ -146,9 +148,10 @@ def grow_swr_state(
 ) -> SwrTrainState:
     """Grow a training state to a deeper pyramid config.
 
-    New fine levels get their standard init and zero moments; shared
-    levels and the rgb MLP keep params and moments; both counts carry (one
-    cosine schedule spans all phases)."""
+    New fine levels get their standard init and zero moments (the first in
+    bf16 with ``adam_mu_bf16``); shared levels and the rgb MLP keep params
+    and moments; both counts carry (one cosine schedule spans all
+    phases)."""
     dev = state.params["levels"][0].device
     fresh = _trainable(pyr.init_pyramid_params(new_mcfg, generator, dev))
     params = _grow_like_params(state.params, fresh)
@@ -218,8 +221,17 @@ def make_swr_loss(
     if tcfg.alpha_w > 0 and gt_alpha is None:
         raise ValueError("alpha_w needs the GT alpha channel (alphas=)")
 
+    bake_dtype = _RS_DTYPES[tcfg.bake_dtype]
+
     def loss_fn(params):
-        grid = pyr.bake(params, mcfg)
+        # checkpoint the bake at large R: its forward intermediates (the
+        # progressive upsample chain, ~R^3 F each) would otherwise stay live
+        # across the render for the backward, as the JAX trainer remats it
+        if mcfg.grid_res >= 384:
+            grid = checkpoint(pyr.bake, params, mcfg, bake_dtype,
+                              use_reentrant=False)
+        else:
+            grid = pyr.bake(params, mcfg, bake_dtype)
         out = render_swr_fixed_axis(
             params, grid, mcfg, pose, K_crop, (c, c), axis, flip,
             n_chunks=min(tcfg.n_chunks, mcfg.grid_res),
@@ -228,6 +240,7 @@ def make_swr_loss(
             lat_size=lat_size,
             warp=warp,
             want_distortion=tcfg.distortion_w > 0,
+            resample_dtype=tcfg.resample_dtype,
             sweep_impl=tcfg.sweep_impl,
             resample_kind=tcfg.resample_kind,
         )
@@ -472,12 +485,15 @@ class SwrTrainer:
     def render(self, pose, K=None, img_wh=None, lat_cap="auto",
                early_exit=1e-4):
         """Eval-time render.  ``early_exit`` stops the sweep once every
-        pixel's transmittance is below it; 0.0 sweeps every chunk."""
+        pixel's transmittance is below it; 0.0 sweeps every chunk.  The
+        grid is baked in ``bake_dtype``; the resample operands are fp32,
+        as the JAX trainer renders."""
         _require_fp32_matmul()
         if self._grid_cache[0] != self.step:
             with torch.no_grad():
-                self._grid_cache = (self.step,
-                                    pyr.bake(self.state.params, self.cur_mcfg))
+                self._grid_cache = (self.step, pyr.bake(
+                    self.state.params, self.cur_mcfg,
+                    _RS_DTYPES[self.tcfg.bake_dtype]))
         grid = self._grid_cache[1]
         if lat_cap == "auto":
             lat_cap = int(1.25 * self.cur_mcfg.grid_res) + 16
@@ -506,7 +522,8 @@ class SwrTrainer:
         ``light`` (default): bf16 params, step, phase and the random
         streams; on resume Adam restarts with zero moments and count 0 while
         the schedule resumes at the saved step.  Full mode adds the fp32
-        params and the Adam state, for an exact resume.
+        params and the Adam state (each moment in its own dtype: a bf16 first
+        moment stays bf16), for an exact resume.
         """
 
         def cpu(t, dtype):
@@ -530,7 +547,7 @@ class SwrTrainer:
             payload["adam"] = {
                 "count": st.opt_state.count,
                 "sched_count": st.opt_state.sched_count,
-                "mu": tree_map(lambda t: cpu(t, f32), st.opt_state.mu),
+                "mu": tree_map(lambda t: cpu(t, t.dtype), st.opt_state.mu),
                 "nu": tree_map(lambda t: cpu(t, f32), st.opt_state.nu),
             }
         torch.save(payload, path)
@@ -546,8 +563,11 @@ class SwrTrainer:
         if "adam" in d:
             params = _trainable(tree_map(dev, d["params"]))
             a = d["adam"]
+            mu_dtype = make_optimizer(self.tcfg).mu_dtype
             opt = AdamState(int(a["count"]), int(a["sched_count"]),
-                            tree_map(dev, a["mu"]), tree_map(dev, a["nu"]))
+                            tree_map(lambda t: t.to(self.device, mu_dtype),
+                                     a["mu"]),
+                            tree_map(dev, a["nu"]))
         else:
             params = _trainable(tree_map(dev, d["params_bf16"]))
             # the schedule resumes at the saved step; Adam's count restarts

@@ -88,7 +88,6 @@ def tiny():
     [
         dict(inside=True),
         dict(debug_frames=True),
-        dict(resample_dtype="bfloat16"),
     ],
     ids=lambda kw: next(iter(kw)),
 )

@@ -107,7 +107,9 @@ def _args(**over):
 @pytest.mark.parametrize(
     "over,exc",
     [
-        (lambda a: dict(vol_cs=a["vol_cs"].bfloat16()), TypeError),
+        # a bf16 volume is taken, bf16 camera parameters are not
+        (lambda a: dict(vol_cs=a["vol_cs"].bfloat16(),
+                        rs_par=a["rs_par"].bfloat16()), TypeError),
         (lambda a: dict(rs_par=a["rs_par"].double()), TypeError),
         (lambda a: dict(rs_par=a["rs_par"][:, :, :3].contiguous()),
          ValueError),

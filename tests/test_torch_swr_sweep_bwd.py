@@ -275,3 +275,55 @@ def test_bwd_cases_reach_each_path(case):
     assert (paths["taps"] > 0) == (case in ("step_ge_3", "non_finite"))
     assert (paths["float"] > 0) == (case == "ragged_card")
     assert (paths["float4"] > 0) == (case != "ragged_card")
+
+
+# the bf16 instances (chip_smoke.py's limits, from
+# scripts/torch_sweep_bf16_tol.py): frames with fp32 / bf16 operands, max
+# abs (a bf16 operand rounding can land on the neighbouring bf16 value
+# where the two sum the taps in another order) and, with bf16 operands,
+# relative norm; d vol, relative norm
+BF16_FWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BF16_FWD_REL_TOL = 3e-4
+BF16_DVOL_TOL = 2.5e-4
+DTYPE_PAIRS = [(v, o) for v in ("float32", "bfloat16")
+               for o in ("float32", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [4, 8, 16])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("vol_dtype,op_dtype", DTYPE_PAIRS,
+                         ids=[f"vol_{v}-ops_{o}" for v, o in DTYPE_PAIRS])
+def test_bf16_kernels_match_reference_on_card(cuda_device, vol_dtype,
+                                              op_dtype, kind, F):
+    """Both kernels at each (volume, operand) dtype pair against the plain
+    versions on the card, ragged shapes: frames within BF16_FWD_TOL (and
+    BF16_FWD_REL_TOL with bf16 operands), d vol in the volume's dtype
+    within BF16_DVOL_TOL relative norm, each kernel launched once, and the
+    backward's finishing kernel once where the volume or the operands are
+    bf16."""
+    args, g, nq = _card_case(cuda_device, seed=4, nc=3, dc=5, Rb=40, Rc=33,
+                             F=F, nq=37)
+    args[0] = args[0].to(getattr(torch, vol_dtype))
+    dt = getattr(torch, op_dtype)
+    v = args[0].clone().requires_grad_(True)
+    f0, b0 = tsw.chunk_sweep.launches, tsw.chunk_sweep_bwd.launches
+    r0 = tsw.chunk_sweep_bwd.finish_launches
+    out = tsw.chunk_sweep(v, *args[1:], nq, kind, dtype=dt)
+    out.backward(g)
+    want = tsw.chunk_sweep_reference(*args, nq, kind, dtype=dt)
+    want_d = tsw.chunk_sweep_bwd_reference(*args, g, nq, kind, dtype=dt)
+    torch.cuda.synchronize()
+    assert tsw.chunk_sweep.launches == f0 + 1
+    assert tsw.chunk_sweep_bwd.launches == b0 + 1
+    bf16 = "bfloat16" in (vol_dtype, op_dtype)
+    assert tsw.chunk_sweep_bwd.finish_launches == r0 + bf16
+    assert float((out.detach() - want).abs().max()) <= BF16_FWD_TOL[op_dtype]
+    if op_dtype == "bfloat16":
+        frel = torch.linalg.norm(out.detach() - want) / torch.linalg.norm(
+            want)
+        assert float(frel) <= BF16_FWD_REL_TOL
+    assert v.grad.dtype == args[0].dtype
+    rel = torch.linalg.norm((v.grad - want_d).float()) / torch.linalg.norm(
+        want_d.float())
+    assert float(rel) <= BF16_DVOL_TOL

@@ -347,11 +347,8 @@ def test_swr_trainer_save_load_state(sphere, tmp_path, light):
 
 @pytest.mark.parametrize(
     "over",
-    [dict(cam_carve=0.1), dict(bake_dtype="bfloat16"),
-     dict(resample_dtype="bfloat16"), dict(adam_mu_bf16=True),
-     dict(mesh=object()), dict(inside=True)],
-    ids=["cam_carve", "bf16_bake", "bf16_resample", "adam_mu_bf16", "mesh",
-         "inside_camera"],
+    [dict(cam_carve=0.1), dict(mesh=object()), dict(inside=True)],
+    ids=["cam_carve", "mesh", "inside_camera"],
 )
 def test_out_of_scope_training_options_raise(sphere, over):
     over = dict(over)
