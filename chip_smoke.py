@@ -61,7 +61,26 @@ phases:
    fp32-bake step's peak; (c) ``PyramidRenderer(bake_dtype="bfloat16")``
    renders a capped and an uncapped 800x800 R=512 frame (finite, opacity
    in [0, 1], rgb within 2e-2 of the fp32-bake frame);
-11. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
+11. inside: a mixed rig on the ``shell`` scene, 8 views from inside the
+   cube at 256x256 and 4 from outside of the same density (GT made on the
+   card), the record widths (cubic) with ``cam_carve=0.1``, ``near=0.05``
+   and random backgrounds, 2 + 2 + 4 steps through the coarse-to-fine
+   phases and 3 more full-depth inside steps: losses finite, no sweep
+   kernel launched on an inside step (the slab scan), both on every
+   outside step (on the carved grid); one 800x800 inside frame through
+   ``PyramidRenderer`` and ``SwrTrainer.render`` (within 1e-5; finite,
+   opacity in [0, 1], every pixel owned by exactly one cubemap face); the
+   step medians, peak device memory, one profiled inside step, one
+   ``debug_frames`` frame (its keys and shapes) and one small inside loss
+   and its gradients on the card against the CPU (1e-5 / 2e-4);
+12. files: 8 train and 4 test lego views at 800x800 written as a Blender
+   scene (``export_blender_dataset``) into a temporary directory and loaded
+   back (seconds per view); ``python -m taichi_nerfs_torch.train
+   --dataset_name nerf`` trains the pyramid on them at the record recipe
+   (without its opacity term: files carry no GT alpha) for 2 + 2 + 4 steps
+   (both kernels launched, the eval finite), and NGP for 32 steps (losses
+   finite);
+13. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
    (brick encoder, 128^3 occupancy grid, batch 8192) trains 320 steps with
    ``Trainer`` on 8 checker views made on the card (past the 256-step
    warmup, so the sparse grid refresh runs); every loss must be finite and
@@ -72,9 +91,10 @@ phases:
    [0, 1]); 3 steady steps run under ``torch.profiler``.  This path has no
    hand-written kernel (the JAX package has no TPU kernel on it).
 
-Prints one JSON line with the kernels' numbers and, last, one JSON line
-``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0).
-The new phases' summary lines carry the card's name and power limit.
+Prints each new phase's seconds and the run's total, one JSON line with
+the kernels' numbers and, last, one JSON line ``{"ok": true, "device":
+{...}}``.  Any failure raises (exit code != 0).  The new phases' summary
+lines carry the card's name and power limit.
 
     python3 chip_smoke.py [--ckpt_path results/model_pyramid.npz]
 """
@@ -718,12 +738,7 @@ def phase_train(torch, seed, device="cuda"):
     from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
     from taichi_nerfs_torch.render.serve import record_config
     from taichi_nerfs_torch.train.metrics import psnr
-    from taichi_nerfs_torch.train.swr_step import (
-        SwrTrainConfig,
-        SwrTrainer,
-        make_swr_loss,
-        tree_leaves,
-    )
+    from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
 
     device = torch.device(device)
     t0 = time.perf_counter()
@@ -794,20 +809,12 @@ def phase_train(torch, seed, device="cuda"):
 
     # one full-depth step's gradient, kernels vs plain sweep, on one crop,
     # background and TV window
-    i, crop_xy, bg, tv_starts = trainer.draw()
-    axis, flip = trainer._axis_flip[i]
-    from taichi_nerfs_torch.render.swr import pick_warp
-
-    warp = pick_warp(trainer.poses_np[i], trainer.K, (256, 256), axis,
-                     crop_xy=crop_xy)
+    draw = trainer.draw()
     grads = {}
     for impl in ("auto", "reference"):
-        loss_fn = make_swr_loss(
-            trainer.images[i], trainer.poses_np[i], trainer.K, crop_xy,
-            trainer.cur_mcfg, dataclasses.replace(tcfg, sweep_impl=impl),
-            axis, flip, bg, tv_starts, trainer.lat_size, warp,
-        )
-        loss, _ = loss_fn(trainer.state.params)
+        loss, _ = trainer.loss_fn(
+            draw, dataclasses.replace(tcfg, sweep_impl=impl))(
+                trainer.state.params)
         grads[impl] = torch.autograd.grad(
             loss, trainer.state.params["levels"])
     torch.cuda.synchronize()
@@ -841,24 +848,11 @@ def _grads_kernel_vs_plain(torch, trainer, tag, tol=GRAD_TOL):
     raises beyond ``tol``.  Returns the worst relative norm."""
     import dataclasses
 
-    from taichi_nerfs_torch.render.swr import pick_warp
-    from taichi_nerfs_torch.train.swr_step import make_swr_loss
-
-    i, crop_xy, bg, tv_starts = trainer.draw()
-    axis, flip = trainer._axis_flip[i]
-    c = trainer.tcfg.crop
-    warp = pick_warp(trainer.poses_np[i], trainer.K, (c, c), axis,
-                     crop_xy=crop_xy)
+    draw = trainer.draw()
     grads = {}
     for impl in ("auto", "reference"):
-        loss_fn = make_swr_loss(
-            trainer.images[i], trainer.poses_np[i], trainer.K, crop_xy,
-            trainer.cur_mcfg, dataclasses.replace(trainer.tcfg,
-                                                  sweep_impl=impl),
-            axis, flip, bg, tv_starts, trainer.lat_size, warp,
-            trainer.slab_window,
-        )
-        loss, _ = loss_fn(trainer.state.params)
+        loss, _ = trainer.loss_fn(draw, dataclasses.replace(
+            trainer.tcfg, sweep_impl=impl))(trainer.state.params)
         grads[impl] = torch.autograd.grad(
             loss, trainer.state.params["levels"])
     torch.cuda.synchronize()
@@ -1034,17 +1028,18 @@ def phase_scan(torch, seed, train, card):
             "frame_ms": frame_ms, "sweep_launches": launches, **prof}
 
 
-def _profile_step(torch, trainer, tag):
-    """One training step under ``torch.profiler``: its kernel launches, the
-    card's busy share of its wall time, the top kernels by device time and
-    the renderer's spans (host time)."""
+def _profile_step(torch, trainer, tag, draw=None):
+    """One training step (on ``draw``, or the trainer's next) under
+    ``torch.profiler``: its kernel launches, the card's busy share of its
+    wall time, the top kernels by device time and the renderer's spans
+    (host time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(trainer.run_step()["loss"])
+        float(trainer.run_step(draw)["loss"])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     avgs = prof.key_averages()
@@ -1734,6 +1729,444 @@ def phase_bf16_serve(torch, seed, card):
             "rgb_max_abs": worst, "kernel_max_abs": kernel_err}
 
 
+# ---------------------------------------------------------------- inside
+
+# the inside phase: the shell scene's inside views and outside views of
+# the same density (GT made on the card), the record widths trained
+# through 2 + 2 + 4 steps with camera carving, and frames at 800x800
+INSIDE_WH, INSIDE_VIEWS, OUTSIDE_VIEWS = (256, 256), 8, 4
+INSIDE_PROG, INSIDE_STEPS = (2, 2), 8
+# full-depth inside steps timed after the recipe's (each on the first
+# inside view, the face that owns most of its crop)
+INSIDE_TIMED = 3
+INSIDE_CARVE, INSIDE_NEAR = 0.1, 0.05
+# the served inside frame against the trainer's render of it
+INSIDE_FRAME_TOL = 1e-5
+
+
+def _mixed_rig():
+    """The shell's inside views (its own rig) and ``OUTSIDE_VIEWS`` orbit
+    views of the same density from outside the cube, GT rendered on the
+    card: ``(rays, poses, alphas, K)``, inside views first."""
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import orbit_poses
+    from taichi_nerfs_torch.data.synthetic import (
+        SyntheticSphereDataset,
+        render_gt_image,
+    )
+
+    inside = SyntheticSphereDataset(
+        f"synthetic://shell?views={INSIDE_VIEWS}&res={INSIDE_WH[0]}",
+        device="cuda")
+    out = orbit_poses(OUTSIDE_VIEWS, radius=1.2, elevation=0.4)
+    gts = [render_gt_image(p, inside.K, *INSIDE_WH, variant="shell",
+                           want_alpha=True, device="cuda") for p in out]
+    return (np.concatenate([inside.rays, np.stack([g[0] for g in gts])]),
+            np.concatenate([inside.poses, out]),
+            np.concatenate([inside.alphas, np.stack([g[1] for g in gts])]),
+            inside.K)
+
+
+def _inside_draw(trainer, draw):
+    """``draw`` moved to the first inside view (its crop, background and
+    TV windows kept), on the face that owns most of the crop."""
+    import numpy as np
+
+    i = trainer._inside.index(True)
+    face = int(np.argmax(trainer.face_shares(i, draw.crop_xy)))
+    return draw._replace(i=i, face=face)
+
+
+def phase_inside(torch, seed, card):
+    """A mixed rig of inside and outside cameras on the shell scene, the
+    record widths, ``cam_carve`` and ``near``: the steps (no sweep kernel
+    on inside steps, both on outside ones), an 800x800 inside frame
+    through ``PyramidRenderer`` and ``SwrTrainer.render``, one profiled
+    inside step, one ``debug_frames`` frame, and one small inside loss and
+    its gradients on the card against the CPU.  Returns a dict of the
+    numbers."""
+    import numpy as np
+
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.render.serve import PyramidRenderer, record_config
+    from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
+
+    t_phase = time.perf_counter()
+    rays, poses, alphas, K = _mixed_rig()
+    made = time.perf_counter() - t_phase
+    mcfg = record_config()
+    tcfg = SwrTrainConfig(
+        crop=256, lr=1e-2, max_steps=INSIDE_STEPS, n_chunks=16,
+        resample_kind="cubic", alpha_w=0.2, random_bg=True, tv_w=5e-4,
+        sigma_l1=1e-5, prog_steps=INSIDE_PROG, cam_carve=INSIDE_CARVE,
+        near=INSIDE_NEAR)
+    trainer = SwrTrainer(mcfg, tcfg, rays, poses, K, INSIDE_WH, seed=seed,
+                         alphas=alphas, device="cuda")
+    n_in = sum(trainer._inside)
+    print(f"inside: {n_in} inside + {len(poses) - n_in} outside shell views "
+          f"at {INSIDE_WH} made in {made:.2f} s", flush=True)
+    keep = trainer.sigma_keep
+    carved = int((keep == 0).sum())
+    print(f"inside: cam_carve {INSIDE_CARVE} zeroes {carved} of "
+          f"{keep.numel()} sigma voxels at R={trainer.cur_mcfg.grid_res}",
+          flush=True)
+    if carved <= 0:
+        raise AssertionError("inside: cam_carve carved nothing")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for k in range(INSIDE_STEPS + INSIDE_TIMED):
+        trainer._advance_phases()
+        draw = trainer.draw()
+        if k >= INSIDE_STEPS:
+            draw = _inside_draw(trainer, draw)
+        plan = trainer.plan(draw)
+        before = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+        t0 = time.perf_counter()
+        m = trainer.run_step(draw)
+        loss = float(m["loss"])  # waits for the step
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = (chunk_sweep.launches - before[0],
+             chunk_sweep_bwd.launches - before[1])
+        steps.append(dict(inside=plan.inside, ms=ms, loss=loss, launches=n,
+                          R=trainer.cur_mcfg.grid_res, k=k))
+        print(f"inside step {trainer.step - 1}: "
+              f"{'inside face ' + str(draw.face) if plan.inside else 'outside'}"
+              f" (view {draw.i}, R={trainer.cur_mcfg.grid_res}, warp "
+              f"{plan.warp}) loss={loss:.6f} {ms:.2f} ms, sweep launches "
+              f"{n}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [st["loss"] for st in steps]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"inside: non-finite loss: {losses}")
+    kinds = {st["inside"] for st in steps}
+    if kinds != {True, False}:
+        raise AssertionError(f"inside: steps of one kind only: {kinds}")
+    in_launch = [st["launches"] for st in steps if st["inside"]]
+    out_launch = [st["launches"] for st in steps if not st["inside"]]
+    if any(n != (0, 0) for n in in_launch) or any(
+            min(n) <= 0 for n in out_launch):
+        raise AssertionError(f"inside: sweep launches, inside steps "
+                             f"{in_launch}, outside steps {out_launch}")
+    # steady full-depth steps: not the first of the phase
+    first = sum(INSIDE_PROG)
+    full = [st for st in steps if st["R"] == mcfg.grid_res
+            and st["k"] != first]
+    med = {k: _median([st["ms"] for st in full if st["inside"] == k] or
+                      [float("nan")]) for k in (True, False)}
+
+    # one inside step under the profiler
+    prof = _profile_step(torch, trainer, "inside",
+                         _inside_draw(trainer, trainer.draw()))
+
+    # an inside frame: PyramidRenderer against SwrTrainer.render
+    i = trainer._inside.index(True)
+    frame_wh = RECORD_WH
+    K_f = np.asarray(K, np.float64) * (frame_wh[0] / INSIDE_WH[0])
+    K_f[2, 2] = 1.0
+    K_f = K_f.astype(np.float32)
+    rend = PyramidRenderer(trainer.state.params, trainer.cur_mcfg, K_f,
+                           frame_wh, resample_kind="cubic",
+                           cam_carve=INSIDE_CARVE,
+                           carve_poses=trainer.poses_np, near=INSIDE_NEAR)
+    rend.grid
+    frames, frame_ms = {}, {}
+    for name, fn in (("served", lambda: rend.render(poses[i])),
+                     ("trainer", lambda: trainer.render(poses[i], K=K_f,
+                                                        img_wh=frame_wh))):
+        fn()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames[name] = fn()
+        torch.cuda.synchronize()
+        frame_ms[name] = (time.perf_counter() - t0) * 1e3
+    a, b = frames["served"], frames["trainer"]
+    diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+    rgb, op = a["rgb"], a["opacity"]
+    lo, hi = float(op.min()), float(op.max())
+    print(f"inside: {frame_wh[0]}x{frame_wh[1]} inside frame of view {i}: "
+          f"served {frame_ms['served']:.2f} ms, trainer "
+          f"{frame_ms['trainer']:.2f} ms, max_abs difference {diff:.3e} "
+          f"(must be <= {INSIDE_FRAME_TOL}); opacity in [{lo:.4f}, "
+          f"{hi:.4f}] ({card})", flush=True)
+    if not diff <= INSIDE_FRAME_TOL:
+        raise AssertionError(f"inside: served and trainer frames differ by "
+                             f"{diff}")
+    if tuple(rgb.shape) != (frame_wh[0] * frame_wh[1], 3) or not bool(
+            torch.isfinite(rgb).all() and torch.isfinite(op).all()):
+        raise AssertionError("inside: the frame is not finite")
+    if lo < -1e-6 or hi > 1.0 + 1e-6:
+        raise AssertionError(f"inside: opacity [{lo}, {hi}]")
+    faces = _face_merge(torch, rend, poses[i], K_f, frame_wh, a, card)
+    # the frames' render baked and carved the grid
+    dbg = _debug_frames(torch, trainer, trainer._grid_cache[1], poses, K,
+                        INSIDE_WH)
+    cpu = _inside_card_vs_cpu(torch, seed, card)
+    secs = time.perf_counter() - t_phase
+    print(f"inside ({card}): full-depth steps (R={mcfg.grid_res}) median "
+          f"inside {med[True]:.3f} ms, outside {med[False]:.3f} ms; peak "
+          f"device memory {peak / 2**30:.3f} GiB; profiled inside step "
+          f"{prof['launches']} launches, the card busy "
+          f"{100.0 * prof['busy']:.1f}%; {frame_wh[0]}x{frame_wh[1]} inside "
+          f"frame {frame_ms['served']:.2f} ms over {faces} faces; "
+          f"phase {secs:.1f} s", flush=True)
+    return {"step_ms_inside": med[True], "step_ms_outside": med[False],
+            "peak_gib": peak / 2**30, "frame_ms": frame_ms["served"],
+            "faces": faces, "launches_outside": tuple(
+                map(sum, zip(*out_launch))), "secs": secs, "debug": dbg,
+            "card_vs_cpu": cpu, **prof}
+
+
+def _face_merge(torch, rend, pose, K, wh, frame, card):
+    """Each cubemap face of the served inside ``frame`` rendered alone by
+    ``render_swr_fixed_axis(inside=True)``, with the slope bounds (its own
+    pixels', padded by 0.02), solve and lattice that ``render_swr_inside``
+    gives it: the merged frame must equal it on that face's pixels.
+    Returns the number of faces."""
+    import numpy as np
+
+    from taichi_nerfs_torch.render.swr import (
+        _matmul_solve_choice,
+        pixel_faces,
+        render_swr_fixed_axis,
+    )
+
+    cfg, pad = rend.cfg, 0.02
+    lat_cap = int(1.25 * cfg.grid_res) + 16  # PyramidRenderer's "auto"
+    lat = {"lat_size": lat_cap} if max(wh) + 16 > lat_cap else {}
+    dom, pos, faces, dir_w = pixel_faces(pose, K, wh)
+    worst = {}
+    for a, p in faces:
+        b_ax, c_ax = [d for d in range(3) if d != a]
+        m = (dom == a) & (pos == p)
+        sb = dir_w[..., b_ax][m] / dir_w[..., a][m]
+        sc = dir_w[..., c_ax][m] / dir_w[..., a][m]
+        lo, hi = float(sc.min()) - pad, float(sc.max()) + pad
+        bounds = np.asarray([[sb.min() - pad, sb.max() + pad], [lo, hi]],
+                            np.float32)
+        with torch.no_grad():
+            r = render_swr_fixed_axis(
+                rend.params, rend.grid, cfg, pose, K, wh, a, not p,
+                inside=True, slope_bounds=bounds,
+                warp=_matmul_solve_choice(pose, a, lo, hi),
+                n_chunks=min(16, cfg.grid_res), white_bg=True,
+                skip_empty=True, near=rend.near, resample_kind=rend.resample_kind,
+                resample_dtype=rend.resample_dtype,
+                sweep_impl=rend.sweep_impl, **lat)
+        mask = torch.as_tensor(m.reshape(-1), device=r["rgb"].device)
+        worst[(a, p)] = max(float((frame[k][mask] - r[k][mask]).abs().max())
+                            for k in frame)
+    print(f"inside: each face rendered alone against the merged frame on "
+          f"its pixels, max_abs {worst} (must be <= {INSIDE_FRAME_TOL}) "
+          f"({card})", flush=True)
+    if not max(worst.values()) <= INSIDE_FRAME_TOL:
+        raise AssertionError(f"inside: the merged frame differs from its "
+                             f"faces: {worst}")
+    return len(faces)
+
+
+def _debug_frames(torch, trainer, grid, poses, K, wh):
+    """One ``debug_frames`` render of an outside view (the slab scan) of
+    ``grid``: its keys and shapes."""
+    from taichi_nerfs_torch.render.swr import render_swr
+
+    i = trainer._inside.index(False)
+    mcfg = trainer.cur_mcfg
+    nq = wh[0] + 16
+    with torch.no_grad():
+        out = render_swr(trainer.state.params, grid, mcfg, poses[i], K, wh,
+                         n_chunks=16, debug_frames=True,
+                         resample_kind="cubic")
+    want = {"rgb": (wh[0] * wh[1], 3), "depth": (wh[0] * wh[1],),
+            "opacity": (wh[0] * wh[1],),
+            "global_frame": (nq, nq, mcfg.features + 1)}
+    got = {k: tuple(v.shape) for k, v in out.items() if k != "chunk_debug"}
+    dbg = [tuple(x.shape) for x in out["chunk_debug"]]
+    want_dbg = [(16, nq, nq, mcfg.features - 1), (16, nq, nq),
+                (16, mcfg.features + 1, nq, nq)]
+    print(f"inside: debug_frames of view {i}: {got}, chunk_debug {dbg}",
+          flush=True)
+    if got != want or dbg != want_dbg or not all(
+            bool(torch.isfinite(x).all()) for x in out["chunk_debug"]):
+        raise AssertionError(f"inside: debug_frames gave {got}, {dbg}")
+    return got
+
+
+def _inside_card_vs_cpu(torch, seed, card):
+    """One small inside loss (cam_carve, near, random background, opacity
+    and distortion terms) and its gradients on the card and on the CPU
+    from the same params and inputs, against the CPU tests' tolerances."""
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import look_at
+    from taichi_nerfs_torch.models.pyramid import (
+        PyramidConfig,
+        init_pyramid_params,
+    )
+    from taichi_nerfs_torch.render.swr import face_slope_bounds, pixel_faces
+    from taichi_nerfs_torch.train.swr_step import (
+        SwrTrainConfig,
+        _trainable,
+        camera_keep_mask,
+        make_swr_loss,
+        tree_leaves,
+        tree_map,
+    )
+
+    mcfg = PyramidConfig((16, 32), features=4, rgb_width=16,
+                         sigma_bias=-1.0, deferred=True)
+    tcfg = SwrTrainConfig(crop=24, n_chunks=4, tv_w=5e-3, sigma_l1=1e-3,
+                          distortion_w=1e-2, random_bg=True, alpha_w=0.2,
+                          near=0.08, cam_carve=0.12)
+    params = init_pyramid_params(mcfg, torch.Generator().manual_seed(seed))
+    R = mcfg.grid_res
+    c = (torch.arange(R, dtype=torch.float32) + 0.5) / R - 0.5
+    xx, yy, zz = torch.meshgrid(c, c, c, indexing="ij")
+    r = torch.sqrt(xx**2 + yy**2 + zz**2)
+    params["levels"][-1][..., 0] += 3.0 * torch.exp(-((r - 0.35) / 0.08)**2)
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (40, 40, 4), dtype=np.uint8)
+    bg = torch.as_tensor(rng.uniform(size=(24 * 24, 3)).astype(np.float32))
+    pose = look_at(np.array([0.3, 0.25, 0.2]), np.array([-0.4, -0.4, -0.3]),
+                   np.array([0.0, 0.0, 1.0]))
+    K = np.array([[28.0, 0, 20], [0, 28.0, 20], [0, 0, 1]], np.float32)
+    keep = torch.as_tensor(camera_keep_mask(pose[None], R, tcfg.cam_carve))
+    dom, pos, faces, _ = pixel_faces(pose, K, (40, 40))
+    worst = 0.0
+    for a, p in faces:
+        sb = face_slope_bounds(pose, K, (24, 24), a, 1.0 if p else -1.0,
+                               crop_xy=(7, 11))
+        res = []
+        for dev in ("cuda", "cpu"):
+            prm = _trainable(tree_map(lambda t, d=dev: t.to(d), params))
+            loss, _ = make_swr_loss(
+                torch.as_tensor(img, device=dev), pose, K, (7, 11), mcfg,
+                tcfg, a, not p, bg.to(dev), (2,), 0, "gather", 0, True,
+                keep.to(dev), sb)(prm)
+            grads = torch.autograd.grad(loss, tree_leaves(prm))
+            res.append((float(loss.detach()), [g.cpu() for g in grads]))
+        (lc, gc), (lh, gh) = res
+        d_loss = abs(lc - lh) / abs(lh)
+        d_grad = max(float(torch.linalg.norm(x - y)
+                           / max(float(torch.linalg.norm(y)), 1e-30))
+                     for x, y in zip(gc, gh))
+        print(f"inside card vs CPU, face ({a}, {p}): loss {lc:.8f} / "
+              f"{lh:.8f} (relative {d_loss:.3e}, must be <= "
+              f"{SCAN_LOSS_TOL}), worst gradient relative norm {d_grad:.3e} "
+              f"(must be <= {SCAN_GRAD_TOL}) ({card})", flush=True)
+        if not (d_loss <= SCAN_LOSS_TOL and d_grad <= SCAN_GRAD_TOL):
+            raise AssertionError("inside: the card and the CPU disagree")
+        worst = max(worst, d_grad)
+    return worst
+
+
+# ----------------------------------------------------------------- files
+
+FILES_VIEWS, FILES_TEST_VIEWS = 8, 4
+FILES_PROG, FILES_STEPS, FILES_NGP_STEPS = (2, 2), 8, 32
+FILES_LEVELS = (32, 64, 128, 256)
+
+
+def phase_files(torch, seed, card):
+    """The Blender file format end to end: lego-proxy views written with
+    ``export_blender_dataset`` into a temporary directory, loaded back
+    (seconds per view), and ``python -m taichi_nerfs_torch.train
+    --dataset_name nerf`` run on them for the pyramid (the record recipe
+    without opacity supervision, which files cannot give: both kernels must
+    launch, the eval must be finite) and for NGP (the last loss and the
+    eval finite).  Returns a dict of the numbers."""
+    import tempfile
+
+    import numpy as np
+
+    from taichi_nerfs_torch.data import dataset_dict
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.data.transforms_export import (
+        export_blender_dataset,
+    )
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.train import __main__ as entry
+
+    t_phase = time.perf_counter()
+    wh = RECORD_WH
+    kw = dict(variant="lego", img_wh=wh, cam_radius=1.5, device="cuda")
+    t0 = time.perf_counter()
+    views = {"train": SyntheticSphereDataset(n_images=FILES_VIEWS, **kw),
+             "test": SyntheticSphereDataset(split="test",
+                                            n_images=FILES_TEST_VIEWS, **kw)}
+    made = time.perf_counter() - t0
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "lego_blender")
+        t0 = time.perf_counter()
+        export_blender_dataset(root, views)
+        wrote = time.perf_counter() - t0
+        n = FILES_VIEWS + FILES_TEST_VIEWS
+        t0 = time.perf_counter()
+        loaded = [dataset_dict["nerf"](root, split=sp, downsample=1.0)
+                  for sp in ("train", "test")]
+        load_s = time.perf_counter() - t0
+        for got, sp in zip(loaded, ("train", "test")):
+            src = views[sp]
+            dp = float(np.abs(got.poses - src.poses).max())
+            di = float(np.abs(got.rays - src.rays).max())
+            if dp > 1e-5 or di > 0.5 / 255 + 1e-6:
+                raise AssertionError(f"files: {sp} loaded back off by poses "
+                                     f"{dp}, pixels {di}")
+        print(f"files: {n} lego views at {wh} made in {made:.2f} s, written "
+              f"in {wrote:.2f} s, loaded in {load_s:.3f} s "
+              f"({1e3 * load_s / n:.2f} ms a view) ({card})", flush=True)
+        common = ["--root_dir", root, "--dataset_name", "nerf",
+                  "--downsample", "1"]
+        pyr_argv = common + [
+            "--model_name", "pyramid", "--exp_name", "files_pyramid",
+            "--pyramid_levels", ",".join(map(str, FILES_LEVELS)),
+            "--features", "8", "--level_features",
+            ",".join("8" * len(FILES_LEVELS)),
+            "--bake_dtype", "float32", "--lr", "1e-2", "--random_bg",
+            "--tv_w", "5e-4", "--sigma_l1", "1e-5", "--resample_kind",
+            "cubic", "--prog_steps", ",".join(map(str, FILES_PROG)),
+            "--max_steps", str(FILES_STEPS)]
+        os.chdir(tmp)
+        try:
+            chunk_sweep.launches = 0
+            chunk_sweep_bwd.launches = 0
+            t0 = time.perf_counter()
+            manifest = entry.main(pyr_argv)
+            pyr_s = time.perf_counter() - t0
+            launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+            t0 = time.perf_counter()
+            ngp = entry.main(common + [
+                "--model_name", "ngp", "--exp_name", "files_ngp",
+                "--max_steps", str(FILES_NGP_STEPS), "--eval_views", "2"])
+            ngp_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    print(f"files: pyramid through the train entry in {pyr_s:.1f} s: eval "
+          f"psnr {manifest['eval_psnr']} over {manifest['views_finite']} "
+          f"finite views of {FILES_TEST_VIEWS}; sweep launches {launches}; "
+          f"ngp {ngp['steps']} steps in {ngp_s:.1f} s, last loss "
+          f"{ngp['last_loss']:.5f}, eval psnr "
+          f"{[round(x, 3) for x in ngp['psnr']]} ({card})", flush=True)
+    if manifest["views_finite"] != FILES_TEST_VIEWS:
+        raise AssertionError(f"files: eval {manifest['per_view_psnr']}")
+    if min(launches) <= 0:
+        raise AssertionError(f"files: a sweep kernel never launched: "
+                             f"{launches}")
+    # fit runs max_steps + 1 steps, as the JAX loop does; a non-finite
+    # loss on any of them leaves the last one non-finite
+    if ngp["steps"] != FILES_NGP_STEPS + 1 or not np.isfinite(
+            ngp["last_loss"]) or not all(np.isfinite(ngp["psnr"])):
+        raise AssertionError(f"files: ngp {ngp['steps']} steps, last loss "
+                             f"{ngp['last_loss']}, psnr {ngp['psnr']}")
+    secs = time.perf_counter() - t_phase
+    print(f"files: phase {secs:.1f} s", flush=True)
+    return {"load_ms_per_view": 1e3 * load_s / n, "launches": launches,
+            "secs": secs, "eval_psnr": manifest["eval_psnr"]}
+
+
 def _occupied_share(torch, bitfield):
     words = bitfield.long() & 0xFFFFFFFF
     bits = (words[:, None] >> torch.arange(32, device=words.device)) & 1
@@ -1959,6 +2392,7 @@ def main(argv=None):
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke test runs on a CUDA GPU only")
@@ -2009,11 +2443,23 @@ def main(argv=None):
           f"frames capped {bf16_s['ms']['bfloat16 capped']:.3f} ms, "
           f"uncapped {bf16_s['ms']['bfloat16 uncapped']:.3f} ms, rgb within "
           f"{bf16_s['rgb_max_abs']:.3e} of the fp32 bake", flush=True)
+    inside = phase_inside(torch, args.seed, card)
+    files = phase_files(torch, args.seed, card)
     ngp = phase_ngp(torch, args.seed)
     print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
           f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
           f"{ngp['frame_ms']:.2f} ms, device busy "
           f"{100.0 * ngp['busy']:.1f}% of 3 profiled steps", flush=True)
+    print(f"summary inside and files ({card}): inside phase "
+          f"{inside['secs']:.1f} s (full-depth steps inside "
+          f"{inside['step_ms_inside']:.3f} ms, outside "
+          f"{inside['step_ms_outside']:.3f} ms, peak {inside['peak_gib']:.3f} "
+          f"GiB, 800x800 inside frame {inside['frame_ms']:.2f} ms over "
+          f"{inside['faces']} faces, card vs CPU gradients within "
+          f"{inside['card_vs_cpu']:.3e}); files phase {files['secs']:.1f} s "
+          f"({files['load_ms_per_view']:.2f} ms a view loaded, eval psnr "
+          f"{files['eval_psnr']}); total {time.perf_counter() - t_start:.1f} "
+          f"s", flush=True)
 
 
     fwd = timing[("serving nq=816", "cubic")]
@@ -2036,7 +2482,10 @@ def main(argv=None):
                              "train_default_flags": dfl_fwd,
                              "scan": scan["sweep_launches"][0],
                              "train_bf16": bf16_t["launches"][0],
-                             "serve_bf16": bf16_s["launches"]},
+                             "serve_bf16": bf16_s["launches"],
+                             "train_mixed_rig_outside":
+                                 inside["launches_outside"][0],
+                             "train_files": files["launches"][0]},
         "max_abs_err": worst,
         # on one recorded chunk of each R=512 frame, each bake and operand
         # dtype
@@ -2060,7 +2509,10 @@ def main(argv=None):
         "launches": dfl_bwd,
         "launches_by_path": {"train": bwd_n, "train_default_flags": dfl_bwd,
                              "scan": scan["sweep_launches"][1],
-                             "train_bf16": bf16_t["launches"][1]},
+                             "train_bf16": bf16_t["launches"][1],
+                             "train_mixed_rig_outside":
+                                 inside["launches_outside"][1],
+                             "train_files": files["launches"][1]},
         # the backward's second kernel, swr_sweep_bwd_rows_kernel (a bf16
         # volume or bf16 operands)
         "finish_launches_by_path": {"train_bf16":

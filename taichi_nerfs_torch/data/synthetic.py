@@ -1,9 +1,10 @@
 """Procedural synthetic scenes and their ground-truth renders, in torch.
 
-Port of the JAX package's ``data/synthetic.py`` for the scenes a camera
-outside the scene cube sees: the soft ``sphere``, the bumpy ``checker`` and
-the ``lego`` proxy build.  The ground truth shares no code with the
-shear-warp renderer:
+Port of the JAX package's ``data/synthetic.py``: the soft ``sphere``, the
+bumpy ``checker`` and the ``lego`` proxy build, seen from outside the scene
+cube, and the hollow ``shell``, seen from cameras in its empty core looking
+outward (radius at most 0.15, each looking at 4x its own position).  The
+ground truth shares no code with the shear-warp renderer:
 
 * :func:`render_gt_image` is the dense volume integrator (the JAX
   package's numpy oracle and its device version in one: fp32 torch on
@@ -16,8 +17,7 @@ Rays are made on the host in float64 as the JAX package makes them, then
 cast to fp32 on the render device.  :class:`SyntheticSphereDataset` builds
 the same rig (poses from ``np.random.RandomState(0)`` for train and ``1``
 for test, in the same draw order), so both packages train on the same
-views.  The ``shell`` scene puts its cameras inside the grid, which the
-port does not train yet: it raises.  Nothing is cached on disk.
+views.  Nothing is cached on disk.
 """
 
 from __future__ import annotations
@@ -30,11 +30,7 @@ import torch
 from .base import BaseDataset
 from .cameras import look_at
 
-_INSIDE_TODO = (
-    "the 'shell' scene's inside cameras are not ported yet; see ROADMAP "
-    "'Modules to port' item 10.5"
-)
-_VARIANTS = ("sphere", "checker", "lego")
+_VARIANTS = ("sphere", "checker", "shell", "lego")
 
 
 def sphere_density(xyz, radius: float = 0.3, sharp: float = 40.0):
@@ -65,9 +61,23 @@ def checker_albedo(xyz):
     return torch.stack([r, g, b], dim=-1)
 
 
+def shell_density(xyz, r_mid: float = 0.39, half: float = 0.05):
+    """Hollow spherical shell: the inside-camera scene (cameras sit in the
+    empty core and look outward)."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    bump = 0.02 * torch.sin(17.0 * x) * torch.sin(19.0 * y) * torch.sin(
+        23.0 * z
+    )
+    r = torch.sqrt(x * x + y * y + z * z)
+    arg = torch.clamp(80.0 * (torch.abs(r - r_mid) - (half + bump)),
+                      max=80.0)
+    return 40.0 / (1.0 + torch.exp(arg))
+
+
 _FIELDS = {
     "sphere": (sphere_density, sphere_albedo),
     "checker": (checker_density, checker_albedo),
+    "shell": (shell_density, checker_albedo),
 }
 
 # the lego-proxy build, as in the JAX package:
@@ -185,7 +195,8 @@ def render_gt_image(
     want_alpha: bool = False,
     device=None,
 ):
-    """Dense volume integration of the ``sphere`` or ``checker`` scene.
+    """Dense volume integration of the ``sphere``, ``checker`` or
+    ``shell`` scene.
 
     Returns (h*w, 3) rgb and, with ``want_alpha``, (h*w,) opacity, as fp32
     numpy arrays; the integration runs on ``device`` (the CPU if None).
@@ -308,7 +319,7 @@ def parse_synthetic_spec(root_dir: str):
     if "?" in s:
         s, query = s.split("?", 1)
     name = s.strip("/").split("/")[-1].lower()
-    if name not in _VARIANTS + ("shell",):
+    if name not in _VARIANTS:
         return {}
     out = {"variant": name}
     q = urllib.parse.parse_qs(query)
@@ -348,8 +359,6 @@ class SyntheticSphereDataset(BaseDataset):
         img_wh = spec.get("img_wh", img_wh)
         cam_radius = spec.get("cam_radius", cam_radius)
         n_steps = spec.get("n_steps", n_steps)
-        if variant == "shell":
-            raise NotImplementedError(_INSIDE_TODO)
         if variant not in _VARIANTS:
             raise ValueError(f"unknown synthetic variant {variant!r}")
         if spec and split != "train":
@@ -367,6 +376,10 @@ class SyntheticSphereDataset(BaseDataset):
         self.img_wh = (w, h)
         render = render_gt_image_lego if variant == "lego" else render_gt_image
         kw = {} if variant == "lego" else {"variant": variant}
+        # the shell's rig puts the cameras in its hollow core, looking out
+        inside_rig = variant == "shell"
+        if inside_rig and cam_radius >= 0.25:
+            cam_radius = 0.15
 
         rng = np.random.RandomState(0 if split == "train" else 1)
         poses, rays, alphas = [], [], []
@@ -384,10 +397,12 @@ class SyntheticSphereDataset(BaseDataset):
                     np.sin(phi),
                 ]
             )
-            target = (
-                np.array([0.0, 0.0, -0.12]) if variant == "lego"
-                else np.zeros(3)
-            )
+            if inside_rig:
+                target = 4.0 * eye
+            elif variant == "lego":
+                target = np.array([0.0, 0.0, -0.12])
+            else:
+                target = np.zeros(3)
             c2w = look_at(eye, target, np.array([0.0, 0.0, 1.0]))
             poses.append(c2w)
             rgb, a = render(c2w, self.K, w, h, n_steps=n_steps,

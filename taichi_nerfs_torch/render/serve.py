@@ -4,7 +4,11 @@
 ``SwrTrainer.render`` (its ``train/swr_step.py``) as
 ``train.py``'s eval loop and ``scripts/eval_fps.py`` call it: it bakes the
 pyramid once, caches the grid, and renders each pose through
-:func:`taichi_nerfs_torch.render.swr.render_swr`.
+:func:`taichi_nerfs_torch.render.swr.render_swr`, or a camera inside the
+grid through :func:`~taichi_nerfs_torch.render.swr.render_swr_inside`.  A
+model trained with ``cam_carve`` is served from a grid carved around the
+same training poses (``carve_poses``), so it renders the frame the
+trainer's ``render`` gives.
 
 Precision: every fp32 matmul of the path (bake, sweep plain version, fold,
 pixel warp) runs in full fp32 on CUDA because
@@ -36,9 +40,7 @@ import torch
 
 from ..models import pyramid as pyr
 from ..utils.device import resolve_device
-from .swr import _RS_DTYPES, _host_f32, render_swr, sweep_axis
-
-_TODO = "not ported yet; see ROADMAP 'Modules to port' item 10.5"
+from .swr import _RS_DTYPES, _host_f32, render_swr, render_swr_inside
 
 
 def _require_fp32_matmul():
@@ -61,7 +63,12 @@ class PyramidRenderer:
             training kind (the record model trains cubic).
         sweep_impl: "auto" (the CUDA kernel on the card) or "reference"
             (the plain PyTorch sweep).
-        cam_carve: camera-carving of the JAX trainer; only 0 is ported.
+        cam_carve: the training's ``SwrTrainConfig.cam_carve``: with > 0
+            the baked sigma is zeroed within that radius of each of
+            ``carve_poses`` (``train/swr_step.py:camera_keep_mask``).
+        carve_poses: (N, 3, 4) the training poses (needed with
+            ``cam_carve``).
+        near: the training's ``SwrTrainConfig.near`` (inside cameras).
         bake_dtype: "float32" or "bfloat16", the baked grid's dtype.
         resample_dtype: "float32" or "bfloat16", the resample operands'.
     """
@@ -76,11 +83,14 @@ class PyramidRenderer:
         resample_kind: str = "linear",
         sweep_impl: str = "auto",
         cam_carve: float = 0.0,
+        carve_poses=None,
+        near: float = 0.0,
         bake_dtype: str = "float32",
         resample_dtype: str = "float32",
     ):
-        if cam_carve:
-            raise NotImplementedError(f"cam_carve is {_TODO}")
+        if cam_carve > 0 and carve_poses is None:
+            raise ValueError("cam_carve needs the training poses "
+                             "(carve_poses)")
         for name, v in (("bake_dtype", bake_dtype),
                         ("resample_dtype", resample_dtype)):
             if v not in _RS_DTYPES:
@@ -101,17 +111,30 @@ class PyramidRenderer:
         self.sweep_impl = sweep_impl
         self.bake_dtype = bake_dtype
         self.resample_dtype = resample_dtype
+        self.cam_carve = cam_carve
+        self.carve_poses = carve_poses
+        self.near = near
         self._grid = None
 
     @property
     def grid(self):
         """The baked (R, R, R, F) grid, or for a split config the pair
-        ``(sigma, feats)``, baked on first use."""
+        ``(sigma, feats)``, baked (and carved) on first use."""
         if self._grid is None:
+            from ..train.swr_step import apply_sigma_keep, camera_keep_mask
+
             _require_fp32_matmul()
+            cfg = self.cfg
             with torch.no_grad():
-                self._grid = pyr.bake(self.params, self.cfg,
-                                      _RS_DTYPES[self.bake_dtype])
+                grid = pyr.bake(self.params, cfg, _RS_DTYPES[self.bake_dtype])
+                if self.cam_carve > 0:
+                    res = cfg.sigma_res if cfg.split else cfg.grid_res
+                    keep = camera_keep_mask(self.carve_poses, res,
+                                            self.cam_carve, cfg.scale)
+                    dev = grid[0].device if cfg.split else grid.device
+                    grid = apply_sigma_keep(grid, torch.as_tensor(
+                        keep, device=dev))
+                self._grid = grid
         return self._grid
 
     def render(
@@ -129,23 +152,25 @@ class PyramidRenderer:
         ``int(1.25 * R) + 16`` (the interactive setting); ``None`` renders
         uncapped (the quality-eval setting).  ``early_exit`` stops the
         sweep once every pixel's transmittance is below it (0 sweeps all
-        chunks).  ``skip_empty`` is accepted and ignored, as on the JAX
-        package's kernel path.
+        chunks; a camera inside the grid renders its faces without it).
+        ``skip_empty`` skips the slab scan's empty slabs; the kernel path
+        composites every slab, as the JAX package's does.
         """
+        from ..train.swr_step import is_inside
+
         _require_fp32_matmul()
         cfg = self.cfg
         if lat_cap == "auto":
             lat_cap = int(1.25 * cfg.grid_res) + 16
         pose_np = _host_f32(pose).reshape(3, 4)
-        a, _ = sweep_axis(pose_np)
-        if abs(float(pose_np[a, 3])) <= cfg.scale * 1.05:
-            raise NotImplementedError(f"inside cameras are {_TODO}")
+        inside = is_inside(pose_np, cfg.scale)
+        kw = {} if inside else {"early_exit": float(early_exit)}
         K = self.K if K is None else K
         img_wh = img_wh or self.img_wh
         if K is None or img_wh is None:
             raise ValueError("K and img_wh are needed (no defaults given)")
         with torch.no_grad():
-            return render_swr(
+            return (render_swr_inside if inside else render_swr)(
                 self.params,
                 self.grid,
                 cfg,
@@ -156,10 +181,11 @@ class PyramidRenderer:
                 n_chunks=min(16, cfg.grid_res),
                 white_bg=True,
                 skip_empty=skip_empty,
-                early_exit=float(early_exit),
+                near=self.near,
                 resample_kind=self.resample_kind,
                 resample_dtype=self.resample_dtype,
                 sweep_impl=self.sweep_impl,
+                **kw,
             )
 
 

@@ -23,8 +23,15 @@ cube.  One frame (see the JAX module's docstring for the geometry):
 5. a two-pass band-matrix warp (or a bilinear gather) takes that frame to
    pixels; deferred shading then runs the rgb MLP once per pixel.
 
-Inside cameras and ``debug_frames`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+Cameras inside the scene cube render one cubemap face per call
+(``inside=True``): the frustum slopes are bounded by the face's dominance
+cone (or tight caller bounds), slabs at or behind the camera's near margin
+never composite, each chunk's reference plane is the mean of its valid
+slabs, and the global frame sits between the camera and the face's wall.
+:func:`render_swr_inside` splits an image into its faces and merges them
+per pixel.  Inside calls always take the slab scan, as the JAX package
+keeps them out of its Pallas kernel's scope; so does ``debug_frames``,
+which also returns the global frame and each chunk's frames.
 
 bf16: the grid may be a bf16 bake (``bake(..., dtype=torch.bfloat16)``);
 it reaches the sweep kernels, or the scan's resamples, without an fp32
@@ -66,16 +73,11 @@ from ..ops.warp import (
 # profiler spans of the frame's stages (cheap while no profiler runs)
 _span = torch.profiler.record_function
 
-_TODO = "not ported yet; see ROADMAP 'Modules to port' item {}"
 _RS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _check_args(cfg, grid, *, debug_frames, slab_window, resample_dtype,
-                want_distortion, inside, resample_kind, early_exit):
-    if inside:
-        raise NotImplementedError(f"inside cameras are {_TODO.format('10.5')}")
-    if debug_frames:
-        raise NotImplementedError(f"debug_frames is {_TODO.format('10.6')}")
+                want_distortion, resample_kind, early_exit):
     if resample_dtype not in _RS_DTYPES:
         raise ValueError(f"unknown resample_dtype {resample_dtype!r}")
     if resample_kind not in ("linear", "cubic"):
@@ -83,8 +85,9 @@ def _check_args(cfg, grid, *, debug_frames, slab_window, resample_dtype,
     if resample_kind != "linear" and slab_window:
         raise ValueError("cubic resampling needs the full-matrix path "
                          "(slab_window=0)")
-    if early_exit and want_distortion:
-        raise ValueError("early_exit is eval-only: no distortion")
+    if early_exit and (want_distortion or debug_frames):
+        raise ValueError("early_exit is eval-only: no distortion or debug "
+                         "frames")
     if isinstance(grid, tuple) != cfg.split:
         raise ValueError("a split config (sigma_res) bakes to the pair "
                          "(sigma, feats), an unsplit one to one grid")
@@ -97,6 +100,13 @@ def _guard(x: torch.Tensor, eps: float) -> torch.Tensor:
         torch.where(x >= 0, eps, -eps).to(x.dtype),
         x,
     )
+
+
+def _safe(x, eps: float = 1e-5):
+    """Sign-preserving clamp away from 0 (the inside sweep's divisions):
+    x >= 0 becomes at least eps, x < 0 at most -eps."""
+    return torch.where(x >= 0, torch.clamp(x, min=eps),
+                       torch.clamp(x, max=-eps))
 
 
 def _as_f32(x, device) -> torch.Tensor:
@@ -147,6 +157,8 @@ def render_swr_fixed_axis(
     warp: str = "matmul",
     want_distortion: bool = False,
     inside: bool = False,
+    slope_bounds=None,
+    near: float = 0.0,
     sweep_impl: str = "auto",
     early_exit: float = 0.0,
     resample_kind: str = "linear",
@@ -181,7 +193,7 @@ def render_swr_fixed_axis(
     _check_args(
         cfg, grid, debug_frames=debug_frames, slab_window=slab_window,
         resample_dtype=resample_dtype, want_distortion=want_distortion,
-        inside=inside, resample_kind=resample_kind, early_exit=early_exit,
+        resample_kind=resample_kind, early_exit=early_exit,
     )
     if sweep_impl == "auto":
         sweep = chunk_sweep
@@ -207,8 +219,13 @@ def render_swr_fixed_axis(
     acc_ch = (F - 1) if cfg.deferred else 3
     if R % n_chunks:
         raise ValueError(f"n_chunks={n_chunks} must divide R={R}")
-    in_sweep = cfg.deferred and not split and not want_distortion and (
-        slab_window == 0)
+    in_sweep = (cfg.deferred and not split and not want_distortion
+                and not inside and not debug_frames and slab_window == 0)
+    # the inside face's sign along the axis and the near margin: at least
+    # the camera's own slab (a near voxel covers a huge solid angle)
+    sign_face = -1.0 if flip else 1.0
+    margin = max(0.5 * h, near)
+    safe = _safe if inside else (lambda x: x)
 
     with _span("swr.setup"):
         b_axis, c_axis = [d for d in range(3) if d != axis]
@@ -253,27 +270,56 @@ def render_swr_fixed_axis(
             dim=-1,
         ).reshape(-1, 3)
         corner_w = _dirs(pose, corner_cam)  # (4, 3)
-        # division guard only: large slopes are legitimate geometry
-        d_a_c = _guard(corner_w[:, axis], 1e-12)
-        slope_b = corner_w[:, b_axis] / d_a_c
-        slope_c = corner_w[:, c_axis] / d_a_c
-        sb_lo, sb_hi = slope_b.min(), slope_b.max()
-        sc_lo, sc_hi = slope_c.min(), slope_c.max()
-        # the corner-slope frustum interval is valid only when the sweep-axis
-        # direction component keeps one sign over the view
-        d_ac = corner_w[:, axis]
-        frustum_ok = (d_ac.min() > 0) | (d_ac.max() < 0)
+        if inside:
+            if slope_bounds is not None:
+                (sb_lo, sb_hi), (sc_lo, sc_hi) = _as_f32(slope_bounds, dev)
+            else:
+                # every corner on the face's side: the slopes are monotone
+                # along every line of the view, so the corners bound them
+                # (clipped to the dominance cone); else the whole cone
+                d_a_c = corner_w[:, axis]
+                one_face = torch.all(sign_face * d_a_c > 1e-6)
+                sb_c = torch.clamp(corner_w[:, b_axis] / _safe(d_a_c),
+                                   -1.05, 1.05)
+                sc_c = torch.clamp(corner_w[:, c_axis] / _safe(d_a_c),
+                                   -1.05, 1.05)
+                cone = torch.tensor(1.05, dtype=f32, device=dev)
+                sb_lo = torch.where(one_face, sb_c.min(), -cone)
+                sb_hi = torch.where(one_face, sb_c.max(), cone)
+                sc_lo = torch.where(one_face, sc_c.min(), -cone)
+                sc_hi = torch.where(one_face, sc_c.max(), cone)
+        else:
+            # division guard only: large slopes are legitimate geometry
+            d_a_c = _guard(corner_w[:, axis], 1e-12)
+            slope_b = corner_w[:, b_axis] / d_a_c
+            slope_c = corner_w[:, c_axis] / d_a_c
+            sb_lo, sb_hi = slope_b.min(), slope_b.max()
+            sc_lo, sc_hi = slope_c.min(), slope_c.max()
+            # the corner-slope frustum interval is valid only when the
+            # sweep-axis direction component keeps one sign over the view
+            d_ac = corner_w[:, axis]
+            frustum_ok = (d_ac.min() > 0) | (d_ac.max() < 0)
 
         def frame_at(z_ref):
-            """Lattice origin/spacing covering the frustum at plane z_ref,
-            intersected with the cube's central-projection shadow.  ``z_ref``
-            may be a vector (one frame per chunk)."""
+            """Lattice origin/spacing covering the frustum at plane z_ref
+            (for an outside camera intersected with the cube's shadow).
+            ``z_ref`` may be a vector (one frame per chunk)."""
             za = z_ref - o_a
             pos = za >= 0
             b0 = o_b + za * torch.where(pos, sb_lo, sb_hi)
             b1 = o_b + za * torch.where(pos, sb_hi, sb_lo)
             c0 = o_c + za * torch.where(pos, sc_lo, sc_hi)
             c1 = o_c + za * torch.where(pos, sc_hi, sc_lo)
+            if not inside:
+                b0, b1, c0, c1 = shadow(za, b0, b1, c0, c1)
+            db = (b1 - b0) / (nq - 1 - lat_pad)
+            dc = (c1 - c0) / (nq - 1 - lat_pad)
+            # centre the margin
+            return b0 - db * (lat_pad // 2), db, c0 - dc * (lat_pad // 2), dc
+
+        def shadow(za, b0, b1, c0, c1):
+            """The frustum frame intersected with the cube's
+            central-projection shadow on the plane (outside cameras)."""
             # cube expanded by 2h: trilinear support + frame margin
             sE = s + 2.0 * h
             r_hi = za / _guard(sE - o_a, 1e-6)
@@ -302,24 +348,32 @@ def render_swr_fixed_axis(
             nc0 = torch.where(frustum_ok, torch.maximum(c0, qc_lo), qc_lo)
             nc1 = torch.where(frustum_ok, torch.minimum(c1, qc_hi), qc_hi)
             # empty intersection: any non-degenerate frame renders it right
-            b0 = nb0
-            b1 = torch.maximum(nb1, nb0 + 1e-5)
-            c0 = nc0
-            c1 = torch.maximum(nc1, nc0 + 1e-5)
-            db = (b1 - b0) / (nq - 1 - lat_pad)
-            dc = (c1 - c0) / (nq - 1 - lat_pad)
-            # centre the margin
-            return b0 - db * (lat_pad // 2), db, c0 - dc * (lat_pad // 2), dc
+            return (nb0, torch.maximum(nb1, nb0 + 1e-5),
+                    nc0, torch.maximum(nc1, nc0 + 1e-5))
 
         dc_slabs = R // n_chunks
         zs_c = zs.reshape(n_chunks, dc_slabs)
 
-        # global frame on the cube-centre plane
-        z_g = torch.zeros((), dtype=f32, device=dev)
+        # the global frame: on the cube-centre plane outside; inside between
+        # the camera and the face's wall (the centre can be behind it)
+        if inside:
+            z_g = 0.5 * (torch.clamp(o_a, -s, s) + sign_face * s)
+        else:
+            z_g = torch.zeros((), dtype=f32, device=dev)
         g_b0, g_db, g_c0, g_dc = frame_at(z_g)
 
         # per-chunk reference planes + lattice frames, vectorised over chunks
-        z_ref_c = zs_c.mean(dim=1)  # (n_chunks,)
+        if inside:
+            # the mean of the chunk's valid (camera-side) slabs; a chunk
+            # with none parks on the face's wall, so every division stays
+            # finite on both sides of the where
+            v_ch = (sign_face * (zs_c - o_a) > margin).to(f32)
+            n_v = v_ch.sum(dim=1)
+            z_ref_c = torch.where(
+                n_v > 0, (zs_c * v_ch).sum(dim=1) / torch.clamp(n_v, min=1.0),
+                o_a + sign_face * s)
+        else:
+            z_ref_c = zs_c.mean(dim=1)  # (n_chunks,)
         fb0_c, fdb_c, fc0_c, fdc_c = frame_at(z_ref_c)
 
     # global carry, channel-leading: acc (acc_ch, nq, nq), depth, T[, dist]
@@ -336,7 +390,7 @@ def render_swr_fixed_axis(
         chunk's distortion]) into the global frame: the ray at global
         lattice q_g crosses the chunk plane at o + (q_g - o) * rho_cg."""
         acc_g, depth_g, t_g = carry[:3]
-        rho_cg = (z_ref_c[g] - o_a) / (z_g - o_a)
+        rho_cg = (z_ref_c[g] - o_a) / safe(z_g - o_a)
         f_b0, f_db, f_c0, f_dc = fb0_c[g], fdb_c[g], fc0_c[g], fdc_c[g]
         start_b = (o_b * (1 - rho_cg) + g_b0 * rho_cg - f_b0) / f_db
         step_b = g_db * rho_cg / f_db
@@ -348,6 +402,8 @@ def render_swr_fixed_axis(
         packed = resample_matmul(
             packed, start_c, step_c, nq, axis=2, kind=resample_kind
         )
+        if debug_frames:
+            chunk_dbg[2].append(packed)
         depth_w = packed[acc_ch]
         # Catmull-Rom can overshoot the resampled opacity outside [0, 1]
         # at hard silhouettes; clamp (a no-op for linear)
@@ -368,6 +424,7 @@ def render_swr_fixed_axis(
             )
         return out
 
+    chunk_dbg = ([], [], [])  # with debug_frames: acc_c, t_c, packed
     if in_sweep:
         carry = _sweep_chunks(
             sweep, fold, carry, vol, zs_c, z_ref_c, (fb0_c, fdb_c, fc0_c,
@@ -391,7 +448,8 @@ def render_swr_fixed_axis(
                    kind=resample_kind, rs_dtype=rs_dtype,
                    slab_window=slab_window,
                    sigma_window=sigma_window,
-                   h_s=h_s if split else None)
+                   h_s=h_s if split else None,
+                   inside=(sign_face, margin) if inside else None)
         for g in range(n_chunks):
             if early_exit > 0.0 and float(carry[2].max()) <= early_exit:
                 break  # one host read per chunk
@@ -402,6 +460,9 @@ def render_swr_fixed_axis(
                     slabs[g * dc_slabs:(g + 1) * dc_slabs],
                     zs_c[g], sub, g * dc_slabs, occ, want_distortion,
                 )
+            if debug_frames:
+                chunk_dbg[0].append(packed[:acc_ch].permute(1, 2, 0))
+                chunk_dbg[1].append(1.0 - packed[acc_ch + 1])
             with _span("swr.fold"):
                 carry = fold(g, packed, carry)
     acc_g, depth_g, t_g = carry[:3]
@@ -527,6 +588,9 @@ def render_swr_fixed_axis(
     }
     if want_distortion:
         out["distortion"] = pix[acc_ch + 2].reshape(h_img * w_img)
+    if debug_frames:
+        out["global_frame"] = img.permute(1, 2, 0)
+        out["chunk_debug"] = tuple(torch.stack(x) for x in chunk_dbg)
     return out
 
 
@@ -612,6 +676,16 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
     """
     o, axis, s, h, nq = geo["o"], geo["axis"], geo["s"], geo["h"], geo["nq"]
     kind, rs_dtype = geo["kind"], geo["rs_dtype"]
+    safe = _safe if geo["inside"] else (lambda x: x)
+
+    def near_masked(alpha, z):
+        """``alpha`` of the slab at ``z``, zeroed where an inside camera
+        has it at or behind its near margin."""
+        if geo["inside"] is None:
+            return alpha
+        sign_face, margin = geo["inside"]
+        return alpha * (sign_face * (z - o_a) > margin).to(f32)
+
     b_axis, c_axis = [d for d in range(3) if d != axis]
     o_a, o_b, o_c = o[axis], o[b_axis], o[c_axis]
     f_b0, f_db, f_c0, f_dc = frame
@@ -638,7 +712,7 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
     def affine(z_k, h_src):
         # source index of lattice i: m(i) = (p_b + s)/h_src - 1/2 with
         # p_b = o_b + (q_i - o_b)/rho
-        rho = (z_ref - o_a) / (z_k - o_a)
+        rho = safe((z_ref - o_a) / safe(z_k - o_a))
         return ((o_b + (f_b0 - o_b) / rho + s) / h_src - 0.5,
                 f_db / (rho * h_src),
                 (o_c + (f_c0 - o_c) / rho + s) / h_src - 0.5,
@@ -674,8 +748,10 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
                 q = resample_matmul_batched(q, sc, stc, nq, 2, kind=kind)
                 s0, s1 = q[0], q[1]
             dt_s = 0.5 * dt
-            a0 = 1.0 - torch.exp(-torch.clamp(s0, min=0.0) * dt_s)
-            a1 = 1.0 - torch.exp(-torch.clamp(s1, min=0.0) * dt_s)
+            a0 = near_masked(
+                1.0 - torch.exp(-torch.clamp(s0, min=0.0) * dt_s), zp[0])
+            a1 = near_masked(
+                1.0 - torch.exp(-torch.clamp(s1, min=0.0) * dt_s), zp[1])
             w0 = a0 * t_acc
             w1 = a1 * t_acc * (1.0 - a0)
             w = w0 + w1
@@ -695,7 +771,7 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
             sq = to_lattice(f, z, h, geo["slab_window"])  # (F, nq, nq)
             sigma = torch.clamp(sq[0], min=0.0)
             feats = sq[1:]
-            alpha = 1.0 - torch.exp(-sigma * dt)
+            alpha = near_masked(1.0 - torch.exp(-sigma * dt), z)
             w = alpha * t_acc
             t_ray = (z - o_a) * inv_da * sgn
             depth_contrib = w * t_ray
@@ -741,12 +817,8 @@ def _scan_chunk(params, cfg, geo, z_ref, frame, slabs, zs, sub, first, occ,
         + ([dist[None]] if want_distortion else []), dim=0)
 
 
-def _pixel_slopes(pose, K, img_wh, axis, n_grid: int = 17):
-    """Host helper: ray slopes (d_b/d_a, d_c/d_a) on a pixel grid."""
-    w, h = img_wh
-    u = np.linspace(0.0, w - 1.0, n_grid)
-    v = np.linspace(0.0, h - 1.0, n_grid)
-    uu, vv = np.meshgrid(u, v, indexing="xy")
+def _cam_dirs(pose, K, uu, vv) -> np.ndarray:
+    """Host float64 world directions of the pixels (uu, vv)."""
     K = np.asarray(K, np.float64)
     cam = np.stack(
         [
@@ -756,7 +828,21 @@ def _pixel_slopes(pose, K, img_wh, axis, n_grid: int = 17):
         ],
         axis=-1,
     )
-    world = cam @ np.asarray(pose, np.float64)[:, :3].T
+    return cam @ np.asarray(pose, np.float64).reshape(3, 4)[:, :3].T
+
+
+def _grid_dirs(pose, K, img_wh, n_grid: int, crop_xy=(0, 0)) -> np.ndarray:
+    """Host: the float64 directions of an ``n_grid`` x ``n_grid`` pixel
+    grid spanning the (cropped) view."""
+    w, h = img_wh
+    u = crop_xy[0] + np.linspace(0.0, w - 1.0, n_grid)
+    v = crop_xy[1] + np.linspace(0.0, h - 1.0, n_grid)
+    return _cam_dirs(pose, K, *np.meshgrid(u, v, indexing="xy"))
+
+
+def _pixel_slopes(pose, K, img_wh, axis, n_grid: int = 17):
+    """Host helper: ray slopes (d_b/d_a, d_c/d_a) on a pixel grid."""
+    world = _grid_dirs(pose, K, img_wh, n_grid)
     b_axis, c_axis = [d for d in range(3) if d != axis]
     sb = world[..., b_axis] / world[..., axis]
     sc = world[..., c_axis] / world[..., axis]
@@ -804,20 +890,7 @@ def pick_warp(
     :func:`_matmul_solve_choice`.
     """
     pose = np.asarray(pose, np.float64).reshape(3, 4)
-    K = np.asarray(K, np.float64)
-    w, h = img_wh
-    u = crop_xy[0] + np.linspace(0.0, w - 1.0, n_grid)
-    v = crop_xy[1] + np.linspace(0.0, h - 1.0, n_grid)
-    uu, vv = np.meshgrid(u, v, indexing="xy")
-    cam = np.stack(
-        [
-            (uu - K[0, 2] + 0.5) / K[0, 0],
-            (vv - K[1, 2] + 0.5) / K[1, 1],
-            np.ones_like(uu),
-        ],
-        axis=-1,
-    )
-    d = cam @ pose[:, :3].T
+    d = _grid_dirs(pose, K, img_wh, n_grid, crop_xy)
     c_axis = [x for x in range(3) if x != axis][1]
     da = d[..., axis]
     if face_sign is not None:
@@ -926,3 +999,115 @@ def render_swr(
     return render_swr_fixed_axis(
         params, grid, cfg, pose, K, tuple(img_wh), axis, flip, **kw
     )
+
+
+def face_slope_bounds(
+    pose,
+    K,
+    img_wh: Tuple[int, int],
+    axis: int,
+    face_sign: float,
+    crop_xy: Tuple[int, int] = (0, 0),
+    n_grid: int = 17,
+    pad: float = 0.02,
+):
+    """Host: tight (2, 2) slope bounds of a face's pixels in a crop.
+
+    Samples the ray slopes (d_b/d_a, d_c/d_a) on an ``n_grid`` grid of the
+    crop, restricted to the pixels the cubemap face ``(axis,
+    sign(face_sign))`` owns.  Returns ``[[sb_lo, sb_hi], [sc_lo, sc_hi]]``
+    (float32) for :func:`render_swr_fixed_axis`'s ``slope_bounds``, or None
+    when the sampled grid has no pixel of the face.  An end past the
+    dominance boundary (|slope| > 0.9, where the sampled extremum can
+    undershoot the true one) widens to the cone's edge, 1.05; the others
+    keep the measured value and ``pad``.
+    """
+    d = _grid_dirs(pose, K, img_wh, n_grid, crop_xy)
+    b_axis, c_axis = [x for x in range(3) if x != axis]
+    da = d[..., axis]
+    m = (np.argmax(np.abs(d), axis=-1) == axis) & (face_sign * da > 0)
+    if not m.any():
+        return None
+    out = np.empty((2, 2), np.float32)
+    for row, ax in enumerate((b_axis, c_axis)):
+        sl = d[..., ax][m] / da[m]
+        lo, hi = float(sl.min()) - pad, float(sl.max()) + pad
+        out[row, 0] = -1.05 if lo < -0.9 else lo
+        out[row, 1] = 1.05 if hi > 0.9 else hi
+    return out
+
+
+def pixel_faces(pose, K, img_wh: Tuple[int, int]):
+    """Host: the cubemap face of each pixel's ray.
+
+    Returns ``(dom, pos, faces, dir_w)``: ``dom[h, w]`` the dominant world
+    axis (the first of equal components), ``pos[h, w]`` whether its
+    component is positive, ``faces`` the sorted distinct ``(axis,
+    positive)`` pairs and ``dir_w`` the (h, w, 3) float64 directions.
+    """
+    w, h = img_wh
+    uu, vv = np.meshgrid(np.arange(w, dtype=np.float64),
+                         np.arange(h, dtype=np.float64), indexing="xy")
+    dir_w = _cam_dirs(pose, K, uu, vv)
+    dom = np.argmax(np.abs(dir_w), axis=-1)
+    d_dom = np.take_along_axis(dir_w, dom[..., None], axis=-1)[..., 0]
+    pos = d_dom > 0
+    faces = sorted({(int(a), bool(p)) for a, p in zip(dom.ravel(),
+                                                     pos.ravel())})
+    return dom, pos, faces, dir_w
+
+
+def render_swr_inside(
+    params,
+    grid,
+    cfg: pyr.PyramidConfig,
+    pose,
+    K,
+    img_wh: Tuple[int, int],
+    lat_cap: int | None = None,
+    **kw,
+) -> Dict[str, torch.Tensor]:
+    """Render a camera inside the grid, one cubemap face at a time.
+
+    The pixels are split by the signed axis that dominates their ray (one
+    to six faces, one to three at a normal field of view); each face runs
+    one ``inside=True`` sweep outward from the camera, over the tight slope
+    bounds of its own pixels (padded by 0.02) and, unless ``warp`` is
+    given, with its own pass-A solve (:func:`_matmul_solve_choice`).  Every
+    pixel takes its own face's values.  ``lat_cap`` bounds the lattice as
+    in :func:`render_swr`.
+    """
+    pose = _host_f32(pose).reshape(3, 4)
+    K = _host_f32(K)
+    dom, pos, faces, dir_w = pixel_faces(pose, K, img_wh)
+    kw.pop("dist_min", None)
+    lat_pad = kw.get("lat_pad", 16)
+    if lat_cap and max(img_wh) + lat_pad > lat_cap:
+        kw["lat_size"] = lat_cap
+    pad = 0.02
+    out = None
+    for a, p in faces:
+        b_ax, c_ax = [d for d in range(3) if d != a]
+        m = (dom == a) & (pos == p)
+        da = dir_w[..., a][m]
+        sb = dir_w[..., b_ax][m] / da
+        sc = dir_w[..., c_ax][m] / da
+        bounds = np.asarray([[sb.min() - pad, sb.max() + pad],
+                             [sc.min() - pad, sc.max() + pad]], np.float32)
+        face_kw = kw
+        if "warp" not in kw:
+            # a sliver face's lattice c axis can align with image x, which
+            # makes the default y-solve singular
+            face_kw = dict(kw, warp=_matmul_solve_choice(
+                pose, a, float(sc.min()) - pad, float(sc.max()) + pad))
+        r = render_swr_fixed_axis(
+            params, grid, cfg, pose, K, tuple(img_wh), a, not p,
+            inside=True, slope_bounds=bounds, **face_kw,
+        )
+        mask = torch.as_tensor(m.reshape(-1), device=r["rgb"].device)
+        out = {
+            k: torch.where(mask[:, None] if v.ndim == 2 else mask, v,
+                           0.0 if out is None else out[k])
+            for k, v in r.items()
+        }
+    return out

@@ -16,11 +16,20 @@ module name):
         --root_dir 'synthetic://lego?views=100&res=800' \
         --dataset_name synthetic --model_name ngp --max_steps 20000
 
-* ``--model_name pyramid``: the dense pyramid on the shear-warp renderer
-  for cameras outside the scene cube.  The default flags train linear with
-  deferred shading (the sweep kernels on the card); ``--shading
-  per_sample``, ``--sigma_res`` and ``--distortion_loss_w`` train through
-  the renderer's slab scan.  The record recipe::
+* ``--model_name pyramid``: the dense pyramid on the shear-warp renderer.
+  The default flags train linear with deferred shading (the sweep kernels
+  on the card); ``--shading per_sample``, ``--sigma_res`` and
+  ``--distortion_loss_w`` train through the renderer's slab scan, and so do
+  cameras inside the scene cube (one cubemap face a step; ``random_bg`` is
+  then on, as ``train.py`` sets it; ``--near_margin`` and ``--cam_carve``
+  act on them).  An inside rig::
+
+    python -m taichi_nerfs_torch.train \
+        --root_dir 'synthetic://shell?views=100&res=256' \
+        --dataset_name synthetic --model_name pyramid \
+        --near_margin 0.05 --cam_carve 0.1 --max_steps 4000
+
+  The record recipe::
 
     python -m taichi_nerfs_torch.train \\
         --root_dir 'synthetic://lego?views=100&res=800' \\
@@ -47,6 +56,14 @@ module name):
         --alpha_w 0.2 --random_bg --tv_w 5e-4 --sigma_l1 1e-5 \\
         --resample_kind cubic --prog_steps 2250,4500 --max_steps 9000
 
+Both read ``--dataset_name synthetic`` (procedural scenes, ``--root_dir
+synthetic://<scene>?views=..&res=..``) and the file datasets ``nerf``
+(Blender), ``nsvf``, ``ngp`` (instant-ngp ``transforms.json``) and
+``colmap``, from ``--root_dir``::
+
+    python -m taichi_nerfs_torch.train --root_dir data/lego \
+        --dataset_name nerf --model_name pyramid --resample_kind cubic
+
 Both train on the card: ``--device cuda`` is the default, and it raises
 when there is no card; ``--device cpu`` asks for the CPU (the flag is the
 port's own, taken out before ``opt.get_opts`` parses the rest).  With
@@ -69,7 +86,7 @@ import numpy as np
 import torch
 
 from ..config import config_from_opts
-from ..data.synthetic import SyntheticSphereDataset
+from ..data import dataset_dict
 from ..models.pyramid import PyramidConfig
 from ..utils.convert import load_ngp_npz, save_ngp_npz, save_pyramid_npz
 from ..utils.device import resolve_device
@@ -79,7 +96,7 @@ from .metrics import ssim as ssim_fn
 from .eval import evaluate
 from .loop import Trainer
 from .state import TrainState, make_optimizer, trainable
-from .swr_step import SwrTrainConfig, SwrTrainer
+from .swr_step import SwrTrainConfig, SwrTrainer, is_inside
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -94,10 +111,6 @@ def _check_scope(hp):
         raise NotImplementedError(
             "--encoder_type triplane: the tri-plane encoder is "
             + todo.format(11))
-    if hp.dataset_name != "synthetic":
-        raise NotImplementedError(
-            f"--dataset_name {hp.dataset_name}: the file loaders are "
-            + todo.format(7))
     if hp.num_devices > 1:
         raise NotImplementedError("multi-device training is " + todo.format(12))
     for flag, on in (("--gui", hp.gui), ("--deployment", hp.deployment)):
@@ -107,7 +120,8 @@ def _check_scope(hp):
 
 def configs(hp, train_dataset):
     """``(PyramidConfig, SwrTrainConfig)`` from the flags, as ``train.py``
-    builds them."""
+    builds them: ``random_bg`` is on whenever a training camera is inside
+    the grid (their count is printed)."""
     levels = tuple(int(x) for x in hp.pyramid_levels.split(",") if x) or (
         32, 64, 128, 256)
     if hp.level_features:
@@ -137,6 +151,11 @@ def configs(hp, train_dataset):
         prog = tuple(int(x) for x in hp.prog_steps.split(",") if x)
     else:
         prog = ()
+    n_in = sum(is_inside(p, hp.scale) for p in
+               np.asarray(train_dataset.poses, np.float32).reshape(-1, 3, 4))
+    if n_in:
+        print(f"pyramid: {n_in}/{len(train_dataset)} training cameras are "
+              "inside the grid; those train via the cubemap-face sweep")
     w0, h0 = train_dataset.img_wh
     tcfg = SwrTrainConfig(
         crop=min(256, w0, h0),
@@ -146,7 +165,9 @@ def configs(hp, train_dataset):
         distortion_w=hp.distortion_loss_w,
         prog_steps=prog,
         near=hp.near_margin,
-        random_bg=hp.random_bg,
+        # an enclosed scene needs random backgrounds: with a fixed one the
+        # colour net saturates before opacity forms
+        random_bg=hp.random_bg or n_in > 0,
         cam_carve=hp.cam_carve,
         bake_dtype=hp.bake_dtype,
         adam_mu_bf16=hp.bake_dtype == "bfloat16",
@@ -184,7 +205,9 @@ def _fit(trainer, max_steps, profile_dir, device, n_prof=3):
 
 
 def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
-    """``train.py``'s NGP branch: fit, ``model.npz``, evaluate."""
+    """``train.py``'s NGP branch: fit, ``model.npz``, evaluate.  Returns
+    :func:`evaluate`'s dict and, when it trained, ``steps`` and the last
+    step's ``last_loss``."""
     cfg = config_from_opts(hp)
     trainer = Trainer(cfg, train_dataset.as_batch(device), train_dataset.K,
                       train_dataset.img_wh, device=device)
@@ -201,15 +224,17 @@ def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
     if not hp.val_only:
         tic = time.time()
         m = _fit(trainer, hp.max_steps, hp.profile_dir, device)
-        float(m["loss"])  # wait for the queued device steps
+        last = float(m["loss"])  # waits for the queued device steps
         print(f"training done in {time.time() - tic:.1f}s on {device}")
     os.makedirs(val_dir, exist_ok=True)
     save_ngp_npz(os.path.join(val_dir, "model.npz"), trainer.state,
                  trainer.step, cfg.train.seed)
-    return evaluate(trainer.state.params, cfg,
-                    trainer.state.occupancy.bitfield, test_dataset,
-                    save_dir=val_dir,
-                    max_images=hp.eval_views or None)
+    out = evaluate(trainer.state.params, cfg,
+                   trainer.state.occupancy.bitfield, test_dataset,
+                   save_dir=val_dir, max_images=hp.eval_views or None)
+    if not hp.val_only:
+        out.update(steps=trainer.step, last_loss=last)
+    return out
 
 
 def _split_device(argv):
@@ -255,17 +280,29 @@ def main(argv=None):
     device = resolve_device(device, "--device cpu")
     val_dir = ("results/" if hp.exp_name in ("exp", "lego_proxy")
                else os.path.join("results", hp.exp_name))
-    kw = dict(root_dir=hp.root_dir, downsample=hp.downsample, device=device)
-    train_dataset = SyntheticSphereDataset(split=hp.split, **kw)
-    test_dataset = SyntheticSphereDataset(split="test", **kw)
+    dataset_cls = dataset_dict[hp.dataset_name]
+    kw = dict(root_dir=hp.root_dir, downsample=hp.downsample)
+    if hp.dataset_name == "synthetic":
+        kw["device"] = device  # the GT is rendered there
+    t0 = time.time()
+    train_dataset = dataset_cls(split=hp.split, **kw)
+    test_dataset = dataset_cls(split="test", **kw)
+    n_views = len(train_dataset) + len(test_dataset)
+    print(f"loaded {n_views} {hp.dataset_name} views at "
+          f"{train_dataset.img_wh} in {time.time() - t0:.2f}s", flush=True)
     if hp.model_name == "ngp":
         return _train_ngp(hp, train_dataset, test_dataset, val_dir, device)
     mcfg, tcfg = configs(hp, train_dataset)
+    # the GT alpha channel: the synthetic scenes keep it, the file loaders
+    # blend it away
+    alphas = getattr(train_dataset, "alphas", None)
+    if tcfg.alpha_w > 0 and alphas is None:
+        raise SystemExit("--alpha_w needs a dataset with a GT alpha channel "
+                         "(dataset_name=synthetic keeps it)")
     trainer = SwrTrainer(
         mcfg, tcfg, train_dataset.rays, train_dataset.poses, train_dataset.K,
         train_dataset.img_wh,
-        alphas=(train_dataset.alphas
-                if tcfg.alpha_w > 0 or tcfg.random_bg else None),
+        alphas=alphas if tcfg.alpha_w > 0 or hp.random_bg else None,
         device=device,
     )
     if hp.ckpt_path:

@@ -1,11 +1,16 @@
 """Training on the shear-warp renderer: image-crop SGD on the dense pyramid.
 
-Port of the JAX package's ``train/swr_step.py`` for cameras outside the
-scene cube on one device.  Each step draws a training image and a square
-crop (a crop of a pinhole image is a pinhole image with a shifted principal
-point), renders the crop with :func:`render_swr_fixed_axis`, and takes the
-MSE against the ground truth plus the opacity, distortion, sigma-L1 and
-per-level TV terms.  Deferred shading on an unsplit grid with full-matrix
+Port of the JAX package's ``train/swr_step.py`` on one device.  Each step
+draws a training image and a square crop (a crop of a pinhole image is a
+pinhole image with a shifted principal point), renders the crop with
+:func:`render_swr_fixed_axis`, and takes the MSE against the ground truth
+plus the opacity, distortion, sigma-L1 and per-level TV terms.  A camera
+inside the scene cube trains one cubemap face of its crop per step (drawn
+with probability proportional to the face's share of the crop's pixels),
+through the slab scan, with the MSE, opacity and distortion terms masked to
+the face's pixels.  ``cam_carve`` zeroes the baked sigma within that radius
+of every training camera (:func:`camera_keep_mask`), in the loss and in
+:meth:`SwrTrainer.render`.  Deferred shading on an unsplit grid with full-matrix
 resamples (the defaults, linear or cubic) runs the hand-written sweep
 kernels on the card (``ops/swr_sweep.py``); per-sample shading, a split
 ``sigma_res`` grid, the distortion loss and a windowed resample run the
@@ -15,11 +20,12 @@ the JAX trainer does (:func:`slab_window_bound`).
 Randomness.  Every random input of the loss is an argument of
 :func:`make_swr_loss`: the crop offset, the random background ``(c^2, 3)``
 and the TV window starts (one per windowed level: the finest level, and
-the sigma level of a split grid).  :class:`SwrTrainer` draws the image and
-the crop with ``np.random.RandomState(seed)`` in the JAX trainer's call
-order (so both packages pick the same crops), the background from a
-``torch.Generator`` on the training device and the TV windows from one on
-the host.
+the sigma level of a split grid).  :class:`SwrTrainer` draws the image, the
+crop and an inside crop's face with ``np.random.RandomState(seed)`` in the
+JAX trainer's call order (so both packages pick the same crops and faces),
+the background from a ``torch.Generator`` on the training device and the TV
+windows from one on the host; :meth:`SwrTrainer.run_step` takes a draw
+(:class:`SwrDraw`) from its caller as well.
 
 Adam is ``train/state.py:Adam`` (one count for bias correction, one for
 the cosine schedule, as the JAX optimizer keeps them), shared with the NGP
@@ -30,8 +36,8 @@ the loss (checkpointed at ``grid_res >= 384``, as JAX remats it) and for
 :meth:`SwrTrainer.render`; ``resample_dtype`` sets the loss's resample
 operands; ``adam_mu_bf16`` keeps Adam's first moment in bf16.
 
-Out of scope (each raises ``NotImplementedError`` naming its ROADMAP item):
-inside cameras and ``cam_carve`` (item 10.5) and a device mesh (item 12).
+Out of scope (it raises ``NotImplementedError`` naming its ROADMAP item):
+a device mesh (item 12).
 """
 
 from __future__ import annotations
@@ -49,9 +55,14 @@ from ..render.serve import _require_fp32_matmul
 from ..render.swr import (
     _RS_DTYPES,
     _as_f32,
+    _dirs,
+    _matmul_solve_choice,
+    face_slope_bounds,
     pick_warp,
+    pixel_faces,
     render_swr,
     render_swr_fixed_axis,
+    render_swr_inside,
     slab_window_bound,
 )
 from ..utils.convert import load_pyramid_npz
@@ -94,10 +105,7 @@ class SwrTrainConfig:
 
 
 def _check_scope(tcfg: SwrTrainConfig) -> None:
-    """Raise for the options of the JAX trainer the port does not train."""
-    if tcfg.cam_carve > 0:
-        raise NotImplementedError(
-            f"cam_carve is {_MODULES_TODO.format('10.5')}")
+    """Raise for unknown option values."""
     for name in ("bake_dtype", "resample_dtype"):
         if getattr(tcfg, name) not in _RS_DTYPES:
             raise ValueError(f"unknown {name} {getattr(tcfg, name)!r}")
@@ -165,6 +173,44 @@ def grow_swr_state(
     return SwrTrainState(params, opt)
 
 
+# ---------------------------------------------------------------- carving
+
+
+def apply_sigma_keep(grid, sigma_keep: torch.Tensor):
+    """Zero the baked grid's sigma where ``sigma_keep`` is 0, in the grid's
+    own dtype (a bf16 bake stays bf16); a split grid's sigma alone."""
+    if isinstance(grid, tuple):
+        sigma, feats = grid
+        return sigma * sigma_keep.to(sigma.dtype), feats
+    return torch.cat([grid[..., :1] * sigma_keep[..., None].to(grid.dtype),
+                      grid[..., 1:]], dim=-1)
+
+
+def camera_keep_mask(poses: np.ndarray, res: int, carve: float,
+                     scale: float = 0.5) -> np.ndarray:
+    """(res, res, res) float32: 0 within ``carve`` of any camera, else 1.
+
+    The free-space prior behind ``SwrTrainConfig.cam_carve``: a voxel a
+    training camera has been within ``carve`` of cannot be solid.
+    """
+    c = (np.arange(res, dtype=np.float32) + 0.5) / res * (2 * scale) - scale
+    xx, yy, zz = np.meshgrid(c, c, c, indexing="ij")
+    pts = np.stack([xx, yy, zz], axis=-1)  # (R, R, R, 3)
+    keep = np.ones((res, res, res), np.float32)
+    for p in np.asarray(poses, np.float32).reshape(-1, 3, 4):
+        d2 = ((pts - p[:, 3]) ** 2).sum(-1)
+        keep *= (d2 > carve * carve).astype(np.float32)
+    return keep
+
+
+def is_inside(pose, scale: float) -> bool:
+    """Whether the camera sits inside the grid along its dominant view
+    axis (within 1.05 of the half-width), as both trainers classify it."""
+    p = np.asarray(pose, np.float32).reshape(3, 4)
+    a = int(np.argmax(np.abs(p[:, 2])))
+    return abs(float(p[a, 3])) <= scale * 1.05
+
+
 # ---------------------------------------------------------------- loss
 
 
@@ -197,6 +243,9 @@ def make_swr_loss(
     lat_size: int = 0,
     warp: str = "matmul",
     slab_window: int = 0,
+    inside: bool = False,
+    sigma_keep: torch.Tensor | None = None,
+    slope_bounds=None,
 ):
     """Build ``loss_fn(params) -> (loss, mse)`` for one training crop.
 
@@ -204,7 +253,12 @@ def make_swr_loss(
     ``tv_starts[i]`` the start of the TV window of ``tv_levels``' level i
     along its first axis (needed with ``tv_w > 0``), in ``[0, r -
     tv_window(r)]``.  ``slab_window`` is the renderer's (0: full-matrix
-    resamples).
+    resamples).  ``inside`` trains the cubemap face ``(axis, -1 if flip
+    else +1)`` of a camera inside the grid (``slope_bounds`` as the
+    renderer's): the MSE, opacity and distortion terms are masked to the
+    crop pixels whose ray that face owns (the first axis of equal
+    components).  ``sigma_keep`` ((R, R, R), or the sigma grid's side for a
+    split config) multiplies the baked sigma (camera carving).
     """
     c = tcfg.crop
     x0, y0 = int(crop_xy[0]), int(crop_xy[1])
@@ -222,6 +276,12 @@ def make_swr_loss(
         raise ValueError("alpha_w needs the GT alpha channel (alphas=)")
 
     bake_dtype = _RS_DTYPES[tcfg.bake_dtype]
+    mask = face_mask(pose, K_crop, c, axis, flip) if inside else None
+
+    def masked_mean(x):
+        if mask is None:
+            return torch.mean(x)
+        return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
     def loss_fn(params):
         # checkpoint the bake at large R: its forward intermediates (the
@@ -232,6 +292,8 @@ def make_swr_loss(
                               use_reentrant=False)
         else:
             grid = pyr.bake(params, mcfg, bake_dtype)
+        if sigma_keep is not None:
+            grid = apply_sigma_keep(grid, sigma_keep)
         out = render_swr_fixed_axis(
             params, grid, mcfg, pose, K_crop, (c, c), axis, flip,
             n_chunks=min(tcfg.n_chunks, mcfg.grid_res),
@@ -241,6 +303,9 @@ def make_swr_loss(
             warp=warp,
             want_distortion=tcfg.distortion_w > 0,
             resample_dtype=tcfg.resample_dtype,
+            inside=inside,
+            slope_bounds=slope_bounds,
+            near=tcfg.near,
             sweep_impl=tcfg.sweep_impl,
             resample_kind=tcfg.resample_kind,
         )
@@ -252,14 +317,18 @@ def make_swr_loss(
                 # GT was stored over bg0 (white or black): put it over bg
                 bg0 = 1.0 if tcfg.white_bg else 0.0
                 gt_eff = gt + (1.0 - gt_alpha)[:, None] * (bg - bg0)
-        mse = torch.mean((rgb_pred - gt_eff) ** 2)
+        err = (rgb_pred - gt_eff) ** 2
+        if inside:
+            mse = torch.sum(err * mask[:, None]) / torch.clamp(
+                3.0 * torch.sum(mask), min=1.0)
+        else:
+            mse = torch.mean(err)
         loss = mse
         if tcfg.alpha_w > 0:
-            loss = loss + tcfg.alpha_w * torch.mean(
-                (out["opacity"] - gt_alpha) ** 2
-            )
+            loss = loss + tcfg.alpha_w * masked_mean(
+                (out["opacity"] - gt_alpha) ** 2)
         if tcfg.distortion_w > 0:
-            loss = loss + tcfg.distortion_w * torch.mean(out["distortion"])
+            loss = loss + tcfg.distortion_w * masked_mean(out["distortion"])
         if tcfg.sigma_l1 > 0:
             sigma = grid[0] if mcfg.split else grid[..., 0]
             loss = loss + tcfg.sigma_l1 * torch.mean(sigma)
@@ -284,6 +353,24 @@ def make_swr_loss(
     return loss_fn
 
 
+def face_mask(pose, K, c: int, axis: int, flip: bool) -> torch.Tensor:
+    """(c^2,) float: 1 where the cubemap face ``(axis, -1 if flip else
+    +1)`` owns the ray of a ``c`` x ``c`` image's pixel (intrinsics ``K``,
+    a tensor), else 0.  The dominant axis is the first of equal
+    components, as ``torch.argmax`` (and ``jnp.argmax``) take it."""
+    dev = K.device
+    pose = _as_f32(pose, dev)
+    ui = torch.arange(c, dtype=torch.float32, device=dev)
+    uu, vv = torch.meshgrid(ui, ui, indexing="xy")
+    d_cam = torch.stack([(uu - K[0, 2] + 0.5) / K[0, 0],
+                         (vv - K[1, 2] + 0.5) / K[1, 1],
+                         torch.ones_like(uu)], dim=-1)
+    d_w = _dirs(pose, d_cam)
+    dom = torch.argmax(torch.abs(d_w), dim=-1)
+    sign_ok = (d_w[..., axis] > 0) == (not flip)
+    return ((dom == axis) & sign_ok).reshape(c * c).to(torch.float32)
+
+
 def swr_train_step(
     state: SwrTrainState,
     gt_image: torch.Tensor,
@@ -299,11 +386,15 @@ def swr_train_step(
     lat_size: int = 0,
     warp: str = "matmul",
     slab_window: int = 0,
+    inside: bool = False,
+    sigma_keep: torch.Tensor | None = None,
+    slope_bounds=None,
 ) -> Tuple[SwrTrainState, Dict[str, torch.Tensor]]:
     """One Adam step on one crop; returns the new state (its tensors
     updated in place) and device-scalar ``loss`` and ``psnr``."""
     loss_fn = make_swr_loss(gt_image, pose, K, crop_xy, mcfg, tcfg, axis,
-                            flip, bg, tv_starts, lat_size, warp, slab_window)
+                            flip, bg, tv_starts, lat_size, warp, slab_window,
+                            inside, sigma_keep, slope_bounds)
     loss, mse = loss_fn(state.params)
     leaves = tree_leaves(state.params)
     grads = torch.autograd.grad(loss, leaves)
@@ -324,8 +415,34 @@ def _host_rng_state(rng: np.random.RandomState):
     return [name, keys.tolist(), int(pos), int(has_gauss), float(cached)]
 
 
+class SwrDraw(NamedTuple):
+    """One step's random inputs: the image index, the crop's top-left (x,
+    y), the random background (or None), the TV window starts and, for an
+    inside camera, the cubemap face (``2 * axis + positive``), else None."""
+
+    i: int
+    crop_xy: Tuple[int, int]
+    bg: torch.Tensor | None
+    tv_starts: Tuple[int, ...]
+    face: int | None = None
+
+
+class SwrStepPlan(NamedTuple):
+    """The renderer's static choices for one draw: the sweep axis and
+    direction, whether the camera is inside, the face's slope bounds (or
+    None), the final warp and the slab window."""
+
+    axis: int
+    flip: bool
+    inside: bool
+    slope_bounds: np.ndarray | None
+    warp: str
+    slab_window: int
+
+
 class SwrTrainer:
-    """Host loop: image and crop draws, sweep axis per pose, phases."""
+    """Host loop: image, crop and face draws, sweep axis per pose,
+    phases."""
 
     def __init__(
         self,
@@ -372,13 +489,21 @@ class SwrTrainer:
         self._host_rng = np.random.RandomState(seed)
         self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
         self._gen_host = torch.Generator().manual_seed(seed)
-        self._axis_flip = []
+        # the sweep of each pose; an inside pose trains one cubemap face a
+        # step, drawn from its crop's pixel shares on a face map subsampled
+        # by _face_stride
+        self._axis_flip, self._inside, self._face_map = [], [], []
+        self._face_stride = max(1, min(img_wh) // 128)
         for p in self.poses_np:
             a = int(np.argmax(np.abs(p[:, 2])))
-            if abs(float(p[a, 3])) <= mcfg.scale * 1.05:
-                raise NotImplementedError(
-                    f"inside cameras are {_MODULES_TODO.format('10.5')}")
             self._axis_flip.append((a, bool(p[a, 3] > 0)))
+            self._inside.append(is_inside(p, mcfg.scale))
+            face_map = None
+            if self._inside[-1]:
+                dom, pos, _, _ = pixel_faces(p, self.K, self.img_wh)
+                st = self._face_stride
+                face_map = (dom[::st, ::st].astype(np.int8), pos[::st, ::st])
+            self._face_map.append(face_map)
         # coarse-to-fine phases: [(truncated mcfg, end_step), ...]; the last
         # phase is the full config and takes the remaining steps
         self._phases = []
@@ -407,14 +532,21 @@ class SwrTrainer:
         lat_pad = 16
         cap = int(1.25 * pm.grid_res) + lat_pad
         self.lat_size = cap if cap < self.tcfg.crop + lat_pad else 0
-        # linear resamples read a source window when it is a quarter of R or
-        # less; the full matrix otherwise, and always for cubic (every pose
-        # is outside: inside cameras raise)
+        # linear resamples of outside crops read a source window when it is
+        # a quarter of R or less; the full matrix otherwise, always for
+        # cubic and for inside crops
+        outside = self.poses_np[~np.asarray(self._inside, bool)]
         self.slab_window = (
-            slab_window_bound(self.poses_np, self.K, self.img_wh, pm,
+            slab_window_bound(outside, self.K, self.img_wh, pm,
                               crop=self.tcfg.crop, lat_size=self.lat_size)
-            if self.tcfg.resample_kind == "linear" else 0
+            if len(outside) and self.tcfg.resample_kind == "linear" else 0
         )
+        self.sigma_keep = None
+        if self.tcfg.cam_carve > 0:
+            res = pm.sigma_res if pm.split else pm.grid_res
+            self.sigma_keep = torch.as_tensor(
+                camera_keep_mask(self.poses_np, res, self.tcfg.cam_carve,
+                                 pm.scale), device=self.device)
         self._grid_cache = (None, None)
         gen = self._init_generator(idx)
         if idx == 0:
@@ -429,14 +561,33 @@ class SwrTrainer:
         ):
             self._activate_phase(self._phase_idx + 1)
 
-    def draw(self):
-        """The next step's random inputs: image index, crop offset, random
-        background (or None) and TV window starts."""
+    def face_shares(self, i: int, crop_xy: Tuple[int, int]) -> np.ndarray:
+        """(6,) the share of inside pose ``i``'s crop pixels that each
+        cubemap face (``2 * axis + positive``) owns, on the subsampled face
+        map."""
+        dom, pos = self._face_map[i]
+        st, c = self._face_stride, self.tcfg.crop
+        x0, y0 = crop_xy
+        sd = dom[y0 // st:(y0 + c) // st + 1, x0 // st:(x0 + c) // st + 1]
+        sp = pos[y0 // st:(y0 + c) // st + 1, x0 // st:(x0 + c) // st + 1]
+        ids = (sd.astype(np.int64) * 2 + sp).ravel()
+        counts = np.bincount(ids, minlength=6).astype(np.float64)
+        return counts / counts.sum()
+
+    def draw(self) -> SwrDraw:
+        """The next step's random inputs (:class:`SwrDraw`).  The image, the
+        crop and an inside crop's face come from the host stream in the JAX
+        trainer's order (its face is ``RandomState.choice`` over the pixel
+        shares)."""
         w, h = self.img_wh
         c = self.tcfg.crop
         i = self._host_rng.randint(len(self.poses_np))
         x0 = self._host_rng.randint(max(w - c, 0) + 1)
         y0 = self._host_rng.randint(max(h - c, 0) + 1)
+        face = None
+        if self._inside[i]:
+            face = int(self._host_rng.choice(6, p=self.face_shares(i, (x0,
+                                                                     y0))))
         bg = None
         if self.tcfg.random_bg:
             bg = torch.rand((c * c, 3), generator=self._gen_dev,
@@ -449,20 +600,59 @@ class SwrTrainer:
                 for rf in (g.shape[0] for g in tv_levels(self.state.params,
                                                          self.cur_mcfg))
             )
-        return i, (x0, y0), bg, tv_starts
+        return SwrDraw(i, (x0, y0), bg, tv_starts, face)
 
-    def run_step(self):
+    def plan(self, draw: SwrDraw) -> SwrStepPlan:
+        """The renderer's choices for a draw, as the JAX trainer makes
+        them: an inside crop sweeps its drawn face over the face's tight
+        slope bounds in the crop (the cone's when the sampled crop has no
+        pixel of it), with the full matrix; an outside crop sweeps its
+        pose's axis with the phase's slab window."""
+        i, c = draw.i, self.tcfg.crop
+        pose = self.poses_np[i]
+        if not self._inside[i]:
+            axis, flip = self._axis_flip[i]
+            warp = pick_warp(pose, self.K, (c, c), axis,
+                             crop_xy=draw.crop_xy)
+            return SwrStepPlan(axis, flip, False, None, warp,
+                               self.slab_window)
+        if draw.face is None:
+            raise ValueError(f"pose {i} is inside the grid: its draw needs a "
+                             "face")
+        axis, flip = draw.face // 2, not bool(draw.face % 2)
+        sign = -1.0 if flip else 1.0
+        b = face_slope_bounds(pose, self.K, (c, c), axis, sign,
+                              crop_xy=draw.crop_xy)
+        if b is not None:
+            warp = _matmul_solve_choice(pose, axis, float(b[1, 0]),
+                                        float(b[1, 1]))
+        else:
+            warp = pick_warp(pose, self.K, (c, c), axis, face_sign=sign,
+                             crop_xy=draw.crop_xy)
+        return SwrStepPlan(axis, flip, True, b, warp, 0)
+
+    def loss_fn(self, draw: SwrDraw, tcfg: SwrTrainConfig | None = None):
+        """:func:`make_swr_loss` of a draw at the current phase (``tcfg``
+        overrides the trainer's config)."""
+        pl = self.plan(draw)
+        return make_swr_loss(
+            self.images[draw.i], self.poses_np[draw.i], self.K, draw.crop_xy,
+            self.cur_mcfg, tcfg or self.tcfg, pl.axis, pl.flip, draw.bg,
+            draw.tv_starts, self.lat_size, pl.warp, pl.slab_window,
+            pl.inside, self.sigma_keep, pl.slope_bounds)
+
+    def run_step(self, draw: SwrDraw | None = None):
+        """One training step on ``draw`` (the next :meth:`draw` if None)."""
         _require_fp32_matmul()
         self._advance_phases()
-        i, (x0, y0), bg, tv_starts = self.draw()
-        axis, flip = self._axis_flip[i]
-        c = self.tcfg.crop
-        warp = pick_warp(self.poses_np[i], self.K, (c, c), axis,
-                         crop_xy=(x0, y0))
+        if draw is None:
+            draw = self.draw()
+        pl = self.plan(draw)
         self.state, metrics = swr_train_step(
-            self.state, self.images[i], self.poses_np[i], self.K, (x0, y0),
-            self.cur_mcfg, self.tcfg, axis, flip, bg, tv_starts,
-            self.lat_size, warp, self.slab_window,
+            self.state, self.images[draw.i], self.poses_np[draw.i], self.K,
+            draw.crop_xy, self.cur_mcfg, self.tcfg, pl.axis, pl.flip,
+            draw.bg, draw.tv_starts, self.lat_size, pl.warp, pl.slab_window,
+            pl.inside, self.sigma_keep, pl.slope_bounds,
         )
         self.step += 1
         return metrics
@@ -486,24 +676,26 @@ class SwrTrainer:
                early_exit=1e-4):
         """Eval-time render.  ``early_exit`` stops the sweep once every
         pixel's transmittance is below it; 0.0 sweeps every chunk.  The
-        grid is baked in ``bake_dtype``; the resample operands are fp32,
-        as the JAX trainer renders."""
+        grid is baked in ``bake_dtype`` (and carved with ``cam_carve``); the
+        resample operands are fp32, as the JAX trainer renders.  A camera
+        inside the grid renders through :func:`render_swr_inside`, with no
+        early exit."""
         _require_fp32_matmul()
         if self._grid_cache[0] != self.step:
             with torch.no_grad():
-                self._grid_cache = (self.step, pyr.bake(
-                    self.state.params, self.cur_mcfg,
-                    _RS_DTYPES[self.tcfg.bake_dtype]))
+                grid = pyr.bake(self.state.params, self.cur_mcfg,
+                                _RS_DTYPES[self.tcfg.bake_dtype])
+                if self.sigma_keep is not None:
+                    grid = apply_sigma_keep(grid, self.sigma_keep)
+                self._grid_cache = (self.step, grid)
         grid = self._grid_cache[1]
         if lat_cap == "auto":
             lat_cap = int(1.25 * self.cur_mcfg.grid_res) + 16
         pose_np = np.asarray(pose, np.float32).reshape(3, 4)
-        a = int(np.argmax(np.abs(pose_np[:, 2])))
-        if abs(float(pose_np[a, 3])) <= self.cur_mcfg.scale * 1.05:
-            raise NotImplementedError(
-                f"inside cameras are {_MODULES_TODO.format('10.5')}")
+        inside = is_inside(pose_np, self.cur_mcfg.scale)
+        kw = {} if inside else {"early_exit": float(early_exit)}
         with torch.no_grad():
-            return render_swr(
+            return (render_swr_inside if inside else render_swr)(
                 self.state.params, grid, self.cur_mcfg, pose_np,
                 self.K if K is None else K,
                 tuple(img_wh or self.img_wh),
@@ -511,9 +703,10 @@ class SwrTrainer:
                 n_chunks=min(self.tcfg.n_chunks, self.cur_mcfg.grid_res),
                 white_bg=self.tcfg.white_bg,
                 skip_empty=True,
-                early_exit=float(early_exit),
+                near=self.tcfg.near,
                 resample_kind=self.tcfg.resample_kind,
                 sweep_impl=self.tcfg.sweep_impl,
+                **kw,
             )
 
     def save_state(self, path: str, light: bool = True):

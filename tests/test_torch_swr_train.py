@@ -208,8 +208,10 @@ def test_synthetic_test_split_and_inside_rig():
     te = tsyn.SyntheticSphereDataset("synthetic://checker?views=40&res=16",
                                      split="test")
     assert len(te) == 10 and te.img_wh == (16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsyn.SyntheticSphereDataset("synthetic://shell?views=2&res=16")
+    # the shell's rig sits inside the grid (its GT is held to JAX's in
+    # tests/test_torch_swr_inside_train.py)
+    shell = tsyn.SyntheticSphereDataset("synthetic://shell?views=2&res=16")
+    assert all(tst.is_inside(p, 0.5) for p in shell.poses)
 
 
 # ------------------------------------------------------------------ trainer
@@ -351,17 +353,30 @@ def test_swr_trainer_save_load_state(sphere, tmp_path, light):
     ids=["cam_carve", "mesh", "inside_camera"],
 )
 def test_out_of_scope_training_options_raise(sphere, over):
+    """A device mesh raises naming its ROADMAP item; ``cam_carve`` and an
+    inside camera (ROADMAP item 10.5, ported since) train."""
     over = dict(over)
     mcfg = tpyr.PyramidConfig(**dict(SMALL, **over.pop("mcfg", {})))
     mesh = over.pop("mesh", None)
     poses = sphere.poses.copy()
     if over.pop("inside", False):
         poses[0, :, 3] = [0.05, 0.0, -0.2]
-    tcfg = tst.SwrTrainConfig(**dict(dict(crop=32, resample_kind="cubic"),
-                                     **over))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.SwrTrainer(mcfg, tcfg, sphere.rays, poses, sphere.K,
-                       sphere.img_wh, mesh=mesh, device="cpu")
+    tcfg = tst.SwrTrainConfig(**dict(dict(crop=32, resample_kind="cubic",
+                                          n_chunks=4), **over))
+    if mesh is not None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tst.SwrTrainer(mcfg, tcfg, sphere.rays, poses, sphere.K,
+                           sphere.img_wh, mesh=mesh, device="cpu")
+        return
+    tr = tst.SwrTrainer(mcfg, tcfg, sphere.rays, poses, sphere.K,
+                        sphere.img_wh, device="cpu")
+    assert tr._inside[0] == (poses[0, 2, 3] == -0.2)
+    assert (tr.sigma_keep is not None) == (tcfg.cam_carve > 0)
+    draw = tr.draw()._replace(i=0)
+    if tr._inside[0]:
+        draw = draw._replace(face=int(np.argmax(tr.face_shares(0, (0, 0)))))
+    assert np.isfinite(float(tr.run_step(draw)["loss"]))
+    assert bool(torch.isfinite(tr.render(poses[0])["rgb"]).all())
 
 
 def test_train_entry_point(tmp_path, monkeypatch):
@@ -391,5 +406,7 @@ def test_train_entry_point(tmp_path, monkeypatch):
     assert cfg["tcfg"]["prog_steps"] == [4] and cfg["tcfg"]["crop"] == 32
     assert len(load_pyramid_npz(str(out / "model_pyramid.npz"))["levels"]) \
         == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv[:2] + ["--model_name", "pyramid", "--dataset_name", "nsvf"])
+    # --dataset_name nsvf reads files from --root_dir (none here)
+    with pytest.raises(OSError):
+        main(argv[:2] + ["--model_name", "pyramid", "--dataset_name", "nsvf",
+                         "--device", "cpu"])
