@@ -89,7 +89,27 @@ phases:
    bitfield and draws (equal counts on >= 99.9 % of rays, rgb within
    2e-2); ``render_image`` renders an 800x800 test view (finite, opacity in
    [0, 1]); 3 steady steps run under ``torch.profiler``.  This path has no
-   hand-written kernel (the JAX package has no TPU kernel on it).
+   hand-written kernel (the JAX package has no TPU kernel on it);
+14. ngp_models: the tri-plane encoder (``config_for_scene(0.5,
+   pos_encoder_type="triplane")``, the default ``TriPlaneConfig``: a
+   3 x 1024^2 x 4 table) and the svox voxel grid (``--grid_size 256
+   --sh_degree 2 --grid_radius 0.0125``: 256^3 x 27 SH coefficients) each
+   train 320 steps on the ngp phase's views (losses finite, the mean of the
+   last 16 below the first), run the ngp phase's card-vs-CPU
+   ``render_train`` check and render an 800x800 test view (finite, opacity
+   in [0, 1]); the steady step, peak device memory and frame time printed;
+15. export: ``python -m taichi_nerfs_torch.train --deployment
+   --encoder_type hash`` trains the deployment model 64 steps;
+   ``deployment.npy`` is read back and the params rebuilt from it give the
+   trained model's field on the card exactly; ``export_native`` writes
+   ``.bin`` files equal to the dict's arrays; ``export_pyramid_native`` of
+   the train phase's record model writes a ``grid.bin`` within fp16
+   rounding of the bake on the card; seconds and bytes printed;
+16. viewer: the headless ``NGPGUI`` renders 4 800x800 frames of the ngp
+   phase's model (the last equal to ``render_image`` at its pose) and 8 of
+   the train phase's record model through ``SwrTrainer.render`` (finite,
+   ``swr_sweep_fwd`` launched, the first equal to ``SwrTrainer.render`` at
+   its pose); each model's frame-time median and spread printed.
 
 Prints each new phase's seconds and the run's total, one JSON line with
 the kernels' numbers and, last, one JSON line ``{"ok": true, "device":
@@ -839,7 +859,11 @@ def phase_train(torch, seed, device="cuda"):
     p = float(psnr(rgb, torch.as_tensor(test.rays[0], device=device)))
     print(f"train: uncapped test view in {(time.perf_counter() - t0) * 1e3:.2f}"
           f" ms, psnr {p:.3f} dB after {TRAIN_STEPS} steps", flush=True)
-    return launches, by_phase, worst_grad
+    # the trained model goes on to the export and viewer phases: free the
+    # Adam moments
+    trainer.state = trainer.state._replace(opt_state=None)
+    record = {"trainer": trainer, "pose": test.poses[0], "poses": test.poses}
+    return launches, by_phase, worst_grad, record
 
 
 def _grads_kernel_vs_plain(torch, trainer, tag, tol=GRAD_TOL):
@@ -2173,21 +2197,102 @@ def _occupied_share(torch, bitfield):
     return float(bits.sum()) / (32 * bitfield.numel())
 
 
+def _ngp_card_vs_cpu(torch, tag, trainer, seed):
+    """One ``render_train`` of ``NGP_CHECK_RAYS`` rays on the card and on
+    the CPU from the trainer's params and bitfield and identical draws:
+    equal sample counts on >= ``NGP_COUNT_SHARE`` of the rays, rgb within
+    ``NGP_RGB_TOL`` on them."""
+    from taichi_nerfs_torch.ops.rays import get_rays
+    from taichi_nerfs_torch.render.renderer import render_train
+    from taichi_nerfs_torch.train.state import tree_map
+    from taichi_nerfs_torch.train.step import draw_step, sample_batch
+
+    device, cfg = trainer.device, trainer.cfg
+    gen = torch.Generator(device).manual_seed(seed + 7)
+    draws = draw_step(cfg, trainer.data, gen)
+    sl = slice(0, NGP_CHECK_RAYS)
+    _, pose, direction = sample_batch(trainer.data, draws.img_idxs[sl],
+                                      draws.pix_idxs[sl])
+    rays_o, rays_d = get_rays(direction, pose)
+    cap, pack = trainer.sample_cap, trainer.pack_cap
+    params = trainer.state.params
+    bitfield = trainer.state.occupancy.bitfield
+    outs = []
+    with torch.no_grad():
+        for dev in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            outs.append(render_train(
+                tree_map(lambda p, d=dev: p.detach().to(d), params),
+                cfg.model, cfg.render, bitfield.to(dev), rays_o.to(dev),
+                rays_d.to(dev), cap, pack, t_noise=draws.t_noise[sl].to(dev)))
+            torch.cuda.synchronize()
+            print(f"{tag}: render_train of {NGP_CHECK_RAYS} rays on "
+                  f"{dev.type} in {(time.perf_counter() - t0) * 1e3:.1f} ms",
+                  flush=True)
+    a, b = outs
+    same = (a["counts"].cpu() == b["counts"]).numpy()
+    d_rgb = (a["rgb"].cpu() - b["rgb"]).abs().max(dim=1).values.numpy()
+    worst = float(d_rgb[same].max())
+    print(f"{tag}: card vs CPU render_train: equal counts on "
+          f"{100.0 * same.mean():.3f}% of rays (must be >= "
+          f"{100 * NGP_COUNT_SHARE}%), rgb max_abs {worst:.3e} on them "
+          f"(must be <= {NGP_RGB_TOL}), {float(d_rgb.max()):.3e} on all; "
+          f"samples {int(a['rm_samples'])} / {int(b['rm_samples'])}",
+          flush=True)
+    if same.mean() < NGP_COUNT_SHARE or not worst <= NGP_RGB_TOL:
+        raise AssertionError(f"{tag}: the card and the CPU disagree")
+    return worst
+
+
+def _profile_ngp_steps(torch, tag, trainer):
+    """3 steady steps of an NGP-path trainer under ``torch.profiler``, none
+    of them a grid refresh (one step in ``update_interval``): the op table,
+    the top kernels and the spans by device time a step.  Returns the
+    device-busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from taichi_nerfs_torch.render.serve import report_profile
+
+    interval = trainer.cfg.train.update_interval
+    while any((trainer.step + i) % interval == 0 for i in range(3)):
+        trainer.run_step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m = trainer.run_step()
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = report_profile(prof, wall_us, f"3 steady {tag} steps", True,
+                             None)
+    kern = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+        key=lambda e: -e.self_device_time_total)
+    spans = {e.key: e.device_time_total for e in prof.key_averages()
+             if e.key.startswith("ngp.")}
+    print(f"{tag}: top kernels by device time per step: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 3e3:.3f} ms"
+        for e in kern[:8]), flush=True)
+    print(f"{tag}: spans, device time per step: " + "; ".join(
+        f"{k} {v / 3e3:.3f} ms" for k, v in sorted(spans.items())),
+        flush=True)
+    return busy_us / wall_us
+
+
 def phase_ngp(torch, seed):
     """Train the flagship NGP configuration, cross-check one render with the
     CPU, render an 800x800 test view and profile 3 steady steps."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from taichi_nerfs_torch.config import config_for_scene
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
     from taichi_nerfs_torch.ops.rays import get_rays
-    from taichi_nerfs_torch.render.renderer import render_image, render_train
-    from taichi_nerfs_torch.render.serve import report_profile
+    from taichi_nerfs_torch.render.renderer import render_image
     from taichi_nerfs_torch.train.loop import Trainer
     from taichi_nerfs_torch.train.metrics import psnr
-    from taichi_nerfs_torch.train.state import tree_map
-    from taichi_nerfs_torch.train.step import draw_step, sample_batch
 
     device = torch.device("cuda")
     cfg = config_for_scene(0.5)
@@ -2245,39 +2350,9 @@ def phase_ngp(torch, seed):
           f"occupied cells {100.0 * occ:.2f}%", flush=True)
 
     # one render_train on the card and on the CPU, same inputs
-    gen = torch.Generator(device).manual_seed(seed + 7)
-    draws = draw_step(cfg, trainer.data, gen)
-    sl = slice(0, NGP_CHECK_RAYS)
-    _, pose, direction = sample_batch(trainer.data, draws.img_idxs[sl],
-                                      draws.pix_idxs[sl])
-    rays_o, rays_d = get_rays(direction, pose)
-    cap, pack = trainer.sample_cap, trainer.pack_cap
+    _ngp_card_vs_cpu(torch, "ngp", trainer, seed)
     params = trainer.state.params
     bitfield = trainer.state.occupancy.bitfield
-    outs = []
-    with torch.no_grad():
-        for dev in (device, torch.device("cpu")):
-            t0 = time.perf_counter()
-            outs.append(render_train(
-                tree_map(lambda p, d=dev: p.detach().to(d), params),
-                cfg.model, cfg.render, bitfield.to(dev), rays_o.to(dev),
-                rays_d.to(dev), cap, pack, t_noise=draws.t_noise[sl].to(dev)))
-            torch.cuda.synchronize()
-            print(f"ngp: render_train of {NGP_CHECK_RAYS} rays on "
-                  f"{dev.type} in {(time.perf_counter() - t0) * 1e3:.1f} ms",
-                  flush=True)
-    a, b = outs
-    same = (a["counts"].cpu() == b["counts"]).numpy()
-    d_rgb = (a["rgb"].cpu() - b["rgb"]).abs().max(dim=1).values.numpy()
-    worst = float(d_rgb[same].max())
-    print(f"ngp: card vs CPU render_train: equal counts on "
-          f"{100.0 * same.mean():.3f}% of rays (must be >= "
-          f"{100 * NGP_COUNT_SHARE}%), rgb max_abs {worst:.3e} on them "
-          f"(must be <= {NGP_RGB_TOL}), {float(d_rgb.max()):.3e} on all; "
-          f"samples {int(a['rm_samples'])} / {int(b['rm_samples'])}",
-          flush=True)
-    if same.mean() < NGP_COUNT_SHARE or not worst <= NGP_RGB_TOL:
-        raise AssertionError("ngp: the card and the CPU disagree")
 
     # the test-time renderer, 800x800
     rays_o, rays_d = get_rays(
@@ -2303,35 +2378,377 @@ def phase_ngp(torch, seed):
           f"{int(out['total_samples'])} samples, psnr {p:.3f} dB after "
           f"{NGP_STEPS} steps", flush=True)
 
-    # 3 steady steps under the profiler, none of them a grid refresh (one
-    # step in update_interval; its cost is the refresh steps' median above)
-    while any((trainer.step + i) % interval == 0 for i in range(3)):
-        trainer.run_step()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            m = trainer.run_step()
-        float(m["loss"])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = report_profile(prof, wall_us, "3 steady ngp steps", True, None)
-    from torch.autograd import DeviceType
-
-    kern = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
-        key=lambda e: -e.self_device_time_total)
-    spans = {e.key: e.device_time_total for e in prof.key_averages()
-             if e.key.startswith("ngp.")}
-    print("ngp: top kernels by device time per step: " + "; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / 3e3:.3f} ms"
-        for e in kern[:8]), flush=True)
-    print("ngp: spans, device time per step: " + "; ".join(
-        f"{k} {v / 3e3:.3f} ms" for k, v in sorted(spans.items())),
-        flush=True)
+    busy = _profile_ngp_steps(torch, "ngp", trainer)
     return {"warm_ms": warm, "steady_ms": steady, "frame_ms": frame_ms[1],
-            "busy": busy_us / wall_us, "occupied": occ}
+            "busy": busy, "occupied": occ, "trainer": trainer,
+            "test": test}
+
+
+# the ngp_models phase: the tri-plane encoder at the default TriPlaneConfig
+# and the svox grid at opt.py's defaults (--grid_size 256 --sh_degree 2
+# --grid_radius 0.0125), each trained NGP_STEPS steps on the ngp phase's views
+SVOX_GRID, SVOX_SH_DEGREE, SVOX_RADIUS = 256, 2, 0.0125
+# the export phase: steps of the deployment model through the train entry
+EXPORT_STEPS = 64
+# the viewer phase: headless frames of the NGP model and of the record
+# pyramid (through SwrTrainer.render, lattice cap auto)
+VIEWER_NGP_FRAMES, VIEWER_PYRAMID_FRAMES = 4, 8
+
+
+def _ngp_model_configs():
+    """``(name, Config)`` of the tri-plane and svox families at full width,
+    otherwise the ngp phase's ``config_for_scene(0.5)``."""
+    from taichi_nerfs_torch.config import config_for_scene
+
+    tri = config_for_scene(0.5, pos_encoder_type="triplane")
+    base = config_for_scene(0.5)
+    svox = base.replace(model=base.model.replace(
+        name="svox", voxel_grid_size=SVOX_GRID,
+        voxel_sh_degree=SVOX_SH_DEGREE, voxel_radius=SVOX_RADIUS))
+    return (("triplane", tri), ("svox", svox))
+
+
+def _frame_checks(torch, tag, out, n_px):
+    rgb, op = out["rgb"], out["opacity"]
+    if tuple(rgb.shape) != (n_px, 3) or not bool(torch.isfinite(rgb).all()):
+        raise AssertionError(f"{tag}: the frame is not finite")
+    lo, hi = float(op.min()), float(op.max())
+    if lo < -1e-6 or hi > 1.0 + 1e-6:
+        raise AssertionError(f"{tag}: opacity in [{lo}, {hi}]")
+    return hi
+
+
+def phase_ngp_models(torch, seed, card):
+    """The tri-plane encoder and the svox voxel grid at full width: each
+    trains ``NGP_STEPS`` steps with ``Trainer`` on the ngp phase's 8 checker
+    views (losses finite, the mean of the last 16 below the first), renders
+    an 800x800 test view (finite, opacity in [0, 1]) and runs one
+    ``render_train`` on the card and on the CPU.  Returns a dict by
+    model."""
+    import numpy as np
+
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.ops.rays import get_rays
+    from taichi_nerfs_torch.render.renderer import render_image
+    from taichi_nerfs_torch.train.loop import Trainer
+    from taichi_nerfs_torch.train.metrics import psnr
+    from taichi_nerfs_torch.train.state import param_count
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    train = SyntheticSphereDataset(n_images=8, img_wh=(256, 256),
+                                   variant="checker", device=device)
+    test = SyntheticSphereDataset(n_images=1, img_wh=NGP_TEST_WH,
+                                  variant="checker", split="test",
+                                  device=device)
+    rays_o, rays_d = get_rays(
+        torch.as_tensor(test.directions, device=device),
+        torch.as_tensor(test.poses[0], device=device))
+    gt = torch.as_tensor(test.rays[0], device=device)
+    res = {}
+    for name, cfg in _ngp_model_configs():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, train.as_batch(device), train.K, train.img_wh,
+                          device=device, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        n_par = param_count(trainer.state.params)
+        print(f"{name}: trainer in {time.perf_counter() - t0:.2f} s, "
+              f"{n_par} params ({4 * n_par / 1e6:.1f} MB fp32), batch "
+              f"{cfg.train.batch_size}", flush=True)
+        losses, step_ms = [], []
+        for i in range(NGP_STEPS):
+            t0 = time.perf_counter()
+            m = trainer.run_step()
+            losses.append(float(m["loss"]))  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i % 64 == 0 or i == NGP_STEPS - 1:
+                print(f"{name} step {i}: loss={losses[-1]:.6f} "
+                      f"psnr={float(m['psnr']):.3f} S={trainer.sample_cap} "
+                      f"pack={trainer.pack_cap} {step_ms[-1]:.2f} ms",
+                      flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: non-finite loss: {losses}")
+        last = float(np.mean(losses[-16:]))
+        if not last < losses[0]:
+            raise AssertionError(f"{name}: the loss did not fall: "
+                                 f"{losses[0]} -> {last}")
+        warm = _median(step_ms[16:NGP_WARMUP])
+        steady = _median(step_ms[NGP_WARMUP:])
+        busy = _profile_ngp_steps(torch, name, trainer)
+        _ngp_card_vs_cpu(torch, name, trainer, seed)
+        t0 = time.perf_counter()
+        out = render_image(trainer.state.params, cfg,
+                           trainer.state.occupancy.bitfield, rays_o, rays_d)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        hi = _frame_checks(torch, name, out, NGP_TEST_WH[0] * NGP_TEST_WH[1])
+        p = float(psnr(out["rgb"], gt))
+        print(f"{name} ({card}): loss first {losses[0]:.6f}, mean of the "
+              f"last 16 {last:.6f}; median step, warmup (steps "
+              f"16-{NGP_WARMUP - 1}) {warm:.3f} ms, after it {steady:.3f} ms"
+              f" (device busy {100.0 * busy:.1f}% of 3 profiled steps); peak "
+              f"device memory {peak:.3f} GiB; 800x800 test frame "
+              f"{frame_ms:.2f} ms, "
+              f"{out['rounds']} rounds, max opacity {hi:.4f}, psnr "
+              f"{p:.3f} dB after {NGP_STEPS} steps", flush=True)
+        res[name] = {"warm_ms": warm, "steady_ms": steady, "peak_gib": peak,
+                     "frame_ms": frame_ms, "params": n_par, "busy": busy}
+        del trainer, out
+    secs = time.perf_counter() - t_phase
+    print(f"ngp_models: phase {secs:.1f} s ({card})", flush=True)
+    res["secs"] = secs
+    return res
+
+
+def phase_export(torch, seed, card, record):
+    """The deployment exports: ``python -m taichi_nerfs_torch.train
+    --deployment --encoder_type hash`` trains the deployment model
+    ``EXPORT_STEPS`` steps; its ``deployment.npy`` is read back, the params
+    rebuilt from it give the trained model's field on the card exactly;
+    ``export_native`` of the trained model writes ``.bin`` files equal to
+    the dict's arrays; ``export_pyramid_native`` of the record trainer's
+    model writes a ``grid.bin`` within fp16 rounding of the bake on the
+    card.  Returns a dict of seconds and bytes."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+
+    from opt import get_opts
+    from taichi_nerfs_torch.config import config_from_opts
+    from taichi_nerfs_torch.data.cameras import intrinsics
+    from taichi_nerfs_torch.models import ngp
+    from taichi_nerfs_torch.models import pyramid as pyr
+    from taichi_nerfs_torch.train import __main__ as entry
+    from taichi_nerfs_torch.utils.convert import load_ngp_npz
+    from taichi_nerfs_torch.utils.export import (
+        export_native,
+        export_pyramid_native,
+        load_tagged_binary,
+        params_from_deployment,
+    )
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+
+    def _size(d):
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for f in os.listdir(d))
+
+    argv = ["--root_dir", "synthetic://checker?views=8&res=256",
+            "--dataset_name", "synthetic", "--deployment", "--encoder_type",
+            "hash", "--max_steps", str(EXPORT_STEPS), "--exp_name",
+            "export", "--eval_views", "1", "--deployment_model_path", "dep"]
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            run = entry.main(argv)
+            train_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        if run["steps"] != EXPORT_STEPS + 1 or not np.isfinite(
+                run["last_loss"]):
+            raise AssertionError(f"export: {run['steps']} steps, last loss "
+                                 f"{run['last_loss']}")
+        cfg = config_from_opts(get_opts(argv))
+        dep_path = os.path.join(tmp, "dep", "deployment.npy")
+        t0 = time.perf_counter()
+        dep = np.load(dep_path, allow_pickle=True).item()
+        read_s = time.perf_counter() - t0
+        params, occ, _, _ = load_ngp_npz(
+            os.path.join(tmp, "results", "export", "model.npz"), device)
+        rebuilt = params_from_deployment(dep, cfg.model, device)
+        gen = torch.Generator(device).manual_seed(seed + 11)
+        x = torch.rand((1 << 16, 3), generator=gen, device=device) - 0.5
+        d = torch.randn((1 << 16, 3), generator=gen, device=device)
+        with torch.no_grad():
+            want = ngp.forward(params, cfg.model, x, d)
+            got = ngp.forward(rebuilt, cfg.model, x, d)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("export: the params rebuilt from "
+                                 "deployment.npy give another field")
+        print(f"export ({card}): the deployment model "
+              f"({cfg.model.grid.levels}x{cfg.model.grid.feature_per_level} "
+              f"hash, 2^{cfg.model.grid.log2_T} rows, "
+              f"{cfg.model.xyz_net_width}-wide MLPs) trained "
+              f"{run['steps']} steps through the train entry in "
+              f"{train_s:.1f} s (last loss {run['last_loss']:.5f}); "
+              f"deployment.npy {os.path.getsize(dep_path)} bytes, read in "
+              f"{read_s * 1e3:.1f} ms; the field of the params rebuilt "
+              f"from it equals the trained model's on 65536 points",
+              flush=True)
+
+        native = os.path.join(tmp, "native")
+        t0 = time.perf_counter()
+        export_native(params, cfg.model, occ.bitfield, dep["poses"],
+                      intrinsics(*RECORD_WH), RECORD_WH, native,
+                      render_cfg=cfg.render)
+        native_s = time.perf_counter() - t0
+        pose = dep["poses"][min(20, len(dep["poses"]) - 1)]
+        for name, want_arr in (
+                ("hash_embedding", dep["model.hash_encoder.params"]),
+                ("sigma_weights", dep["model.xyz_encoder.params"]),
+                ("rgb_weights", dep["model.rgb_net.params"]),
+                ("density_bitfield",
+                 dep["model.density_bitfield"].view(np.uint32)),
+                ("pose", pose.reshape(-1))):
+            got_arr = load_tagged_binary(os.path.join(native, name + ".bin"))
+            if got_arr.dtype != want_arr.dtype or not np.array_equal(
+                    got_arr, want_arr):
+                raise AssertionError(f"export: {name}.bin differs from the "
+                                     "deployment dict")
+        with open(os.path.join(native, "config.json")) as f:
+            conf = _json.load(f)
+        if (conf["levels"], conf["rgb_depth"]) != (
+                cfg.model.grid.levels, cfg.model.rgb_net_depth):
+            raise AssertionError(f"export: config.json {conf}")
+        out["native"] = (native_s, _size(native))
+        print(f"export ({card}): export_native in {native_s * 1e3:.1f} ms, "
+              f"{out['native'][1]} bytes in {len(os.listdir(native))} files; "
+              f"each .bin equals the deployment dict's array", flush=True)
+
+        trainer = record["trainer"]
+        mcfg = trainer.cur_mcfg
+        pdir = os.path.join(tmp, "pyramid")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_pyramid_native(trainer.state.params, mcfg,
+                              record["pose"], trainer.K, RECORD_WH, pdir)
+        pyr_s = time.perf_counter() - t0
+        grid = torch.as_tensor(
+            load_tagged_binary(os.path.join(pdir, "grid.bin")).copy(),
+            device=device).float()
+        with torch.no_grad():
+            bake = pyr.bake(trainer.state.params, mcfg).reshape(-1)
+        # round to nearest fp16: within half an ulp, 2^-11 relative for
+        # normal values, 2^-25 in the subnormal range
+        tol = torch.clamp(bake.abs() * 2.0**-11, min=2.0**-25)
+        err = (grid - bake).abs()
+        bad = ~((err <= tol) | (torch.isinf(grid) & (bake.abs() >= 65520)))
+        ratio = float((err / tol).nan_to_num(0.0).max())
+        n_grid = mcfg.grid_res**3 * mcfg.features
+        out["pyramid"] = (pyr_s, _size(pdir))
+        print(f"export ({card}): export_pyramid_native of the record model "
+              f"(R={mcfg.grid_res}, F={mcfg.features}) in {pyr_s:.2f} s, "
+              f"{out['pyramid'][1]} bytes (grid.bin "
+              f"{os.path.getsize(os.path.join(pdir, 'grid.bin'))}); grid.bin "
+              f"against the bake on the card: worst error {ratio:.3f} of "
+              f"half an fp16 ulp, {int(bad.sum())} of {n_grid} values "
+              f"outside", flush=True)
+        if grid.numel() != n_grid or int(bad.sum()):
+            raise AssertionError("export: grid.bin is not the bake rounded "
+                                 "to fp16")
+        del grid, bake, err, tol, bad
+    out["secs"] = time.perf_counter() - t_phase
+    out["train_s"] = train_s
+    print(f"export: phase {out['secs']:.1f} s ({card})", flush=True)
+    return out
+
+
+def phase_viewer(torch, seed, card, ngp, record):
+    """The headless viewer (``viewer/gui.py``, no ``cv2`` or display):
+    ``VIEWER_NGP_FRAMES`` 800x800 frames of the ngp phase's model through
+    ``render_image`` and ``VIEWER_PYRAMID_FRAMES`` of the record model
+    through ``SwrTrainer.render`` (``render_fn``, lattice cap auto): every
+    frame finite, ``swr_sweep_fwd`` launched during the pyramid frames, the
+    last NGP frame equal to ``render_image`` at its pose and the first
+    pyramid frame equal to ``SwrTrainer.render`` at its pose.  Returns a
+    dict of frame times and launches."""
+    import numpy as np
+
+    from taichi_nerfs_torch.ops.rays import get_ray_directions, get_rays
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep
+    from taichi_nerfs_torch.render.renderer import render_image
+    from taichi_nerfs_torch.viewer.gui import NGPGUI
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    res = {}
+
+    def _quantize(rgb, wh):
+        w, h = wh
+        img = rgb.reshape(h, w, 3).float().cpu().numpy()
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+    # the NGP model
+    ntr, test = ngp["trainer"], ngp["test"]
+    frames, dts = [], []
+    gui = NGPGUI(ntr.cfg, ntr.state.params, ntr.state.occupancy.bitfield,
+                 test.K, test.img_wh, test.poses,
+                 frame_callback=lambda f: (frames.append(f),
+                                           dts.append(gui.dt * 1e3)))
+    gui.render(max_frames=VIEWER_NGP_FRAMES)
+    w, h = test.img_wh
+    pose = gui.cam.pose.astype(np.float32)
+    rays_o, rays_d = get_rays(get_ray_directions(h, w, test.K, device=device),
+                              torch.as_tensor(pose, device=device))
+    with torch.no_grad():
+        want = render_image(ntr.state.params, ntr.cfg,
+                            ntr.state.occupancy.bitfield, rays_o, rays_d)
+    _frame_checks(torch, "viewer ngp", want, w * h)
+    diff = np.abs(frames[-1].astype(int) - _quantize(want["rgb"], (w, h)))
+    print(f"viewer ngp ({card}): {len(frames)} frames at {w}x{h}, ms "
+          f"{[round(x, 2) for x in dts]}, median {_median(dts):.2f} (min "
+          f"{min(dts):.2f}, max {max(dts):.2f}), samples/ray "
+          f"{gui.mean_samples:.2f}; the last frame against render_image at "
+          f"its pose: max {int(diff.max())} of 255, equal on "
+          f"{100.0 * np.mean(diff == 0):.3f}% of values", flush=True)
+    if len(frames) != VIEWER_NGP_FRAMES or diff.max() > 1 or np.mean(
+            diff == 0) < 0.999:
+        raise AssertionError("viewer: the NGP frames are not render_image's")
+    res["ngp"] = {"median_ms": _median(dts), "min_ms": min(dts),
+                  "max_ms": max(dts)}
+
+    # the record pyramid, through SwrTrainer.render
+    trainer = record["trainer"]
+    frames, dts, outs, poses = [], [], [], []
+
+    def render_fn(p, K, wh):
+        out = trainer.render(p, K=K, img_wh=wh)
+        poses.append(p)
+        outs.append(out["rgb"])
+        return out
+
+    gui = NGPGUI(None, trainer.state.params, None, trainer.K, RECORD_WH,
+                 record["poses"], render_fn=render_fn,
+                 frame_callback=lambda f: (frames.append(f),
+                                           dts.append(gui.dt * 1e3)))
+    torch.cuda.synchronize()
+    chunk_sweep.launches = 0
+    gui.render(max_frames=VIEWER_PYRAMID_FRAMES)
+    torch.cuda.synchronize()
+    launches = chunk_sweep.launches
+    bad = [i for i, o in enumerate(outs) if not bool(torch.isfinite(o).all())]
+    again = trainer.render(poses[0], K=trainer.K, img_wh=RECORD_WH)["rgb"]
+    d0 = float((again - outs[0]).abs().max())
+    same = np.array_equal(frames[0], _quantize(again, RECORD_WH))
+    print(f"viewer pyramid ({card}): {len(frames)} frames at "
+          f"{RECORD_WH[0]}x{RECORD_WH[1]} through SwrTrainer.render, ms "
+          f"{[round(x, 2) for x in dts]}, median {_median(dts):.2f} (min "
+          f"{min(dts):.2f}, max {max(dts):.2f}); swr_sweep_fwd launches "
+          f"{launches}; the first frame against SwrTrainer.render at its "
+          f"pose: rgb max_abs {d0:.3e}, uint8 frame equal {same}",
+          flush=True)
+    if bad or len(frames) != VIEWER_PYRAMID_FRAMES:
+        raise AssertionError(f"viewer: pyramid frames {bad} not finite")
+    if launches <= 0:
+        raise AssertionError("viewer: the pyramid frames never launched "
+                             "swr_sweep_fwd")
+    if not (same and d0 <= 1e-6):
+        raise AssertionError("viewer: the first pyramid frame is not "
+                             "SwrTrainer.render's")
+    res["pyramid"] = {"median_ms": _median(dts), "min_ms": min(dts),
+                      "max_ms": max(dts), "launches": launches}
+    res["secs"] = time.perf_counter() - t_phase
+    print(f"viewer: phase {res['secs']:.1f} s ({card})", flush=True)
+    return res
 
 
 def ptxas_summary(log):
@@ -2414,7 +2831,8 @@ def main(argv=None):
     print(f"slice: 800x800 cubic frame median: capped "
           f"{frame_ms['capped']:.3f} ms, uncapped "
           f"{frame_ms['uncapped']:.3f} ms", flush=True)
-    (fwd_n, bwd_n), step_ms, worst_grad = phase_train(torch, args.seed)
+    (fwd_n, bwd_n), step_ms, worst_grad, record = phase_train(torch,
+                                                              args.seed)
     print(f"train: median steady full-depth step "
           f"{_median(step_ms[4]):.3f} ms, first phase (R=64) "
           f"{_median(step_ms[2]):.3f} ms; worst level-gradient "
@@ -2450,6 +2868,10 @@ def main(argv=None):
           f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
           f"{ngp['frame_ms']:.2f} ms, device busy "
           f"{100.0 * ngp['busy']:.1f}% of 3 profiled steps", flush=True)
+    models = phase_ngp_models(torch, args.seed, card)
+    export = phase_export(torch, args.seed, card, record)
+    viewer = phase_viewer(torch, args.seed, card, ngp, record)
+    del record, ngp
     print(f"summary inside and files ({card}): inside phase "
           f"{inside['secs']:.1f} s (full-depth steps inside "
           f"{inside['step_ms_inside']:.3f} ms, outside "
@@ -2458,9 +2880,20 @@ def main(argv=None):
           f"{inside['faces']} faces, card vs CPU gradients within "
           f"{inside['card_vs_cpu']:.3e}); files phase {files['secs']:.1f} s "
           f"({files['load_ms_per_view']:.2f} ms a view loaded, eval psnr "
-          f"{files['eval_psnr']}); total {time.perf_counter() - t_start:.1f} "
-          f"s", flush=True)
-
+          f"{files['eval_psnr']})", flush=True)
+    tri, svox = models["triplane"], models["svox"]
+    print(f"summary ngp_models, export and viewer ({card}): triplane steady "
+          f"step {tri['steady_ms']:.3f} ms, peak {tri['peak_gib']:.3f} GiB, "
+          f"800x800 frame {tri['frame_ms']:.2f} ms; svox steady step "
+          f"{svox['steady_ms']:.3f} ms, peak {svox['peak_gib']:.3f} GiB, "
+          f"800x800 frame {svox['frame_ms']:.2f} ms ({models['secs']:.1f} "
+          f"s); export_native {export['native'][0] * 1e3:.1f} ms "
+          f"{export['native'][1]} bytes, export_pyramid_native "
+          f"{export['pyramid'][0]:.2f} s {export['pyramid'][1]} bytes "
+          f"({export['secs']:.1f} s); viewer frames ngp median "
+          f"{viewer['ngp']['median_ms']:.2f} ms, pyramid median "
+          f"{viewer['pyramid']['median_ms']:.2f} ms ({viewer['secs']:.1f} s)"
+          f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     fwd = timing[("serving nq=816", "cubic")]
     bwd = bwd_timing[("training R=256 nq=272", "cubic")]
@@ -2485,7 +2918,8 @@ def main(argv=None):
                              "serve_bf16": bf16_s["launches"],
                              "train_mixed_rig_outside":
                                  inside["launches_outside"][0],
-                             "train_files": files["launches"][0]},
+                             "train_files": files["launches"][0],
+                             "viewer": viewer["pyramid"]["launches"]},
         "max_abs_err": worst,
         # on one recorded chunk of each R=512 frame, each bake and operand
         # dtype

@@ -66,8 +66,7 @@ class BrickGridConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TriPlaneConfig:
-    """Tri-plane encoder (not ported yet: ROADMAP 'Modules to port' item
-    11)."""
+    """Tri-plane encoder (``ops/triplane.py``)."""
 
     levels: int = 8
     feature_per_level: int = 4

@@ -1,14 +1,14 @@
 """Instant-NGP radiance field on a plain dict of parameters.
 
-Port of the JAX package's ``models/ngp.py``: position encoder (hash grid
-or brick grid) -> 1-hidden-layer xyz MLP (TruncExp on channel 0 gives
-sigma) -> SH-16 direction encoding -> 2-hidden-layer rgb MLP with sigmoid.
-The MLPs take their operands in ``cfg.mlp_dtype`` (bf16 by default, on
-every device) and accumulate in fp32 (``models/mlp.py``).  The tri-plane
-encoder is not ported yet (ROADMAP 'Modules to port' item 11).
+Port of the JAX package's ``models/ngp.py``: position encoder (hash grid,
+brick grid or tri-plane) -> 1-hidden-layer xyz MLP (TruncExp on channel 0
+gives sigma) -> SH-16 direction encoding -> 2-hidden-layer rgb MLP with
+sigmoid.  The MLPs take their operands in ``cfg.mlp_dtype`` (bf16 by
+default, on every device) and accumulate in fp32 (``models/mlp.py``).
 
-Params: ``{"hash_table": (F, n)}`` or ``{"brick": {"corners", "bricks"}}``,
-plus ``"xyz_mlp"`` and ``"rgb_mlp"`` weight dicts.
+Params: ``{"hash_table": (F, n)}``, ``{"brick": {"corners", "bricks"}}``
+or ``{"triplane_table": (3, max_res**2, F)}``, plus ``"xyz_mlp"`` and
+``"rgb_mlp"`` weight dicts.
 """
 
 from __future__ import annotations
@@ -25,12 +25,10 @@ from ..ops.brick_encoder import (
 )
 from ..ops.hash_encoder import build_layout, hash_encode, init_hash_table
 from ..ops.sh import sh_encode
+from ..ops.triplane import init_triplane_table, triplane_encode
 from .mlp import MLPSpec, apply_mlp, init_mlp
 
 Params = Dict[str, Any]
-
-_TRIPLANE_TODO = ("the tri-plane encoder is not ported yet; see ROADMAP "
-                  "'Modules to port' item 11")
 
 
 class _TruncExp(torch.autograd.Function):
@@ -84,7 +82,8 @@ def init_ngp_params(cfg: ModelConfig,
         params["brick"] = init_brick_params(build_brick_layout(cfg.brick),
                                             generator, device)
     elif cfg.pos_encoder_type == "triplane":
-        raise NotImplementedError(_TRIPLANE_TODO)
+        params["triplane_table"] = init_triplane_table(cfg.triplane,
+                                                       generator, device)
     else:
         raise NotImplementedError(cfg.pos_encoder_type)
     params["xyz_mlp"] = init_mlp(xyz_mlp_spec(cfg), generator, device)
@@ -104,7 +103,7 @@ def _encode_position(params: Params, cfg: ModelConfig, x01: torch.Tensor):
         # the bf16 cast happens inside the encoder's autograd Function
         return brick_encode(params["brick"], x01,
                             build_brick_layout(cfg.brick))
-    raise NotImplementedError(_TRIPLANE_TODO)
+    return triplane_encode(params["triplane_table"], x01, cfg.triplane)
 
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -2,15 +2,15 @@
 
 Port of the JAX package's ``models/registry.py``.  Each family exposes
 ``init_params(cfg, generator, device) / forward(params, cfg, x, d) /
-density(params, cfg, x)``.  Only ``"ngp"`` is ported; the dense SH voxel
-grid (``"svox"``) is ROADMAP 'Modules to port' item 11.
+density(params, cfg, x)``: ``"ngp"`` (``models/ngp.py``) and ``"svox"``,
+the dense SH voxel grid (``models/voxel_grid.py``).
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
-from . import ngp
+from . import ngp, voxel_grid
 
 MODEL_DICT = {
     "ngp": SimpleNamespace(
@@ -18,13 +18,13 @@ MODEL_DICT = {
         forward=ngp.forward,
         density=ngp.density,
     ),
+    "svox": SimpleNamespace(
+        init_params=voxel_grid.init_params,
+        forward=voxel_grid.forward,
+        density=voxel_grid.density,
+    ),
 }
 
 
 def get_model(name: str):
-    if name == "svox":
-        raise NotImplementedError(
-            "the svox (voxel_grid) model is not ported yet; see ROADMAP "
-            "'Modules to port' item 11"
-        )
     return MODEL_DICT[name]

@@ -47,9 +47,23 @@ def _background(rcfg: RenderConfig, bg, device) -> torch.Tensor:
     return torch.full((3,), 1.0 if rcfg.white_bg else 0.0, device=device)
 
 
-def _eval_field_dense(params, mcfg, rays_o, rays_d, march):
+def _counted(xyzs, keep):
+    """``xyzs`` where ``keep``, the cube's centre elsewhere.
+
+    A slot that does not count (an invalid slot of the dense grid, a pad of
+    the packed one) gets weight 0, but its field value still enters the
+    composite and its backward as ``0 * value``.  The JAX renderer
+    evaluates such slots where the march left them, often outside the
+    cube, where the tri-plane encoder reads NaN (``ops/triplane.py``): a
+    dense tri-plane step there gives a NaN loss and poisons the table.
+    Here they are evaluated at the centre: every counted value and
+    gradient is unchanged, and nothing reads outside the cube."""
+    return torch.where(keep[..., None], xyzs, 0.0)
+
+
+def _eval_field_dense(params, mcfg, rays_o, rays_d, march, valid):
     """Field eval at every (ray, slot) of the sample grid."""
-    xyzs = sample_positions(rays_o, rays_d, march.ts)
+    xyzs = _counted(sample_positions(rays_o, rays_d, march.ts), valid)
     dirs = rays_d[:, None, :].expand(xyzs.shape)
     return get_model(mcfg.name).forward(params, mcfg, xyzs, dirs)
 
@@ -80,7 +94,7 @@ def _eval_field_packed(params, mcfg, rays_o, rays_d, march, valid,
     ray_id = torch.clamp(idx_c // s, max=n - 1)
     t_pk = march.ts.reshape(-1)[idx_c]
     o_pk, d_pk = rays_o[ray_id], rays_d[ray_id]
-    xyz_pk = o_pk + t_pk[:, None] * d_pk
+    xyz_pk = _counted(o_pk + t_pk[:, None] * d_pk, in_range)
     sig_pk, rgb_pk = get_model(mcfg.name).forward(params, mcfg, xyz_pk, d_pk)
     packed = torch.cat([sig_pk[:, None], rgb_pk], dim=1) * in_range[:, None]
     # pad slots (idx == ns) land on the extra row, which is dropped
@@ -126,7 +140,7 @@ def render_train(
     with _span("ngp.field"):
         if pack_cap is None:
             sigmas, rgbs = _eval_field_dense(params, mcfg, rays_o, rays_d,
-                                             march)
+                                             march, valid)
         else:
             sigmas, rgbs = _eval_field_packed(params, mcfg, rays_o, rays_d,
                                               march, valid, pack_cap)
@@ -189,7 +203,7 @@ def render_test_chunk(params, mcfg: ModelConfig, rcfg: RenderConfig,
             grid_size=mcfg.grid_size, sample_cap=s_seg, n_candidates=window,
         )
         valid = valid_mask(march.counts, s_seg)
-        xyzs = sample_positions(o, d, march.ts)
+        xyzs = _counted(sample_positions(o, d, march.ts), valid)
         sigmas, rgbs = model.forward(params, mcfg, xyzs,
                                      d[:, None, :].expand(xyzs.shape))
         sigmas = torch.where(valid, sigmas, 0.0)

@@ -4,13 +4,18 @@ Two branches, on one device, parsing ``train.py``'s flags with
 ``opt.get_opts`` (so a record manifest's argv runs unchanged after the
 module name):
 
-* ``--model_name ngp`` (the default): the sample-gather Instant-NGP path,
-  configured by ``config.py:config_from_opts``.  It trains with
+* ``--model_name ngp`` (the default) or ``svox``: the sample-gather path,
+  configured by ``config.py:config_from_opts`` (``--encoder_type brick``
+  (the default), ``hash`` or ``triplane``; svox's ``--grid_size``,
+  ``--grid_radius`` and ``--sh_degree``).  It trains with
   ``train/loop.py:Trainer``, writes ``model.npz`` (the JAX checkpoint:
   params, Adam's state, occupancy; ``--ckpt_path`` resumes from one written
   by either package), renders every test view with the
   test-time renderer, writes ``rgb_000.png`` and ``depth_000.png`` and
-  prints ``evaluation: psnr_avg=... | ssim_avg=...``::
+  prints ``evaluation: psnr_avg=... | ssim_avg=...``.  ``--deployment``
+  trains the small deployment model and writes ``deployment.npy`` to
+  ``--deployment_model_path`` (the hash encoder only: with another it
+  raises ``ValueError`` before training)::
 
     python -m taichi_nerfs_torch.train \
         --root_dir 'synthetic://lego?views=100&res=800' \
@@ -68,8 +73,11 @@ Both train on the card: ``--device cuda`` is the default, and it raises
 when there is no card; ``--device cpu`` asks for the CPU (the flag is the
 port's own, taken out before ``opt.get_opts`` parses the rest).  With
 ``--profile_dir DIR`` the last 3 steps run under ``torch.profiler``: the op
-table, the device-busy share and ``DIR/trace.json``.  Options the port does
-not run raise ``NotImplementedError`` naming their ROADMAP item.
+table, the device-busy share and ``DIR/trace.json``.  ``--gui`` opens the
+viewer (``viewer/gui.py``) after the evaluation, for both branches; without
+``cv2`` or a display it renders 8 orbiting frames headless and returns.
+``--num_devices`` above 1 raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -90,6 +98,7 @@ from ..data import dataset_dict
 from ..models.pyramid import PyramidConfig
 from ..utils.convert import load_ngp_npz, save_ngp_npz, save_pyramid_npz
 from ..utils.device import resolve_device
+from ..utils.export import check_deployable, save_deployment_model
 from ..utils.viz import depth2img, write_png
 from .metrics import psnr as psnr_fn
 from .metrics import ssim as ssim_fn
@@ -103,19 +112,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def _check_scope(hp):
-    todo = "not ported yet; see ROADMAP 'Modules to port' item {}"
-    if hp.model_name == "svox":
-        raise NotImplementedError(
-            "--model_name svox: the voxel_grid model is " + todo.format(11))
-    if hp.model_name == "ngp" and hp.encoder_type == "triplane":
-        raise NotImplementedError(
-            "--encoder_type triplane: the tri-plane encoder is "
-            + todo.format(11))
     if hp.num_devices > 1:
-        raise NotImplementedError("multi-device training is " + todo.format(12))
-    for flag, on in (("--gui", hp.gui), ("--deployment", hp.deployment)):
-        if on:
-            raise NotImplementedError(f"{flag} is " + todo.format(12))
+        raise NotImplementedError(
+            "multi-device training is not ported yet; see ROADMAP 'Modules "
+            "to port' item 12")
 
 
 def configs(hp, train_dataset):
@@ -204,11 +204,23 @@ def _fit(trainer, max_steps, profile_dir, device, n_prof=3):
     return m
 
 
+def _viewer(cfg, params, bitfield, test_dataset, render_fn=None):
+    """``--gui``: the viewer on the test split's camera (headless without
+    ``cv2`` or a display)."""
+    from ..viewer.gui import NGPGUI
+
+    NGPGUI(cfg, params, bitfield, test_dataset.K, test_dataset.img_wh,
+           np.asarray(test_dataset.poses), render_fn=render_fn).render()
+
+
 def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
-    """``train.py``'s NGP branch: fit, ``model.npz``, evaluate.  Returns
-    :func:`evaluate`'s dict and, when it trained, ``steps`` and the last
-    step's ``last_loss``."""
+    """``train.py``'s branch of every model but the pyramid (``ngp``,
+    ``svox``): fit, ``--deployment``'s ``deployment.npy``, ``model.npz``,
+    evaluate, ``--gui``.  Returns :func:`evaluate`'s dict and, when it
+    trained, ``steps`` and the last step's ``last_loss``."""
     cfg = config_from_opts(hp)
+    if hp.deployment:
+        check_deployable(cfg.model)  # before training, not after it
     trainer = Trainer(cfg, train_dataset.as_batch(device), train_dataset.K,
                       train_dataset.img_wh, device=device)
     if hp.ckpt_path:
@@ -226,14 +238,21 @@ def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
         m = _fit(trainer, hp.max_steps, hp.profile_dir, device)
         last = float(m["loss"])  # waits for the queued device steps
         print(f"training done in {time.time() - tic:.1f}s on {device}")
+    params, bitfield = trainer.state.params, trainer.state.occupancy.bitfield
+    if hp.deployment:
+        path = save_deployment_model(params, cfg.model, bitfield,
+                                     train_dataset.poses,
+                                     hp.deployment_model_path)
+        print(f"saved {path}")
     os.makedirs(val_dir, exist_ok=True)
     save_ngp_npz(os.path.join(val_dir, "model.npz"), trainer.state,
                  trainer.step, cfg.train.seed)
-    out = evaluate(trainer.state.params, cfg,
-                   trainer.state.occupancy.bitfield, test_dataset,
-                   save_dir=val_dir, max_images=hp.eval_views or None)
+    out = evaluate(params, cfg, bitfield, test_dataset, save_dir=val_dir,
+                   max_images=hp.eval_views or None)
     if not hp.val_only:
         out.update(steps=trainer.step, last_loss=last)
+    if hp.gui:
+        _viewer(cfg, params, bitfield, test_dataset)
     return out
 
 
@@ -290,7 +309,7 @@ def main(argv=None):
     n_views = len(train_dataset) + len(test_dataset)
     print(f"loaded {n_views} {hp.dataset_name} views at "
           f"{train_dataset.img_wh} in {time.time() - t0:.2f}s", flush=True)
-    if hp.model_name == "ngp":
+    if hp.model_name != "pyramid":
         return _train_ngp(hp, train_dataset, test_dataset, val_dir, device)
     mcfg, tcfg = configs(hp, train_dataset)
     # the GT alpha channel: the synthetic scenes keep it, the file loaders
@@ -343,10 +362,24 @@ def main(argv=None):
                       (img * 255).astype(np.uint8))
             write_png(os.path.join(val_dir, "depth_000.png"),
                       depth2img(out["depth"].reshape(h, w).cpu().numpy()))
-    if not psnrs:
-        return
-    print(f"evaluation: psnr_avg={np.mean(psnrs):.4f} | "
-          f"ssim_avg={np.mean(ssims):.4f}")
+    manifest = None
+    if psnrs:
+        print(f"evaluation: psnr_avg={np.mean(psnrs):.4f} | "
+              f"ssim_avg={np.mean(ssims):.4f}")
+        manifest = _write_manifest(hp, argv, mcfg, trainer, psnrs, ssims,
+                                   train_wall, val_dir)
+    if hp.gui:
+        # pyramid frames through the trainer's renderer (the sweep kernel
+        # on the card)
+        _viewer(None, trainer.state.params, None, test_dataset,
+                render_fn=lambda pose, K, wh: trainer.render(pose, K=K,
+                                                             img_wh=wh))
+    return manifest
+
+
+def _write_manifest(hp, argv, mcfg, trainer, psnrs, ssims, train_wall,
+                    val_dir):
+    """``model_pyramid.manifest.json`` in ``train.py``'s schema."""
 
     def _cfg_dict(c):
         return {k: list(v) if isinstance(v, tuple) else v

@@ -1,1 +1,1 @@
-"""Parameter conversion and visualisation helpers."""
+"""Parameter conversion, the deployment exports, visualisation helpers."""

@@ -186,7 +186,10 @@ def test_ngp_density_and_forward(enc, mlp_dtype):
 
 
 def test_ngp_init_shapes_and_triplane_raises():
-    for enc in ("hash", "brick"):
+    """The port's params have the JAX params' tree and shapes for every
+    encoder; the tri-plane encoder (which raised until it was ported)
+    too, at its default ``TriPlaneConfig``."""
+    for enc in ("hash", "brick", "triplane"):
         tm, jm = _tiny_model(enc, "float32")
         jp = jax.device_get(jngp.init_ngp_params(jax.random.PRNGKey(0), jm))
         tp = tngp.init_ngp_params(tm, torch.Generator().manual_seed(0))
@@ -195,6 +198,4 @@ def test_ngp_init_shapes_and_triplane_raises():
                         if isinstance(v, dict) else tuple(v.shape))
                     for k, v in tp.items()}
         assert t_shapes == j_shapes
-    tm, _ = _tiny_model("hash", "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tngp.init_ngp_params(tm.replace(pos_encoder_type="triplane"))
+    assert t_shapes["triplane_table"] == (3, 1024**2, 4)

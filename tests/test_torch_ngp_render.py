@@ -1,8 +1,9 @@
 """Port parity of the NGP renderer, the training step and its pieces.
 
-At a tiny configuration (grid 32^3, 4 hash or brick levels, 16-wide fp32
-MLPs), from identical params, bitfield and draws (the JAX draws reproduced
-from the JAX functions' own key splits):
+At a tiny configuration (grid 32^3, 4 hash, brick or tri-plane levels,
+16-wide fp32 MLPs; or the svox grid of ``tests/test_voxel_grid.py``), from
+identical params, bitfield and draws (the JAX draws reproduced from the JAX
+functions' own key splits):
 
 * ``render_train``, dense and packed with a ``pack_cap`` below the valid
   count (so truncation runs): rgb, depth and opacity to 1e-5, every
@@ -36,7 +37,7 @@ from taichi_nerfs_torch.utils import convert as tconv
 from taichi_nerfs_tpu import config as jconfig
 from taichi_nerfs_tpu.data.synthetic import SyntheticSphereDataset as JDS
 from taichi_nerfs_tpu.data.synthetic import look_at
-from taichi_nerfs_tpu.models import ngp as jngp
+from taichi_nerfs_tpu.models.registry import get_model as jget_model
 from taichi_nerfs_tpu.ops.math import packbits_u32
 from taichi_nerfs_tpu.ops.rays import get_ray_directions, get_rays
 from taichi_nerfs_tpu.render import renderer as jrend
@@ -45,12 +46,19 @@ from taichi_nerfs_tpu.train import step as jstep
 
 
 def _configs(enc="hash", random_bg=False, batch=256):
+    """Port and JAX configs of the tiny model with encoder ``enc``; ``enc
+    == "svox"``: the svox family (grid 48, radius 1.05 / 48, SH degree
+    1)."""
     m = dict(scale=0.5, pos_encoder_type=enc, grid_size=32, xyz_net_width=16,
              rgb_net_width=16, mlp_dtype="float32")
+    if enc == "svox":
+        m.update(name="svox", pos_encoder_type="hash", voxel_grid_size=48,
+                 voxel_radius=1.05 / 48, voxel_sh_degree=1)
     hk = dict(levels=4, feature_per_level=2, log2_T=11, base_res=4,
               max_res=32)
     bk = dict(levels=4, feature_per_level=4, log2_rows=9, base_res=4,
               max_res=32)
+    pk = dict(levels=4, feature_per_level=2, base_res=4, max_res=32)
     r = dict(exp_step_factor=0.0, train_sample_cap=256, test_chunk_samples=16,
              white_bg=True, random_bg=random_bg)
     t = dict(batch_size=batch, max_steps=200, warmup_steps=40,
@@ -59,7 +67,8 @@ def _configs(enc="hash", random_bg=False, batch=256):
     for c in (tconfig, jconfig):
         out.append(c.Config(
             model=c.ModelConfig(grid=c.HashGridConfig(**hk),
-                                brick=c.BrickGridConfig(**bk), **m),
+                                brick=c.BrickGridConfig(**bk),
+                                triplane=c.TriPlaneConfig(**pk), **m),
             render=c.RenderConfig(**r), train=c.TrainConfig(**t)))
     return out
 
@@ -89,7 +98,8 @@ def _camera_rays(w=24, h=24, eye=(0.9, 0.7, 0.6)):
 
 
 def _params(jcfg, seed=1):
-    jp = jngp.init_ngp_params(jax.random.PRNGKey(seed), jcfg.model)
+    jp = jget_model(jcfg.model.name).init_params(jax.random.PRNGKey(seed),
+                                                 jcfg.model)
     return jp, tstate.trainable(tconv.ngp_params_from_numpy(
         jax.device_get(jp)))
 
@@ -162,7 +172,7 @@ def test_pack_indices_match_nonzero():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("enc", ["hash", "brick"])
+@pytest.mark.parametrize("enc", ["hash", "brick", "triplane"])
 def test_render_image(enc):
     tcfg, jcfg = _configs(enc)
     jp, tp = _params(jcfg, seed=2)
@@ -212,7 +222,7 @@ def _assert_same_step(tnew, tm, jnew, jm):
         assert _rel(a, b) <= 1e-5
 
 
-@pytest.mark.parametrize("enc", ["hash", "brick"])
+@pytest.mark.parametrize("enc", ["hash", "brick", "triplane"])
 def test_one_train_step(enc):
     tcfg, jcfg = _configs(enc, random_bg=(enc == "hash"))
     scene = JDS(n_images=3, img_wh=(16, 16))
@@ -318,13 +328,14 @@ def _trained_jax_state(jcfg, steps=2):
     return jst, scene
 
 
-def test_jax_loads_port_model_file(tmp_path):
+@pytest.mark.parametrize("enc", ["hash", "triplane", "svox"])
+def test_jax_loads_port_model_file(enc, tmp_path):
     """A model.npz the port writes loads in the JAX ``load_checkpoint``
-    into ``create_train_state``'s template, with the port's moments and
-    counts."""
+    into ``create_train_state``'s template, with the port's params,
+    moments and counts: for the tri-plane table and svox's fields too."""
     from taichi_nerfs_tpu.utils.checkpoint import load_checkpoint
 
-    tcfg, jcfg = _configs("hash")
+    tcfg, jcfg = _configs(enc)
     jst, _ = _trained_jax_state(jcfg)
     mu, nu = (tconv.ngp_params_from_numpy(jax.device_get(x))
               for x in (jst.opt_state[0].mu, jst.opt_state[0].nu))
@@ -339,6 +350,9 @@ def test_jax_loads_port_model_file(tmp_path):
     tconv.save_ngp_npz(path, ts, step=5, seed=tcfg.train.seed)
     loaded, step = load_checkpoint(path, jstate.create_train_state(jcfg))
     assert step == 5
+    for a, b in zip(jax.tree_util.tree_leaves(loaded.params),
+                    jax.tree_util.tree_leaves(jst.params)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     adam, sched = loaded.opt_state
     assert (int(adam.count), int(sched.count)) == (2, 5)
     for a, b in zip(jax.tree_util.tree_leaves((adam.mu, adam.nu)),
@@ -351,7 +365,7 @@ def test_jax_loads_port_model_file(tmp_path):
         np.asarray(jax.random.key_data(loaded.rng)), [0, tcfg.train.seed])
 
 
-@pytest.mark.parametrize("enc", ["hash", "brick"])
+@pytest.mark.parametrize("enc", ["hash", "brick", "triplane"])
 def test_resumed_step_matches_jax(enc, tmp_path):
     """A port resume of a JAX-written model.npz carries Adam's moments and
     both counts, and one resumed port step equals one resumed JAX step on

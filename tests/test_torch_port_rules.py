@@ -159,23 +159,72 @@ _NGP_ARGV = ["--root_dir", "synthetic://sphere?views=4&res=24",
              "--dataset_name", "synthetic", "--model_name", "ngp"]
 
 
+def _tiny_ngp_entry(monkeypatch):
+    """The train entry with ``config_from_opts`` shrunk to a CPU size, the
+    model family and encoder kept."""
+    import dataclasses
+
+    import taichi_nerfs_torch.train.__main__ as entry
+
+    real = entry.config_from_opts
+
+    def tiny(hp):
+        cfg = real(hp)
+        return cfg.replace(
+            model=cfg.model.replace(
+                grid_size=16, xyz_net_width=16, rgb_net_width=16,
+                grid=dataclasses.replace(cfg.model.grid, log2_T=11),
+                brick=dataclasses.replace(cfg.model.brick, levels=2,
+                                          log2_rows=10, max_res=32),
+                triplane=dataclasses.replace(cfg.model.triplane, levels=2,
+                                             max_res=32)),
+            render=dataclasses.replace(cfg.render, train_sample_cap=64,
+                                       test_chunk_samples=16),
+            train=dataclasses.replace(cfg.train, warmup_steps=4,
+                                      update_interval=2),
+        )
+
+    monkeypatch.setattr(entry, "config_from_opts", tiny)
+    return entry
+
+
 @pytest.mark.parametrize("extra", [
-    ["--model_name", "svox"],
+    ["--model_name", "svox", "--grid_size", "16", "--grid_radius", "0.0625",
+     "--sh_degree", "1"],
     ["--encoder_type", "triplane"],
-    ["--deployment"],
+    ["--deployment", "--encoder_type", "hash"],
     ["--gui"],
     ["--num_devices", "2"],
     ["--dataset_name", "nsvf"],
 ], ids=["svox", "triplane", "deployment", "gui", "num_devices", "nsvf"])
-def test_train_entry_out_of_scope_raises(extra, tmp_path, monkeypatch):
-    """The options the port does not run raise naming their ROADMAP item.
-    ``--dataset_name nsvf`` (ROADMAP item 7) runs since the file loaders
-    were ported: it trains on an NSVF scene written by the exporter."""
+def test_train_entry_out_of_scope_raises(extra, tmp_path, monkeypatch,
+                                         capsys):
+    """Only ``--num_devices`` above 1 still raises naming its ROADMAP item
+    (12).  The options whose modules were ported run: ``svox``,
+    ``triplane``, ``--deployment`` (with the hash encoder) and ``--gui``
+    each train a tiny model on the CPU; ``--dataset_name nsvf`` trains on an
+    NSVF scene written by the exporter."""
     from taichi_nerfs_torch.train.__main__ import main
 
-    if extra != ["--dataset_name", "nsvf"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if extra[0] == "--num_devices":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*12"):
             main(_NGP_ARGV + extra)
+        return
+    monkeypatch.chdir(tmp_path)
+    if extra != ["--dataset_name", "nsvf"]:
+        entry = _tiny_ngp_entry(monkeypatch)
+        res = entry.main(_NGP_ARGV + [
+            "--max_steps", "4", "--batch_size", "128", "--exp_name", "tiny",
+            "--eval_views", "1", "--device", "cpu",
+            "--deployment_model_path", "dep"] + extra)
+        assert res["steps"] == 5 and np.isfinite(res["last_loss"])
+        assert np.all(np.isfinite(res["psnr"]))
+        assert (tmp_path / "results" / "tiny" / "model.npz").exists()
+        assert (tmp_path / "dep" / "deployment.npy").exists() == (
+            "--deployment" in extra)
+        frames = [ln for ln in capsys.readouterr().out.splitlines()
+                  if ln.startswith("frame ")]
+        assert len(frames) == (8 if "--gui" in extra else 0)
         return
     from taichi_nerfs_torch.data.nsvf_export import export_nsvf_dataset
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
@@ -185,7 +234,6 @@ def test_train_entry_out_of_scope_raises(extra, tmp_path, monkeypatch):
     export_nsvf_dataset(root, {
         "train": SyntheticSphereDataset(**kw),
         "test": SyntheticSphereDataset(split="test", **kw)})
-    monkeypatch.chdir(tmp_path)
     manifest = main(["--root_dir", root, "--downsample", str(16 / 800),
                      "--model_name", "pyramid", "--pyramid_levels", "8,16",
                      "--features", "4", "--max_steps", "2",
@@ -195,11 +243,15 @@ def test_train_entry_out_of_scope_raises(extra, tmp_path, monkeypatch):
 
 
 def test_ngp_registry_and_trainer_mesh_raise():
+    """``get_model("svox")`` returns the voxel-grid family (it raised
+    until ``models/voxel_grid.py`` was ported); a mesh still raises."""
+    from taichi_nerfs_torch.models import voxel_grid
     from taichi_nerfs_torch.models.registry import get_model
     from taichi_nerfs_torch.train.loop import Trainer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("svox")
+    svox = get_model("svox")
+    assert (svox.init_params, svox.forward, svox.density) == (
+        voxel_grid.init_params, voxel_grid.forward, voxel_grid.density)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(None, None, None, None, mesh=object())
 
@@ -208,27 +260,9 @@ def test_train_entry_ngp_cpu_run(tmp_path, monkeypatch):
     """One CPU run of ``python -m taichi_nerfs_torch.train --model_name
     ngp`` at a tiny size: it trains, writes model.npz and the PNGs, and
     reports the evaluation."""
-    import dataclasses
-
-    import taichi_nerfs_torch.train.__main__ as entry
     from taichi_nerfs_torch.utils.convert import load_ngp_npz
 
-    real = entry.config_from_opts
-
-    def tiny(hp):
-        cfg = real(hp)
-        return cfg.replace(
-            model=cfg.model.replace(
-                grid_size=16, xyz_net_width=16, rgb_net_width=16,
-                brick=dataclasses.replace(cfg.model.brick, levels=2,
-                                          log2_rows=10, max_res=32)),
-            render=dataclasses.replace(cfg.render, train_sample_cap=64,
-                                       test_chunk_samples=16),
-            train=dataclasses.replace(cfg.train, warmup_steps=4,
-                                      update_interval=2),
-        )
-
-    monkeypatch.setattr(entry, "config_from_opts", tiny)
+    entry = _tiny_ngp_entry(monkeypatch)
     monkeypatch.chdir(tmp_path)
     res = entry.main(_NGP_ARGV + ["--max_steps", "6", "--batch_size", "128",
                                   "--exp_name", "tiny", "--eval_views", "2",
