@@ -109,7 +109,23 @@ phases:
    phase's model (the last equal to ``render_image`` at its pose) and 8 of
    the train phase's record model through ``SwrTrainer.render`` (finite,
    ``swr_sweep_fwd`` launched, the first equal to ``SwrTrainer.render`` at
-   its pose); each model's frame-time median and spread printed.
+   its pose); each model's frame-time median and spread printed;
+17. parallel: data-parallel training (``parallel/``) at full width on 8
+   checker views at 256x256: the flagship NGP configuration (its MLPs in
+   fp32, a refresh every 2 steps) for 4 steps after a warm-up and a steady
+   refresh from its first state, and the record pyramid at full depth
+   (crop 256, cubic, 16 chunks) for 2 crop-parallel steps; (a) on
+   ``cuda:0`` as a real NCCL process group of one rank, (b) on two ranks
+   sharing ``cuda:0`` over gloo (NCCL refuses two ranks on one card).  Each
+   against one process on the card: the refreshes equal (density grid 2e-6
+   / 2e-5, bitfields equal), the first step's loss within 1e-5 and params
+   within 2e-6 (but where both runs' gradient is below 1e-8, whose sign
+   the atomics of either run decide; at most a 1e-5 share), the NGP steps
+   of the ranks against the one-process steps, the pyramid's against the
+   mean of the ranks' crops' gradients with Adam once; every rank's params
+   bitwise equal, both sweep kernels launched on every rank; step times
+   (the two ranks share one card: not a scaling figure) and peak memory a
+   rank.
 
 Prints each new phase's seconds and the run's total, one JSON line with
 the kernels' numbers and, last, one JSON line ``{"ok": true, "device":
@@ -2751,6 +2767,341 @@ def phase_viewer(torch, seed, card, ngp, record):
     return res
 
 
+# the parallel phase: NGP steps (refreshes at steps 0 and 2) and full-depth
+# pyramid steps a run
+PAR_NGP_STEPS, PAR_SWR_STEPS = 4, 2
+# one process against the ranks, after the first step (a later step starts
+# from params that differ where that step's atomics decided a sign):
+# tests/test_sharding.py's tolerances
+PAR_LOSS_RTOL, PAR_TOL = 1e-5, 2e-6
+# the gradients of both runs are summed with atomics (index_add_ in the NGP
+# backward, the sweep backward's d vol), so a gradient within rounding of 0
+# takes either sign, and Adam's first step (eps 1e-15) moves that entry by
+# up to lr either way: an entry past PAR_TOL must have a first-step
+# gradient below PAR_TINY_GRAD in both runs (typical ones are ~1e-5), and
+# such entries at most PAR_FLIP_SHARE of all
+PAR_TINY_GRAD, PAR_FLIP_SHARE = 1e-8, 1e-5
+
+
+def _parallel_configs():
+    """The flagship NGP configuration with a refresh every 2 steps (the
+    warm-up one at step 0, a steady one at step 2) and its MLPs in fp32,
+    and the record pyramid at full depth from the first step.
+
+    fp32 MLPs: the flagship's bf16 MLPs round every product to bf16, and a
+    shard's matmul has other rows than the one-process one (and the one
+    process packs where a shard evaluates dense), which may round it
+    otherwise; ``tests/test_sharding.py``'s tolerances presume fp32, as its
+    configuration sets."""
+    import dataclasses
+
+    from taichi_nerfs_torch.config import config_for_scene
+    from taichi_nerfs_torch.render.serve import record_config
+    from taichi_nerfs_torch.train.swr_step import SwrTrainConfig
+
+    cfg = config_for_scene(0.5)
+    cfg = cfg.replace(model=cfg.model.replace(mlp_dtype="float32"),
+                      train=dataclasses.replace(cfg.train, warmup_steps=2,
+                                                update_interval=2))
+    tcfg = SwrTrainConfig(crop=256, lr=1e-2, max_steps=TRAIN_STEPS,
+                          n_chunks=16, resample_kind="cubic", alpha_w=0.2,
+                          random_bg=True, tv_w=5e-4, sigma_l1=1e-5)
+    return cfg, record_config(), tcfg
+
+
+def _parallel_rank(mesh, scene):
+    """One rank of the parallel phase: the flagship NGP ``Trainer`` (both
+    refreshes from its first state on fixed draws, then its steps) and the
+    record ``SwrTrainer`` on ``mesh``, timed; the kernels' launches counted
+    from 0 in this rank, over its pyramid steps."""
+    import torch
+
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.parallel import sharded_density_grid_step
+    from taichi_nerfs_torch.train.loop import Trainer
+    from taichi_nerfs_torch.train.swr_step import SwrTrainer
+
+    cfg, mcfg, tcfg = _parallel_configs()
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"rank": mesh.rank}
+    tr = Trainer(cfg, _parallel_batch(torch, scene, dev), scene["K"],
+                 scene["img_wh"], mesh=mesh, log_fn=lambda s: None)
+    warm = sharded_density_grid_step(tr.state, cfg, mesh, True,
+                                     draws=_parallel_grid_draws(cfg, True, dev))
+    steady = sharded_density_grid_step(
+        warm, cfg, mesh, False, draws=_parallel_grid_draws(cfg, False, dev))
+    out["grids"] = [(g.occupancy.density_grid.cpu(),
+                     g.occupancy.bitfield.cpu()) for g in (warm, steady)]
+    del warm, steady
+    out["ngp"] = _timed_steps(torch, tr, PAR_NGP_STEPS)
+    del tr
+
+    st = SwrTrainer(mcfg, tcfg, scene["rays"], scene["poses"], scene["K"],
+                    scene["img_wh"], seed=3, alphas=scene["alphas"],
+                    mesh=mesh)
+    out["swr_draws"] = [st.draw_sharded() for _ in range(PAR_SWR_STEPS)]
+    chunk_sweep.launches = chunk_sweep_bwd.launches = 0
+    out["swr"] = _timed_steps(torch, st, PAR_SWR_STEPS, out["swr_draws"])
+    out["launches"] = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def _parallel_batch(torch, scene, dev):
+    from taichi_nerfs_torch.train.step import Batch
+
+    return Batch(*(torch.as_tensor(scene[k], device=dev)
+                   for k in ("rays", "poses", "directions")))
+
+
+def _parallel_grid_draws(cfg, warmup, dev):
+    import torch
+
+    from taichi_nerfs_torch.models.occupancy import draw_grid_inputs
+
+    return draw_grid_inputs(cfg.model, warmup, torch.Generator(
+        dev).manual_seed(11 + warmup), dev)
+
+
+def _timed_steps(torch, trainer, n, draws=None):
+    """``n`` steps of ``trainer``: losses, ms each, and (on the host) the
+    params and Adam's first moment after the first step and the params
+    after the last."""
+    losses, ms, out = [], [], {}
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.run_step(*([] if draws is None else [draws[i]]))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["params1"] = _host_leaves(trainer.state.params)
+            out["mu1"] = _host_leaves(trainer.state.opt_state.mu)
+    out["params"] = _host_leaves(trainer.state.params)
+    return dict(out, losses=losses, ms=ms)
+
+
+def _host_leaves(tree):
+    from taichi_nerfs_torch.train.state import tree_leaves
+
+    return [p.detach().cpu() for p in tree_leaves(tree)]
+
+
+def _params_close(tag, got, want):
+    """The params after the first step (``got``, ``want``: dicts of
+    ``params1`` and ``mu1``, Adam's first moment, 0.1 times the gradient)
+    within PAR_TOL (absolute and relative) but where the first-step
+    gradient of both runs is below PAR_TINY_GRAD, at most PAR_FLIP_SHARE of
+    the entries; returns (max difference, entries past the tolerance,
+    entries)."""
+    worst, off, bad, total = 0.0, 0, 0, 0
+    for a, b, ma, mb in zip(got["params1"], want["params1"], got["mu1"],
+                            want["mu1"], strict=True):
+        if not b.numel():
+            continue
+        d = (a - b).abs()
+        past = d > PAR_TOL + PAR_TOL * b.abs()
+        tiny = ma.abs().maximum(mb.abs()) < 0.1 * PAR_TINY_GRAD
+        worst = max(worst, float(d.max()))
+        off += int(past.sum())
+        bad += int((past & ~tiny).sum())
+        total += b.numel()
+    print(f"parallel: {tag}: params max difference {worst:.3e}, {off} of "
+          f"{total} entries past {PAR_TOL} ({bad} of them with a gradient "
+          f"of {PAR_TINY_GRAD} or more)", flush=True)
+    if bad or off > PAR_FLIP_SHARE * total:
+        raise AssertionError(f"{tag}: {off} of {total} params differ by "
+                             f"more than {PAR_TOL}, {bad} of them with a "
+                             f"gradient of {PAR_TINY_GRAD} or more")
+    return worst, off, total
+
+
+def _losses_close(tag, got, want):
+    """The first step's loss within PAR_LOSS_RTOL of one process's; every
+    loss finite.  Later steps start from params that may differ where the
+    first step's atomics decided a sign, so their differences are only
+    printed."""
+    import numpy as np
+
+    err = np.abs(np.asarray(got) - want) / np.abs(want)
+    print(f"parallel: {tag}: losses {[round(float(x), 6) for x in got]}, "
+          f"one process {[round(float(x), 6) for x in want]}, relative "
+          f"differences {[float(f'{e:.3e}') for e in err]}", flush=True)
+    if not np.all(np.isfinite(got)) or err[0] > PAR_LOSS_RTOL:
+        raise AssertionError(f"{tag}: losses {got} vs {want}")
+
+
+def _same_bits_on_every_rank(torch, tag, outs):
+    for key in ("ngp", "swr"):
+        for o in outs[1:]:
+            for a, b in zip(outs[0][key]["params"], o[key]["params"],
+                            strict=True):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{tag}: rank {o['rank']}'s {key} "
+                                         "params differ from rank 0's")
+    print(f"parallel: {tag}: NGP and pyramid params bitwise equal on the "
+          f"{len(outs)} ranks", flush=True)
+
+
+def _parallel_reference(torch, scene, outs):
+    """One process on the card: the unsharded trainers' refreshes and NGP
+    steps, and the pyramid steps as the mean of the ranks' crops'
+    gradients with Adam applied once (on the draws the ranks made)."""
+    from taichi_nerfs_torch.train.loop import Trainer
+    from taichi_nerfs_torch.train.step import density_grid_step
+    from taichi_nerfs_torch.train.swr_step import (
+        SwrTrainer,
+        apply_swr_grads,
+        loss_and_grads,
+        make_swr_loss,
+    )
+
+    cfg, mcfg, tcfg = _parallel_configs()
+    dev = torch.device("cuda")
+    tr = Trainer(cfg, _parallel_batch(torch, scene, dev), scene["K"],
+                 scene["img_wh"], log_fn=lambda s: None)
+    warm = density_grid_step(tr.state, cfg, True,
+                             draws=_parallel_grid_draws(cfg, True, dev))
+    steady = density_grid_step(warm, cfg, False,
+                               draws=_parallel_grid_draws(cfg, False, dev))
+    ref = {"grids": [(g.occupancy.density_grid.cpu(),
+                      g.occupancy.bitfield.cpu()) for g in (warm, steady)]}
+    del warm, steady
+    ref["ngp"] = _timed_steps(torch, tr, PAR_NGP_STEPS)
+    del tr
+    st = SwrTrainer(mcfg, tcfg, scene["rays"], scene["poses"], scene["K"],
+                    scene["img_wh"], seed=3, alphas=scene["alphas"],
+                    device=dev)
+    losses = []
+    for s in range(PAR_SWR_STEPS):
+        pl = st.plan_sharded(outs[0]["swr_draws"][s])
+        parts = []
+        for r, o in enumerate(outs):
+            d = o["swr_draws"][s]
+            parts.append(loss_and_grads(make_swr_loss(
+                st.images[d.idxs[r]], st.poses_np[d.idxs[r]], st.K,
+                d.wins[r], st.cur_mcfg, tcfg, pl.axis, pl.flip,
+                d.bg.to(dev), d.tv_starts, st.lat_size, pl.warp,
+                pl.slab_window, pl.inside, st.sigma_keep,
+                None if pl.slope_bounds is None else pl.slope_bounds[r]),
+                st.state.params))
+            del d
+        n = len(parts)
+        grads = [sum(g) / n for g in zip(*(p[2] for p in parts))]
+        st.state, m = apply_swr_grads(st.state, tcfg,
+                                      sum(p[0] for p in parts) / n,
+                                      sum(p[1] for p in parts) / n, grads)
+        st.step += 1
+        del parts, grads
+        losses.append(float(m["loss"]))
+        if s == 0:
+            ref["swr"] = {"params1": _host_leaves(st.state.params),
+                          "mu1": _host_leaves(st.state.opt_state.mu)}
+    ref["swr"]["losses"] = losses
+    return ref
+
+
+def _parallel_compare(tag, outs, ref):
+    """The ranks against one process; returns the worst params difference
+    and the entries past the tolerance (NGP, pyramid)."""
+    import numpy as np
+
+    for (g, b), (gw, bw), what, rtol in zip(outs[0]["grids"], ref["grids"],
+                                            ("warm-up", "steady"),
+                                            (2e-6, 2e-5)):
+        d = (g - gw).abs()
+        off = int((d > PAR_TOL + rtol * gw.abs()).sum())
+        bits = int((b != bw).sum())
+        print(f"parallel: {tag}: {what} refresh of {g.numel()} cells: "
+              f"density grid max difference {float(d.max()):.3e} ({off} "
+              f"past {PAR_TOL} + {rtol} relative), {bits} bitfield words "
+              "differ", flush=True)
+        if off or bits:
+            raise AssertionError(f"{tag}: the {what} refresh differs")
+    _losses_close(f"{tag} NGP", outs[0]["ngp"]["losses"],
+                  np.asarray(ref["ngp"]["losses"]))
+    _losses_close(f"{tag} pyramid", outs[0]["swr"]["losses"],
+                  np.asarray(ref["swr"]["losses"]))
+    return (_params_close(f"{tag} NGP, first step", outs[0]["ngp"],
+                          ref["ngp"]),
+            _params_close(f"{tag} pyramid, first step", outs[0]["swr"],
+                          ref["swr"]))
+
+
+def _fmt_ms(ms):
+    return [round(x, 3) for x in ms]
+
+
+def _par_launches(par, k):
+    """Kernel ``k``'s launches on each rank of each parallel run."""
+    return {tag: [x[k] for x in par[tag]["launches"]]
+            for tag in ("nccl 1 rank", "gloo 2 ranks on one card")}
+
+
+def phase_parallel(torch, card):
+    """Data-parallel training at full width: (a) ``cuda:0`` as a real NCCL
+    process group of one rank; (b) two ranks sharing ``cuda:0`` over gloo
+    (NCCL refuses two ranks on one card).  Each against one process on the
+    card; every rank's params bitwise equal; both sweep kernels launched on
+    every rank."""
+    import tempfile
+
+    import numpy as np
+
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' cache, for the ranks
+    ds = SyntheticSphereDataset(n_images=8, img_wh=(256, 256),
+                                variant="checker", device="cuda")
+    scene = {"rays": np.asarray(ds.rays, np.float32)[..., :3],
+             "alphas": np.asarray(ds.alphas, np.float32),
+             "poses": np.asarray(ds.poses, np.float32),
+             "directions": np.asarray(ds.directions, np.float32),
+             "K": np.asarray(ds.K, np.float32), "img_wh": ds.img_wh}
+    del ds
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, n, device, backend in (("nccl 1 rank", 1, "cuda", "nccl"),
+                                        ("gloo 2 ranks on one card", 2,
+                                         "cuda:0", "gloo")):
+            t0 = time.perf_counter()
+            outs = launch(_parallel_rank, n, device=device, backend=backend,
+                          rendezvous_dir=tmp, args=(scene,))
+            secs = time.perf_counter() - t0
+            ref = _parallel_reference(torch, scene, outs)
+            worst = _parallel_compare(tag, outs, ref)
+            _same_bits_on_every_rank(torch, tag, outs)
+            launches = [o["launches"] for o in outs]
+            if min(min(x) for x in launches) <= 0:
+                raise AssertionError(f"{tag}: a sweep kernel was not "
+                                     f"launched on every rank: {launches}")
+            for o in outs:
+                print(f"parallel ({card}): {tag}, rank {o['rank']}: NGP "
+                      f"steps {[round(x, 3) for x in o['ngp']['ms']]} ms, "
+                      f"pyramid steps "
+                      f"{[round(x, 3) for x in o['swr']['ms']]} ms, peak "
+                      f"{o['peak_gib']:.3f} GiB, swr_sweep_fwd / "
+                      f"swr_sweep_bwd launches {o['launches']}", flush=True)
+            print(f"parallel ({card}): {tag}: one process NGP steps "
+                  f"{[round(x, 3) for x in ref['ngp']['ms']]} ms; the launch "
+                  f"took {secs:.1f} s", flush=True)
+            res[tag] = {"launches": launches, "worst": worst,
+                        "ngp_ms": [o["ngp"]["ms"] for o in outs],
+                        "swr_ms": [o["swr"]["ms"] for o in outs],
+                        "peak_gib": [o["peak_gib"] for o in outs],
+                        "secs": secs}
+            del outs, ref
+    res["secs"] = time.perf_counter() - t_phase
+    print(f"parallel ({card}): phase {res['secs']:.1f} s (the times of "
+          f"the 2 ranks are of 2 ranks sharing one card: not a scaling "
+          f"figure)", flush=True)
+    return res
+
+
 def ptxas_summary(log):
     """One line per kernel of nvcc's ``-Xptxas -v`` output: the kernel with
     its template arguments (F, kind, the volume's type, operand bf16), its
@@ -2788,7 +3139,7 @@ def phase_build():
 
     from taichi_nerfs_torch.ops import _build
 
-    names = ("swr_sweep_fwd", "swr_sweep_bwd")
+    names = _build.kernel_names()
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(_build.build, names))
     for name, (path, log, secs) in zip(names, builds):
@@ -2872,6 +3223,7 @@ def main(argv=None):
     export = phase_export(torch, args.seed, card, record)
     viewer = phase_viewer(torch, args.seed, card, ngp, record)
     del record, ngp
+    par = phase_parallel(torch, card)
     print(f"summary inside and files ({card}): inside phase "
           f"{inside['secs']:.1f} s (full-depth steps inside "
           f"{inside['step_ms_inside']:.3f} ms, outside "
@@ -2893,7 +3245,17 @@ def main(argv=None):
           f"({export['secs']:.1f} s); viewer frames ngp median "
           f"{viewer['ngp']['median_ms']:.2f} ms, pyramid median "
           f"{viewer['pyramid']['median_ms']:.2f} ms ({viewer['secs']:.1f} s)"
-          f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"", flush=True)
+    one, two = par["nccl 1 rank"], par["gloo 2 ranks on one card"]
+    print(f"summary parallel ({card}): nccl, 1 rank: NGP steps "
+          f"{_fmt_ms(one['ngp_ms'][0])} ms, pyramid steps "
+          f"{_fmt_ms(one['swr_ms'][0])} ms, peak {one['peak_gib'][0]:.3f} GiB; "
+          f"gloo, 2 ranks sharing one card: NGP steps "
+          f"{[_fmt_ms(x) for x in two['ngp_ms']]} ms, pyramid steps "
+          f"{[_fmt_ms(x) for x in two['swr_ms']]} ms, peak "
+          f"{[round(x, 3) for x in two['peak_gib']]} GiB a rank; phase "
+          f"{par['secs']:.1f} s; total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     fwd = timing[("serving nq=816", "cubic")]
     bwd = bwd_timing[("training R=256 nq=272", "cubic")]
@@ -2919,7 +3281,9 @@ def main(argv=None):
                              "train_mixed_rig_outside":
                                  inside["launches_outside"][0],
                              "train_files": files["launches"][0],
-                             "viewer": viewer["pyramid"]["launches"]},
+                             "viewer": viewer["pyramid"]["launches"],
+                             # a list: each rank's count
+                             "train_parallel": _par_launches(par, 0)},
         "max_abs_err": worst,
         # on one recorded chunk of each R=512 frame, each bake and operand
         # dtype
@@ -2946,7 +3310,8 @@ def main(argv=None):
                              "train_bf16": bf16_t["launches"][1],
                              "train_mixed_rig_outside":
                                  inside["launches_outside"][1],
-                             "train_files": files["launches"][1]},
+                             "train_files": files["launches"][1],
+                             "train_parallel": _par_launches(par, 1)},
         # the backward's second kernel, swr_sweep_bwd_rows_kernel (a bf16
         # volume or bf16 operands)
         "finish_launches_by_path": {"train_bf16":

@@ -11,5 +11,7 @@ Ported so far: the pyramid model on the shear-warp renderer, serving
 sample-gather Instant-NGP path (hash and brick encoders, occupancy grid,
 marching, compositing, ``train/loop.py:Trainer`` and the test-time
 renderer ``render/renderer.py``), both behind ``python -m
-taichi_nerfs_torch.train``.
+taichi_nerfs_torch.train``, on one device or data-parallel on several
+(``parallel/``, ``--num_devices``); ``entry.py`` is the counterpart of the
+repository's ``__graft_entry__.py``.
 """

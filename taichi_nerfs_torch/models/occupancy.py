@@ -20,8 +20,11 @@ descending sort, which does.
 TF32.  The camera projection of :func:`mark_invisible_cells` is elementwise
 fp32: a TF32-rounded ``uv`` flips cells at the image edge.
 
-Multi-device refreshes (``cell_shard``, ``tmp_reduce``) are ROADMAP
-'Modules to port' item 12.
+Multi-device refreshes.  With ``cell_shard=(idx, n)`` a rank probes only
+its ``idx``-th 1/n of each cascade's cells (drawn, with their jitter, at
+full size from the draws every rank shares), and ``tmp_reduce`` (the max
+over the ranks) merges the probe grids before the EMA, so n ranks give the
+one-device refresh (``parallel/shard.py``).
 """
 
 from __future__ import annotations
@@ -180,6 +183,8 @@ def update_density_grid(
     erode: bool = False,
     chunk: int = 4 * 1024 * 1024,
     cells=None,
+    cell_shard: tuple[int, int] | None = None,
+    tmp_reduce: Callable | None = None,
 ) -> OccupancyGrid:
     """EMA density refresh and bitfield repack.
 
@@ -187,6 +192,10 @@ def update_density_grid(
     here when None); else ``G^3/4`` uniform cells plus ``G^3/4`` occupied
     cells picked by the top keys.  The probe max-merges into the decayed
     grid; cells marked -1 (invisible) stay so.
+
+    ``cell_shard=(idx, n)`` probes only the ``idx``-th 1/n slice of each
+    cascade's cells (their count must divide by n); ``tmp_reduce`` is
+    applied to the probe grid before the merge (the max over the ranks).
     """
     g = cfg.grid_size
     g3 = g**3
@@ -214,12 +223,25 @@ def update_density_grid(
         s = _cascade_scale(c, cfg.scale)
         half_grid_size = s / g
         xyzs_w = (coords.float() / (g - 1) * 2.0 - 1.0) * (s - half_grid_size)
+        # the jitter is drawn at full size: every shard sees the per-cell
+        # perturbation of the one-device refresh
         xyzs_w = xyzs_w + dr.noise * half_grid_size
+        if cell_shard is not None:
+            idx, n_shards = cell_shard
+            n_cells = xyzs_w.shape[0]
+            if n_cells % n_shards:
+                raise ValueError(f"{n_cells} cells not divisible by "
+                                 f"{n_shards} shards")
+            k = n_cells // n_shards
+            xyzs_w = xyzs_w[idx * k:(idx + 1) * k]
+            indices = indices[idx * k:(idx + 1) * k]
         sigmas = torch.cat([
             density_fn(params, cfg, xyzs_w[i : i + chunk])
             for i in range(0, xyzs_w.shape[0], chunk)
         ])
         tmp[c].scatter_reduce_(0, indices, sigmas, reduce="amax")
+    if tmp_reduce is not None:
+        tmp = tmp_reduce(tmp)
 
     if erode:
         # decay more the cells seen by few cameras

@@ -48,6 +48,12 @@ def find_nvcc() -> str:
     )
 
 
+def kernel_names() -> tuple[str, ...]:
+    """Every kernel of ``csrc/`` (one ``<name>.cu`` each)."""
+    return tuple(sorted(f[:-3] for f in os.listdir(CSRC)
+                        if f.endswith(".cu")))
+
+
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to: the file name hashes the source,
     every header in ``csrc/`` (``*.cuh``) and the flags."""

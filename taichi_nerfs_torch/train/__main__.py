@@ -1,8 +1,7 @@
 """Train a model, then evaluate it: the port's counterpart of ``train.py``.
 
-Two branches, on one device, parsing ``train.py``'s flags with
-``opt.get_opts`` (so a record manifest's argv runs unchanged after the
-module name):
+Two branches, parsing ``train.py``'s flags with ``opt.get_opts`` (so a
+record manifest's argv runs unchanged after the module name):
 
 * ``--model_name ngp`` (the default) or ``svox``: the sample-gather path,
   configured by ``config.py:config_from_opts`` (``--encoder_type brick``
@@ -76,18 +75,30 @@ port's own, taken out before ``opt.get_opts`` parses the rest).  With
 table, the device-busy share and ``DIR/trace.json``.  ``--gui`` opens the
 viewer (``viewer/gui.py``) after the evaluation, for both branches; without
 ``cv2`` or a display it renders 8 orbiting frames headless and returns.
-``--num_devices`` above 1 raises ``NotImplementedError`` naming its ROADMAP
-item.
+``--num_devices N`` above 1 trains data-parallel on N ranks
+(``parallel/``): NGP splits each ray batch over them, the pyramid trains
+one crop a rank.  On the card the ranks are ``cuda:0`` .. ``cuda:N-1``
+over NCCL (N above the visible count raises ``ValueError``); with
+``--device cpu`` they are N processes over gloo.  0 (the default) means
+every visible CUDA device.  Rank 0 alone prints, writes the checkpoint,
+the exports and the manifest, evaluates and opens the viewer::
+
+    python -m taichi_nerfs_torch.train --root_dir \\
+        'synthetic://lego?views=100&res=800' --dataset_name synthetic \\
+        --model_name pyramid --num_devices 4
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import importlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,6 +107,7 @@ import torch
 from ..config import config_from_opts
 from ..data import dataset_dict
 from ..models.pyramid import PyramidConfig
+from ..parallel.mesh import launch
 from ..utils.convert import load_ngp_npz, save_ngp_npz, save_pyramid_npz
 from ..utils.device import resolve_device
 from ..utils.export import check_deployable, save_deployment_model
@@ -111,11 +123,18 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _check_scope(hp):
-    if hp.num_devices > 1:
-        raise NotImplementedError(
-            "multi-device training is not ported yet; see ROADMAP 'Modules "
-            "to port' item 12")
+def _num_devices(hp, device: str) -> int:
+    """The ranks ``--num_devices`` asks for, as ``train.py`` reads it: 0
+    means every visible CUDA device (one process on the CPU); on the card
+    more than are visible raises ``ValueError``."""
+    if torch.device(device).type != "cuda":
+        return hp.num_devices or 1
+    visible = torch.cuda.device_count()
+    n = hp.num_devices or max(visible, 1)
+    if n > 1 and n > visible:
+        raise ValueError(f"--num_devices {n} but only {visible} CUDA devices "
+                         "are visible")
+    return n
 
 
 def configs(hp, train_dataset):
@@ -213,16 +232,18 @@ def _viewer(cfg, params, bitfield, test_dataset, render_fn=None):
            np.asarray(test_dataset.poses), render_fn=render_fn).render()
 
 
-def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
+def _train_ngp(hp, train_dataset, test_dataset, val_dir, device,
+               mesh=None):
     """``train.py``'s branch of every model but the pyramid (``ngp``,
     ``svox``): fit, ``--deployment``'s ``deployment.npy``, ``model.npz``,
     evaluate, ``--gui``.  Returns :func:`evaluate`'s dict and, when it
-    trained, ``steps`` and the last step's ``last_loss``."""
+    trained, ``steps`` and the last step's ``last_loss`` (None on a rank
+    but 0, which only trains)."""
     cfg = config_from_opts(hp)
     if hp.deployment:
         check_deployable(cfg.model)  # before training, not after it
     trainer = Trainer(cfg, train_dataset.as_batch(device), train_dataset.K,
-                      train_dataset.img_wh, device=device)
+                      train_dataset.img_wh, device=device, mesh=mesh)
     if hp.ckpt_path:
         # params, Adam's moments and counts, occupancy; a file without
         # optimizer state starts Adam afresh with the schedule at its step
@@ -235,9 +256,12 @@ def _train_ngp(hp, train_dataset, test_dataset, val_dir, device):
         print(f"loaded NGP checkpoint from {hp.ckpt_path} (step {step})")
     if not hp.val_only:
         tic = time.time()
-        m = _fit(trainer, hp.max_steps, hp.profile_dir, device)
+        m = _fit(trainer, hp.max_steps, _rank0(mesh) and hp.profile_dir,
+                 device)
         last = float(m["loss"])  # waits for the queued device steps
         print(f"training done in {time.time() - tic:.1f}s on {device}")
+    if not _rank0(mesh):
+        return None
     params, bitfield = trainer.state.params, trainer.state.occupancy.bitfield
     if hp.deployment:
         path = save_deployment_model(params, cfg.model, bitfield,
@@ -286,17 +310,52 @@ def _git_commit() -> str:
         return ""
 
 
-def main(argv=None):
+def _rank0(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _parse(argv):
+    """``(device, hp)`` from the command line."""
     # opt.py (the flags shared with train.py) sits at the repository root
     if _REPO not in sys.path:
         sys.path.insert(0, _REPO)
     from opt import get_opts
 
-    argv = sys.argv[1:] if argv is None else list(argv)
     device, opts_argv = _split_device(argv)
-    hp = get_opts(opts_argv)
-    _check_scope(hp)
-    device = resolve_device(device, "--device cpu")
+    return device, get_opts(opts_argv)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    device, hp = _parse(argv)
+    n = _num_devices(hp, device)
+    if n == 1:
+        return _run(hp, argv, resolve_device(device, "--device cpu"))
+    if hp.model_name == "pyramid":
+        print(f"pyramid: crop-parallel over a {n}-device mesh", flush=True)
+    else:
+        print(f"training data-parallel over a {n}-device mesh", flush=True)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    # the ranks find _rank_main by this module's import name: a spawned
+    # process cannot import the __main__ of a package run with -m
+    rank_main = importlib.import_module(__spec__.name)._rank_main
+    with tempfile.TemporaryDirectory() as tmp:
+        return launch(rank_main, n, device=device, backend=backend,
+                      rendezvous_dir=tmp, args=(argv,))[0]
+
+
+def _rank_main(mesh, argv):
+    """One rank of ``--num_devices N``: rank 0 alone prints."""
+    _, hp = _parse(argv)
+    with contextlib.ExitStack() as stack:
+        if mesh.rank != 0:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        return _run(hp, argv, mesh.device, mesh)
+
+
+def _run(hp, argv, device, mesh=None):
+    """Load the data, train, and (rank 0) save and evaluate."""
     val_dir = ("results/" if hp.exp_name in ("exp", "lego_proxy")
                else os.path.join("results", hp.exp_name))
     dataset_cls = dataset_dict[hp.dataset_name]
@@ -310,7 +369,8 @@ def main(argv=None):
     print(f"loaded {n_views} {hp.dataset_name} views at "
           f"{train_dataset.img_wh} in {time.time() - t0:.2f}s", flush=True)
     if hp.model_name != "pyramid":
-        return _train_ngp(hp, train_dataset, test_dataset, val_dir, device)
+        return _train_ngp(hp, train_dataset, test_dataset, val_dir, device,
+                          mesh)
     mcfg, tcfg = configs(hp, train_dataset)
     # the GT alpha channel: the synthetic scenes keep it, the file loaders
     # blend it away
@@ -322,7 +382,7 @@ def main(argv=None):
         mcfg, tcfg, train_dataset.rays, train_dataset.poses, train_dataset.K,
         train_dataset.img_wh,
         alphas=alphas if tcfg.alpha_w > 0 or hp.random_bg else None,
-        device=device,
+        device=device, mesh=mesh,
     )
     if hp.ckpt_path:
         trainer.load_npz(hp.ckpt_path)
@@ -330,11 +390,14 @@ def main(argv=None):
     train_wall = 0.0
     if not hp.val_only:
         tic = time.time()
-        m = _fit(trainer, hp.max_steps, hp.profile_dir, device)
+        m = _fit(trainer, hp.max_steps, _rank0(mesh) and hp.profile_dir,
+                 device)
         if m is not None:
             float(m["loss"])  # wait for the queued device steps
         train_wall = time.time() - tic
         print(f"training done in {train_wall:.1f}s on {device}")
+    if not _rank0(mesh):
+        return None
 
     os.makedirs(val_dir, exist_ok=True)
     save_pyramid_npz(os.path.join(val_dir, "model_pyramid.npz"),

@@ -1,11 +1,18 @@
 """Host-side training loop of the NGP path.
 
-Port of the JAX package's ``train/loop.py:Trainer`` on one device: the
-one-time camera-visibility marking, a density-grid refresh every
+Port of the JAX package's ``train/loop.py:Trainer``: the one-time
+camera-visibility marking, a density-grid refresh every
 ``update_interval`` steps (over all cells until ``warmup_steps``), the
 adaptive per-ray sample cap ``S`` and packing cap, ``run_step`` and
 ``fit``.  Every random draw comes from one ``torch.Generator`` on the
 training device, seeded with ``cfg.train.seed``.
+
+With a ``mesh`` (``parallel/mesh.py``) the trainer is one rank of a
+data-parallel run: the step and the refresh are ``parallel/shard.py``'s.
+Every rank draws the same full batch from its identically seeded
+generator, and every host decision (the caps, the refresh cadence) reads
+the reduced metrics, which are equal on every rank, so the ranks stay in
+step.  Only rank 0 logs.
 
 Host reads.  A step reads nothing back.  The cap adaptation reads the last
 step's ``counts_max`` and ``rm_samples`` once per refresh, as the JAX loop
@@ -55,12 +62,14 @@ class Trainer:
         device=None,
     ):
         """``data``: a :class:`Batch` on the training device; ``device``
-        defaults to the data's."""
+        defaults to the data's.  ``mesh``: train as one rank of it, on its
+        device."""
         if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel NGP training is not ported yet; see ROADMAP "
-                "'Modules to port' item 12"
-            )
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = torch.device(device or data.rays.device)
         self.cfg = cfg
         self.data = data
@@ -135,9 +144,25 @@ class Trainer:
     def _grid_step(self, warmup: bool):
         if warmup and self._cells is None:
             self._cells = all_cells(self.cfg.model.grid_size, self.device)
+        cells = self._cells if warmup else None
+        if self.mesh is not None:
+            from ..parallel.shard import sharded_density_grid_step
+
+            return sharded_density_grid_step(self.state, self.cfg,
+                                             self.mesh, warmup,
+                                             self.generator, cells=cells)
         return density_grid_step(self.state, self.cfg, warmup,
-                                  self.generator,
-                                  cells=self._cells if warmup else None)
+                                  self.generator, cells=cells)
+
+    def _train_step(self, draws):
+        if self.mesh is not None:
+            from ..parallel.shard import sharded_train_step
+
+            return sharded_train_step(self.state, self.data, self.cfg,
+                                      self.mesh, self.sample_cap,
+                                      self.pack_cap, draws)
+        return train_step(self.state, self.data, self.cfg, self.sample_cap,
+                          self.pack_cap, draws)
 
     def _phase(self, name: str):
         """The timer's phase ``name`` (waiting for the device at its end),
@@ -159,9 +184,7 @@ class Trainer:
             self._adapt_sample_cap()
         draws = draw_step(cfg, self.data, self.generator)
         with self._phase("train_step"):
-            self.state, metrics = train_step(
-                self.state, self.data, cfg, self.sample_cap, self.pack_cap,
-                draws)
+            self.state, metrics = self._train_step(draws)
         self._pending_counts_max = metrics["counts_max"]
         self._pending_rm_samples = metrics["rm_samples"]
         self.step += 1
@@ -169,7 +192,7 @@ class Trainer:
 
     def fit(self, max_steps: Optional[int] = None, log_every: int = 1000):
         """``max_steps + 1`` steps (as the JAX loop runs them), logging
-        every ``log_every``."""
+        every ``log_every`` (rank 0 alone, with a mesh)."""
         max_steps = max_steps or self.cfg.train.max_steps
         tic = time.time()
         metrics = None
@@ -177,7 +200,8 @@ class Trainer:
         for _ in range(max_steps + 1):
             metrics = self.run_step()
             step = self.step - 1
-            if step % log_every == 0:
+            if step % log_every == 0 and (self.mesh is None
+                                          or self.mesh.rank == 0):
                 m = {k: float(v) for k, v in metrics.items()}
                 self.log_fn(
                     f"elapsed_time={time.time() - tic:.2f}s | "

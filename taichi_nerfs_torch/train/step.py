@@ -76,17 +76,16 @@ def sample_batch(data: Batch, img_idxs: torch.Tensor,
             data.directions[pix_idxs])
 
 
-def train_step(
+def loss_and_grads(
     state: TrainState,
     data: Batch,
     cfg: Config,
     sample_cap: int,
     pack_cap: int | None,
     draws: StepDraws,
-) -> Tuple[TrainState, Dict[str, Any]]:
-    """One Adam step on one ray batch; params and moments are updated in
-    place.  Metrics are device tensors: loss, psnr, rm_samples, vr_samples
-    and counts_max."""
+):
+    """The step's ``(loss, mse, render results, gradient tree)`` on the
+    drawn rays; loss and MSE detached."""
     rgb_gt, pose, direction = sample_batch(data, draws.img_idxs,
                                            draws.pix_idxs)
     rays_o, rays_d = get_rays(direction, pose)
@@ -105,26 +104,48 @@ def train_step(
     with _span("ngp.backward"):
         grads = iter(torch.autograd.grad(loss, tree_leaves(state.params)))
         grad_tree = tree_map(lambda _: next(grads), state.params)
+    return loss.detach(), mse.detach(), results, grad_tree
+
+
+def apply_grads(state: TrainState, cfg: Config, grad_tree) -> TrainState:
+    """Adam on ``grad_tree``; params and moments updated in place."""
     with _span("ngp.adam"):
         opt_state = make_optimizer(cfg).update(grad_tree, state.opt_state,
                                                state.params)
-    mse = mse.detach()
+    return state._replace(opt_state=opt_state)
+
+
+def train_step(
+    state: TrainState,
+    data: Batch,
+    cfg: Config,
+    sample_cap: int,
+    pack_cap: int | None,
+    draws: StepDraws,
+) -> Tuple[TrainState, Dict[str, Any]]:
+    """One Adam step on one ray batch; params and moments are updated in
+    place.  Metrics are device tensors: loss, psnr, rm_samples, vr_samples
+    and counts_max."""
+    loss, mse, results, grad_tree = loss_and_grads(
+        state, data, cfg, sample_cap, pack_cap, draws)
     metrics = {
-        "loss": loss.detach(),
+        "loss": loss,
         "psnr": -10.0 * torch.log10(mse),
         "rm_samples": results["rm_samples"],
         "vr_samples": results["vr_samples"],
         "counts_max": torch.amax(results["counts"]),
     }
-    return state._replace(opt_state=opt_state), metrics
+    return apply_grads(state, cfg, grad_tree), metrics
 
 
 def density_grid_step(state: TrainState, cfg: Config, warmup: bool,
                       generator: torch.Generator | None = None,
-                      cells=None, draws=None) -> TrainState:
+                      cells=None, draws=None, cell_shard=None,
+                      tmp_reduce=None) -> TrainState:
     """The scheduled occupancy refresh: ``draws`` (per cascade, from
     :func:`~taichi_nerfs_torch.models.occupancy.draw_grid_inputs` when
-    None) and ``cells`` (the warmup's all-cells table, made when None)."""
+    None) and ``cells`` (the warmup's all-cells table, made when None);
+    ``cell_shard`` and ``tmp_reduce`` as ``update_density_grid``'s."""
     dev = state.occupancy.density_grid.device
     with _span("ngp.grid"):
         if draws is None:
@@ -133,5 +154,6 @@ def density_grid_step(state: TrainState, cfg: Config, warmup: bool,
             state.params, cfg.model, get_model(cfg.model.name).density,
             state.occupancy, draws, cfg.train.density_threshold(),
             warmup=warmup, decay=cfg.train.density_decay, cells=cells,
+            cell_shard=cell_shard, tmp_reduce=tmp_reduce,
         )
     return state._replace(occupancy=occupancy)

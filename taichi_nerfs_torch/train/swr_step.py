@@ -1,6 +1,6 @@
 """Training on the shear-warp renderer: image-crop SGD on the dense pyramid.
 
-Port of the JAX package's ``train/swr_step.py`` on one device.  Each step
+Port of the JAX package's ``train/swr_step.py``.  Each step
 draws a training image and a square crop (a crop of a pinhole image is a
 pinhole image with a shifted principal point), renders the crop with
 :func:`render_swr_fixed_axis`, and takes the MSE against the ground truth
@@ -36,8 +36,13 @@ the loss (checkpointed at ``grid_res >= 384``, as JAX remats it) and for
 :meth:`SwrTrainer.render`; ``resample_dtype`` sets the loss's resample
 operands; ``adam_mu_bf16`` keeps Adam's first moment in bf16.
 
-Out of scope (it raises ``NotImplementedError`` naming its ROADMAP item):
-a device mesh (item 12).
+With a ``mesh`` (``parallel/mesh.py``) the trainer is one rank of a
+crop-parallel run (``parallel/swr_shard.py``): the host stream, seeded
+alike on every rank, draws one crop a rank from poses that share the
+sweep's axis and direction (for an inside camera: one pose, one window a
+rank and one cubemap face); each rank trains its own crop, with its own
+background and TV windows from generators seeded from the seed and the
+rank.
 """
 
 from __future__ import annotations
@@ -69,8 +74,6 @@ from ..utils.convert import load_pyramid_npz
 from ..utils.device import resolve_device
 from .state import Adam, AdamState, tree_leaves, tree_map
 from .state import trainable as _trainable
-
-_MODULES_TODO = "not ported yet; see ROADMAP 'Modules to port' item {}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,6 +356,26 @@ def make_swr_loss(
     return loss_fn
 
 
+def draw_bg_and_tv(tcfg: SwrTrainConfig, mcfg: pyr.PyramidConfig, params,
+                   gen_dev: torch.Generator, gen_host: torch.Generator,
+                   device) -> Tuple[torch.Tensor | None, Tuple[int, ...]]:
+    """A crop's own random inputs: the ``(c^2, 3)`` random background on
+    ``device`` from ``gen_dev`` (None without ``random_bg``) and the TV
+    window starts of :func:`tv_levels` from ``gen_host`` (none without
+    ``tv_w``)."""
+    c = tcfg.crop
+    bg = None
+    if tcfg.random_bg:
+        bg = torch.rand((c * c, 3), generator=gen_dev, device=device)
+    tv_starts = ()
+    if tcfg.tv_w > 0:
+        tv_starts = tuple(
+            int(torch.randint(0, rf - tv_window(rf) + 1, (1,),
+                              generator=gen_host))
+            for rf in (g.shape[0] for g in tv_levels(params, mcfg)))
+    return bg, tv_starts
+
+
 def face_mask(pose, K, c: int, axis: int, flip: bool) -> torch.Tensor:
     """(c^2,) float: 1 where the cubemap face ``(axis, -1 if flip else
     +1)`` owns the ray of a ``c`` x ``c`` image's pixel (intrinsics ``K``,
@@ -395,15 +418,27 @@ def swr_train_step(
     loss_fn = make_swr_loss(gt_image, pose, K, crop_xy, mcfg, tcfg, axis,
                             flip, bg, tv_starts, lat_size, warp, slab_window,
                             inside, sigma_keep, slope_bounds)
-    loss, mse = loss_fn(state.params)
-    leaves = tree_leaves(state.params)
-    grads = torch.autograd.grad(loss, leaves)
+    return apply_swr_grads(state, tcfg, *loss_and_grads(loss_fn,
+                                                        state.params))
+
+
+def loss_and_grads(loss_fn, params):
+    """``(loss, mse, gradients)`` of ``loss_fn(params)``: detached scalars
+    and the gradients in :func:`tree_leaves` order."""
+    loss, mse = loss_fn(params)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return loss.detach(), mse.detach(), list(grads)
+
+
+def apply_swr_grads(state: SwrTrainState, tcfg: SwrTrainConfig, loss, mse,
+                    grads) -> Tuple[SwrTrainState, Dict[str, torch.Tensor]]:
+    """Adam on ``grads`` (:func:`tree_leaves` order), in place; returns the
+    state and the metrics ``loss`` and ``psnr``."""
     it = iter(grads)
     grad_tree = tree_map(lambda _: next(it), state.params)
     opt = make_optimizer(tcfg).update(grad_tree, state.opt_state,
                                       state.params)
-    metrics = {"loss": loss.detach(),
-               "psnr": -10.0 * torch.log10(mse.detach())}
+    metrics = {"loss": loss, "psnr": -10.0 * torch.log10(mse)}
     return SwrTrainState(state.params, opt), metrics
 
 
@@ -425,6 +460,18 @@ class SwrDraw(NamedTuple):
     bg: torch.Tensor | None
     tv_starts: Tuple[int, ...]
     face: int | None = None
+
+
+class SwrShardedDraw(NamedTuple):
+    """One crop-parallel step's random inputs: every rank's image index and
+    crop offset (the shared host draws), the cubemap face of an inside
+    step (else None), and this rank's background and TV window starts."""
+
+    idxs: Tuple[int, ...]
+    wins: Tuple[Tuple[int, int], ...]
+    face: int | None
+    bg: torch.Tensor | None
+    tv_starts: Tuple[int, ...]
 
 
 class SwrStepPlan(NamedTuple):
@@ -460,13 +507,16 @@ class SwrTrainer:
         """``alphas``: optional (N, H*W) GT opacity, packed as a 4th uint8
         image channel (alpha-correct ``random_bg`` and ``alpha_w``).
         ``device``: where the model trains; ``None`` means ``"cuda"``,
-        which raises when there is no card (pass ``"cpu"`` for the CPU)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "crop-parallel training over a mesh is "
-                + _MODULES_TODO.format(12)
-            )
+        which raises when there is no card (pass ``"cpu"`` for the CPU).
+        ``mesh``: train as one rank of it, on its device."""
         _check_scope(tcfg)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
+        self._sharded_steps = {}
         self.device = resolve_device(device, "device='cpu'")
         self.mcfg, self.tcfg = mcfg, tcfg
         self.seed = seed
@@ -486,9 +536,12 @@ class SwrTrainer:
         self.poses_np = np.asarray(poses, np.float32).reshape(-1, 3, 4)
         self.K = np.asarray(K, np.float32)
         self.img_wh = (w, h)
+        # the host stream is the same on every rank; a rank's own draws
+        # (background, TV windows) are its own (rank 0's are the seed's)
         self._host_rng = np.random.RandomState(seed)
-        self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
-        self._gen_host = torch.Generator().manual_seed(seed)
+        own = seed + ((mesh.rank if mesh is not None else 0) << 32)
+        self._gen_dev = torch.Generator(device=self.device).manual_seed(own)
+        self._gen_host = torch.Generator().manual_seed(own)
         # the sweep of each pose; an inside pose trains one cubemap face a
         # step, drawn from its crop's pixel shares on a face map subsampled
         # by _face_stride
@@ -548,6 +601,7 @@ class SwrTrainer:
                 camera_keep_mask(self.poses_np, res, self.tcfg.cam_carve,
                                  pm.scale), device=self.device)
         self._grid_cache = (None, None)
+        self._sharded_steps = {}  # a step is per phase (its mcfg)
         gen = self._init_generator(idx)
         if idx == 0:
             self.state = create_swr_state(pm, self.tcfg, gen, self.device)
@@ -588,19 +642,71 @@ class SwrTrainer:
         if self._inside[i]:
             face = int(self._host_rng.choice(6, p=self.face_shares(i, (x0,
                                                                      y0))))
-        bg = None
-        if self.tcfg.random_bg:
-            bg = torch.rand((c * c, 3), generator=self._gen_dev,
-                            device=self.device)
-        tv_starts = ()
-        if self.tcfg.tv_w > 0:
-            tv_starts = tuple(
-                int(torch.randint(0, rf - tv_window(rf) + 1, (1,),
-                                  generator=self._gen_host))
-                for rf in (g.shape[0] for g in tv_levels(self.state.params,
-                                                         self.cur_mcfg))
-            )
-        return SwrDraw(i, (x0, y0), bg, tv_starts, face)
+        return SwrDraw(i, (x0, y0), *self._own_draws(), face)
+
+    def _own_draws(self):
+        """:func:`draw_bg_and_tv` from this trainer's (this rank's)
+        generators."""
+        return draw_bg_and_tv(self.tcfg, self.cur_mcfg, self.state.params,
+                              self._gen_dev, self._gen_host, self.device)
+
+    def draw_sharded(self) -> SwrShardedDraw:
+        """The next crop-parallel step's draws, in the JAX trainer's order
+        on the shared host stream: the first pose, one window a rank, then
+        either (inside) the face from window 0's face shares, every rank on
+        that pose, or (outside) the other ranks' poses from those that
+        share the first's axis and direction."""
+        n = self.mesh.size
+        w, h = self.img_wh
+        c = self.tcfg.crop
+        rng = self._host_rng
+        i0 = rng.randint(len(self.poses_np))
+        wins = tuple((rng.randint(max(w - c, 0) + 1),
+                      rng.randint(max(h - c, 0) + 1)) for _ in range(n))
+        face = None
+        if self._inside[i0]:
+            idxs = (i0,) * n
+            face = int(rng.choice(6, p=self.face_shares(i0, wins[0])))
+        else:
+            pool = [j for j, (af, ins) in enumerate(zip(self._axis_flip,
+                                                        self._inside))
+                    if af == self._axis_flip[i0] and not ins]
+            idxs = (i0,) + tuple(pool[rng.randint(len(pool))]
+                                 for _ in range(n - 1))
+        return SwrShardedDraw(idxs, wins, face, *self._own_draws())
+
+    def plan_sharded(self, draw: SwrShardedDraw) -> SwrStepPlan:
+        """The renderer's choices for a crop-parallel step, as the JAX
+        trainer makes them: ``slope_bounds`` is every crop's (n, 2, 2) tight
+        bounds of an inside face, or None (the cone's, for the whole step)
+        when one crop has no pixel of it; the warp is crop 0's."""
+        c, i0 = self.tcfg.crop, draw.idxs[0]
+        inside = draw.face is not None
+        slopes = None
+        if inside:
+            axis, flip = draw.face // 2, not bool(draw.face % 2)
+            slopes = []
+            for j, xy in zip(draw.idxs, draw.wins):
+                b = face_slope_bounds(self.poses_np[j], self.K, (c, c), axis,
+                                      -1.0 if flip else 1.0, crop_xy=xy)
+                if b is None:
+                    slopes = None
+                    break
+                slopes.append(np.asarray(b, np.float32))
+        else:
+            axis, flip = self._axis_flip[i0]
+        if slopes:
+            warp = _matmul_solve_choice(self.poses_np[i0], axis,
+                                        float(slopes[0][1, 0]),
+                                        float(slopes[0][1, 1]))
+            slopes = np.stack(slopes)
+        else:
+            warp = pick_warp(self.poses_np[i0], self.K, (c, c), axis,
+                             face_sign=((-1.0 if flip else 1.0) if inside
+                                        else None),
+                             crop_xy=draw.wins[0])
+        return SwrStepPlan(axis, flip, inside, slopes, warp,
+                           0 if inside else self.slab_window)
 
     def plan(self, draw: SwrDraw) -> SwrStepPlan:
         """The renderer's choices for a draw, as the JAX trainer makes
@@ -641,10 +747,13 @@ class SwrTrainer:
             draw.tv_starts, self.lat_size, pl.warp, pl.slab_window,
             pl.inside, self.sigma_keep, pl.slope_bounds)
 
-    def run_step(self, draw: SwrDraw | None = None):
-        """One training step on ``draw`` (the next :meth:`draw` if None)."""
+    def run_step(self, draw: SwrDraw | SwrShardedDraw | None = None):
+        """One training step on ``draw`` (the next :meth:`draw`, with a mesh
+        :meth:`draw_sharded`, if None)."""
         _require_fp32_matmul()
         self._advance_phases()
+        if self.mesh is not None:
+            return self._run_step_sharded(draw or self.draw_sharded())
         if draw is None:
             draw = self.draw()
         pl = self.plan(draw)
@@ -657,13 +766,44 @@ class SwrTrainer:
         self.step += 1
         return metrics
 
+    def _run_step_sharded(self, draw: SwrShardedDraw):
+        """One crop-parallel step: this rank trains crop ``rank`` of the
+        draw; the step of each sweep choice is made once a phase."""
+        from ..parallel.swr_shard import make_swr_sharded_step
+
+        pl = self.plan_sharded(draw)
+        with_sk = self.sigma_keep is not None
+        with_sb = pl.slope_bounds is not None
+        key = (self._phase_idx, pl.axis, pl.flip, pl.inside, pl.warp,
+               pl.slab_window, self.lat_size, with_sk, with_sb)
+        fn = self._sharded_steps.get(key)
+        if fn is None:
+            fn = make_swr_sharded_step(
+                self.cur_mcfg, self.tcfg, self.mesh, pl.axis, pl.flip,
+                slab_window=pl.slab_window, warp=pl.warp, inside=pl.inside,
+                lat_size=self.lat_size, with_sigma_keep=with_sk,
+                with_slope_bounds=with_sb)
+            self._sharded_steps[key] = fn
+        r = self.mesh.rank
+        extras = (([self.sigma_keep] if with_sk else [])
+                  + ([pl.slope_bounds[r]] if with_sb else []))
+        self.state, metrics = fn(
+            self.state, self.images[draw.idxs[r]],
+            self.poses_np[draw.idxs[r]], self.K, draw.wins[r], *extras,
+            bg=draw.bg, tv_starts=draw.tv_starts)
+        self.step += 1
+        return metrics
+
     def fit(self, max_steps=None, log_every: int = 500, log_fn=print):
+        """``max_steps`` steps, logging every ``log_every`` (rank 0 alone,
+        with a mesh)."""
         max_steps = max_steps or self.tcfg.max_steps
         tic = time.time()
         m = None
+        rank0 = self.mesh is None or self.mesh.rank == 0
         for _ in range(max_steps):
             m = self.run_step()
-            if (self.step - 1) % log_every == 0:
+            if rank0 and (self.step - 1) % log_every == 0:
                 log_fn(
                     f"elapsed_time={time.time() - tic:.2f}s | "
                     f"step={self.step - 1} | "

@@ -161,30 +161,16 @@ _NGP_ARGV = ["--root_dir", "synthetic://sphere?views=4&res=24",
 
 def _tiny_ngp_entry(monkeypatch):
     """The train entry with ``config_from_opts`` shrunk to a CPU size, the
-    model family and encoder kept."""
-    import dataclasses
-
+    model family and encoder kept (in its ranks too, with
+    ``--num_devices``)."""
     import taichi_nerfs_torch.train.__main__ as entry
+    from torch_parallel_ranks import tiny_ngp_config, tiny_ngp_rank_main
 
     real = entry.config_from_opts
-
-    def tiny(hp):
-        cfg = real(hp)
-        return cfg.replace(
-            model=cfg.model.replace(
-                grid_size=16, xyz_net_width=16, rgb_net_width=16,
-                grid=dataclasses.replace(cfg.model.grid, log2_T=11),
-                brick=dataclasses.replace(cfg.model.brick, levels=2,
-                                          log2_rows=10, max_res=32),
-                triplane=dataclasses.replace(cfg.model.triplane, levels=2,
-                                             max_res=32)),
-            render=dataclasses.replace(cfg.render, train_sample_cap=64,
-                                       test_chunk_samples=16),
-            train=dataclasses.replace(cfg.train, warmup_steps=4,
-                                      update_interval=2),
-        )
-
-    monkeypatch.setattr(entry, "config_from_opts", tiny)
+    monkeypatch.setattr(entry, "config_from_opts",
+                        lambda hp: tiny_ngp_config(real(hp)))
+    monkeypatch.setattr(entry, "_rank_main", tiny_ngp_rank_main)
+    monkeypatch.setenv("OMP_NUM_THREADS", str(torch.get_num_threads()))
     return entry
 
 
@@ -196,19 +182,25 @@ def _tiny_ngp_entry(monkeypatch):
     ["--gui"],
     ["--num_devices", "2"],
     ["--dataset_name", "nsvf"],
-], ids=["svox", "triplane", "deployment", "gui", "num_devices", "nsvf"])
+    ["--num_devices", "2", "--device", "cuda"],
+], ids=["svox", "triplane", "deployment", "gui", "num_devices", "nsvf",
+        "num_devices_above_visible"])
 def test_train_entry_out_of_scope_raises(extra, tmp_path, monkeypatch,
-                                         capsys):
-    """Only ``--num_devices`` above 1 still raises naming its ROADMAP item
-    (12).  The options whose modules were ported run: ``svox``,
-    ``triplane``, ``--deployment`` (with the hash encoder) and ``--gui``
-    each train a tiny model on the CPU; ``--dataset_name nsvf`` trains on an
-    NSVF scene written by the exporter."""
+                                         capfd):
+    """Every option of ``train.py`` runs.  ``svox``, ``triplane``,
+    ``--deployment`` (with the hash encoder), ``--gui`` and ``--num_devices
+    2`` (two gloo processes on the CPU) each train a tiny model on the CPU;
+    ``--dataset_name nsvf`` trains on an NSVF scene written by the exporter.
+    ``--num_devices`` above the visible CUDA devices (here: any, on the
+    card) raises ``ValueError`` before anything loads."""
     from taichi_nerfs_torch.train.__main__ import main
 
-    if extra[0] == "--num_devices":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*12"):
-            main(_NGP_ARGV + extra)
+    if "--device" in extra:
+        n = torch.cuda.device_count()
+        k = max(2, n + 1)
+        with pytest.raises(ValueError, match=f"--num_devices {k} but only "
+                           f"{n} CUDA devices"):
+            main(_NGP_ARGV + ["--num_devices", str(k), "--device", "cuda"])
         return
     monkeypatch.chdir(tmp_path)
     if extra != ["--dataset_name", "nsvf"]:
@@ -222,9 +214,15 @@ def test_train_entry_out_of_scope_raises(extra, tmp_path, monkeypatch,
         assert (tmp_path / "results" / "tiny" / "model.npz").exists()
         assert (tmp_path / "dep" / "deployment.npy").exists() == (
             "--deployment" in extra)
-        frames = [ln for ln in capsys.readouterr().out.splitlines()
-                  if ln.startswith("frame ")]
+        out = capfd.readouterr().out
+        frames = [ln for ln in out.splitlines() if ln.startswith("frame ")]
         assert len(frames) == (8 if "--gui" in extra else 0)
+        mesh = "training data-parallel over a 2-device mesh"
+        assert out.count(mesh) == ("--num_devices" in extra)
+        if "--num_devices" in extra:
+            from torch_parallel_ranks import same_params_on_every_rank
+
+            assert same_params_on_every_rank(tmp_path)
         return
     from taichi_nerfs_torch.data.nsvf_export import export_nsvf_dataset
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
@@ -242,18 +240,45 @@ def test_train_entry_out_of_scope_raises(extra, tmp_path, monkeypatch,
     assert manifest["views_finite"] == 1
 
 
-def test_ngp_registry_and_trainer_mesh_raise():
+def test_ngp_registry_and_trainer_mesh_raise(tmp_path):
     """``get_model("svox")`` returns the voxel-grid family (it raised
-    until ``models/voxel_grid.py`` was ported); a mesh still raises."""
+    until ``models/voxel_grid.py`` was ported); ``Trainer(mesh=...)`` on two
+    gloo ranks trains as one process does (6 steps through the warm-up and
+    steady refreshes: losses 1e-5 relative, the same caps and bitfield,
+    params 2e-6), every rank's params bitwise equal; a device other than
+    the mesh rank's raises."""
+    import torch_parallel_ranks as ranks
+
     from taichi_nerfs_torch.models import voxel_grid
     from taichi_nerfs_torch.models.registry import get_model
+    from taichi_nerfs_torch.parallel import Mesh, launch
     from taichi_nerfs_torch.train.loop import Trainer
 
     svox = get_model("svox")
     assert (svox.init_params, svox.forward, svox.density) == (
         voxel_grid.init_params, voxel_grid.forward, voxel_grid.density)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(None, None, None, None, mesh=object())
+    outs = launch(ranks.ngp_trainer_rank, 2, device="cpu", backend="gloo",
+                  rendezvous_dir=str(tmp_path),
+                  args=(torch.get_num_threads(), 6))
+    scene = ranks.ngp_scene()
+    tr = Trainer(ranks.ngp_trainer_config(), scene.as_batch("cpu"), scene.K,
+                 scene.img_wh, log_fn=lambda s: None)
+    losses, caps = [], []
+    for _ in range(6):
+        losses.append(float(tr.run_step()["loss"]))
+        caps.append((tr.sample_cap, tr.pack_cap))
+    np.testing.assert_allclose(outs[0]["losses"], losses, rtol=1e-5)
+    assert outs[0]["caps"] == outs[1]["caps"] == caps
+    assert torch.equal(outs[0]["bitfield"], tr.state.occupancy.bitfield)
+    for a, b, c in zip(outs[0]["params"], outs[1]["params"],
+                       ranks.host(tr.state.params), strict=True):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=2e-6,
+                                   atol=2e-6)
+    with pytest.raises(ValueError, match="not the mesh rank's"):
+        Trainer(ranks.ngp_trainer_config(), scene.as_batch("cpu"), scene.K,
+                scene.img_wh, device="cpu",
+                mesh=Mesh(0, 2, torch.device("cuda", 0), "nccl"))
 
 
 def test_train_entry_ngp_cpu_run(tmp_path, monkeypatch):

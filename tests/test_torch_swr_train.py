@@ -349,12 +349,14 @@ def test_swr_trainer_save_load_state(sphere, tmp_path, light):
 
 @pytest.mark.parametrize(
     "over",
-    [dict(cam_carve=0.1), dict(mesh=object()), dict(inside=True)],
+    [dict(cam_carve=0.1), dict(mesh=2), dict(inside=True)],
     ids=["cam_carve", "mesh", "inside_camera"],
 )
-def test_out_of_scope_training_options_raise(sphere, over):
-    """A device mesh raises naming its ROADMAP item; ``cam_carve`` and an
-    inside camera (ROADMAP item 10.5, ported since) train."""
+def test_out_of_scope_training_options_raise(sphere, over, tmp_path):
+    """``cam_carve``, an inside camera (ROADMAP item 10.5) and a device
+    mesh (item 12.1) train: the mesh as two gloo ranks of
+    ``SwrTrainer(mesh=...)`` (3 steps, losses finite, every rank's params
+    bitwise equal, rank 0 renders)."""
     over = dict(over)
     mcfg = tpyr.PyramidConfig(**dict(SMALL, **over.pop("mcfg", {})))
     mesh = over.pop("mesh", None)
@@ -364,9 +366,20 @@ def test_out_of_scope_training_options_raise(sphere, over):
     tcfg = tst.SwrTrainConfig(**dict(dict(crop=32, resample_kind="cubic",
                                           n_chunks=4), **over))
     if mesh is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tst.SwrTrainer(mcfg, tcfg, sphere.rays, poses, sphere.K,
-                           sphere.img_wh, mesh=mesh, device="cpu")
+        import torch_parallel_ranks as ranks
+
+        from taichi_nerfs_torch.parallel import launch
+
+        rig = dict(mcfg=mcfg, tcfg=tcfg, images=sphere.rays, poses=poses,
+                   K=sphere.K, img_wh=sphere.img_wh, alphas=None)
+        outs = launch(ranks.swr_trainer_rank, 2, device="cpu",
+                      backend="gloo", rendezvous_dir=str(tmp_path),
+                      args=(torch.get_num_threads(), rig, 3))
+        assert np.all(np.isfinite(outs[0]["losses"]))
+        assert outs[0]["losses"] == outs[1]["losses"]
+        for a, b in zip(outs[0]["params"], outs[1]["params"], strict=True):
+            assert torch.equal(a, b)
+        assert outs[0]["render_finite"]
         return
     tr = tst.SwrTrainer(mcfg, tcfg, sphere.rays, poses, sphere.K,
                         sphere.img_wh, device="cpu")
