@@ -110,7 +110,19 @@ phases:
    the train phase's record model through ``SwrTrainer.render`` (finite,
    ``swr_sweep_fwd`` launched, the first equal to ``SwrTrainer.render`` at
    its pose); each model's frame-time median and spread printed;
-17. parallel: data-parallel training (``parallel/``) at full width on 8
+17. aot: the compiled artifact (``utils/aot.py``, ``torch.export``) of the
+   train phase's record model at 800x800: the six entry points exported
+   (seconds and bytes of each) and loaded; for one pose a (axis, flip) the
+   loaded frame within 1e-5 of the live gather render at the same lattice
+   cap (336), one ``swr_sweep_fwd`` launch a loaded frame, an inside pose
+   refused (``ValueError``); a fresh process renders the same frame with
+   ``render_swr_fixed_axis`` replaced by a function that raises; one
+   entry point of a small model exported for ("cuda", "cpu"), each file
+   rendering on its own device within 2e-4 of the other; ``torch.library.opcheck`` of both
+   operators (fp32 and bf16 volume); ``scripts/torch_eval_fps.py`` and
+   ``scripts/torch_viewer_bench.py`` on the record model; 8 capped frames
+   through the artifact and 8 through the live render, timed;
+18. parallel: data-parallel training (``parallel/``) at full width on 8
    checker views at 256x256: the flagship NGP configuration (its MLPs in
    fp32, a refresh every 2 steps) for 4 steps after a warm-up and a steady
    refresh from its first state, and the record pyramid at full depth
@@ -2767,6 +2779,297 @@ def phase_viewer(torch, seed, card, ngp, record):
     return res
 
 
+# the aot phase: the loaded artifact against the live render (the
+# tolerance of tests/test_aot.py), the two platforms' files against each
+# other (the port-vs-JAX render tolerance), timed capped frames a mode
+AOT_TOL, AOT_PLATFORM_TOL, AOT_FRAMES = 1e-5, 2e-4, 8
+# one camera a (axis, flip) entry point: eyes 1.4 out along each axis,
+# looking at the centre (up +z, or +y for the z-axis eyes)
+AOT_EYES = ((1.4, 0.2, 0.1), (-1.4, 0.1, 0.2), (0.2, 1.4, 0.1),
+            (0.1, -1.4, 0.2), (0.2, 0.1, 1.4), (0.1, 0.2, -1.4))
+
+# a fresh process renders one pose from the artifact with the defining
+# render replaced by one that raises: nothing of it may be traced again
+_AOT_CHILD = """
+import sys, torch
+import taichi_nerfs_torch.render.swr as s
+def boom(*a, **k):
+    raise AssertionError("the defining Python was re-traced")
+s.render_swr_fixed_axis = boom
+from taichi_nerfs_torch.utils.aot import load_pyramid_renderer
+d = torch.load(sys.argv[2], map_location="cuda")
+out = load_pyramid_renderer(sys.argv[1], device="cuda")(
+    d["grid"], d["rgb_mlp"], d["pose"])
+torch.cuda.synchronize()
+torch.save(out["rgb"].cpu(), sys.argv[3])
+"""
+
+
+def _aot_pose(eye):
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import look_at
+
+    up = (0.0, 1.0, 0.0) if abs(eye[2]) > 1.0 else (0.0, 0.0, 1.0)
+    return look_at(np.asarray(eye), np.zeros(3), np.asarray(up))
+
+
+def _run_script(name, argv):
+    """``scripts/<name>.py`` in a fresh process; its output lines."""
+    r = subprocess.run([sys.executable, os.path.join("scripts", name)]
+                       + argv, capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        raise AssertionError(f"{name} failed: {r.stderr[-2000:]}")
+    return r.stdout.strip().splitlines()
+
+
+def phase_aot(torch, seed, card, record):
+    """The compiled artifact (``utils/aot.py``) of the train phase's record
+    model at 800x800: (a) ``export_pyramid_compiled`` writes the six entry
+    points (seconds and bytes of each); for one pose a (axis, flip) the
+    frame of ``load_pyramid_renderer`` is within ``AOT_TOL`` of the live
+    ``render_swr(..., skip_empty=True, warp="gather")`` at the same lattice
+    cap, with exactly one ``swr_sweep_fwd`` launch a loaded frame, and an
+    inside pose raises ``ValueError``; (b) a fresh process renders the same
+    frame from the artifact with ``render_swr_fixed_axis`` replaced by a
+    function that raises, on the host's other cores while (c) and (d) run;
+    (c) one entry point of a small model exported for ("cuda", "cpu")
+    (``export_compiled``): each file renders on its own device, within
+    ``AOT_PLATFORM_TOL`` of the other, the CUDA one through one kernel
+    launch; (d) ``torch.library.opcheck`` of both operators with an fp32 and
+    a bf16 volume; (e) ``scripts/torch_eval_fps.py`` and
+    ``scripts/torch_viewer_bench.py`` on the record model; (f) capped
+    frames through the artifact and the live render, timed.  Returns a dict
+    of numbers."""
+    import tempfile
+
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import intrinsics
+    from taichi_nerfs_torch.models import pyramid as pyr
+    from taichi_nerfs_torch.ops import swr_sweep as sw
+    from taichi_nerfs_torch.render.swr import (
+        render_swr,
+        render_swr_fixed_axis,
+        sweep_axis,
+    )
+    from taichi_nerfs_torch.utils import aot
+    from taichi_nerfs_torch.utils.convert import save_pyramid_npz
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    trainer = record["trainer"]
+    params, cfg = trainer.state.params, trainer.cur_mcfg
+    w, h = RECORD_WH
+    K = intrinsics(w, h)
+    lat_cap = int(1.25 * cfg.grid_res) + 16
+    res = {}
+    with torch.no_grad():
+        grid = pyr.bake(params, cfg)
+        mlp = {k: v.detach() for k, v in params["rgb_mlp"].items()}
+    poses = [_aot_pose(e) for e in AOT_EYES]
+    if sorted(sweep_axis(p) for p in poses) != [
+            (a, f) for a in range(3) for f in (False, True)]:
+        raise AssertionError("aot: the poses miss an entry point")
+
+    def live(pose):
+        with torch.no_grad():
+            return render_swr(params, grid, cfg, pose, K, (w, h),
+                              lat_cap=lat_cap, skip_empty=True,
+                              warp="gather")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) export, load, compare
+        out_dir = os.path.join(tmp, "compiled")
+        t0 = time.perf_counter()
+        aot.export_pyramid_compiled(params, cfg, K, (w, h), out_dir)
+        res["export_s"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "metadata.json")) as f:
+            meta = json.load(f)
+        res["entries"] = {}
+        for name, e in sorted(meta.items()):
+            nbytes = os.path.getsize(os.path.join(out_dir, e["file"]))
+            res["entries"][name] = (e["export_seconds"]["cuda"], nbytes)
+            print(f"aot: {name} exported in {e['export_seconds']['cuda']:.2f}"
+                  f" s, {nbytes} bytes ({e['platforms']}, lat_cap "
+                  f"{e['lat_cap']})", flush=True)
+        t0 = time.perf_counter()
+        render = aot.load_pyramid_renderer(out_dir, device="cuda")
+        res["load_s"] = time.perf_counter() - t0
+        worst = 0.0
+        torch.cuda.synchronize()
+        sw.chunk_sweep.launches = 0
+        loaded = [render(grid, mlp, p) for p in poses]
+        torch.cuda.synchronize()
+        res["launches"] = sw.chunk_sweep.launches
+        for p, got in zip(poses, loaded):
+            want = live(p)
+            d = {k: float((got[k] - want[k]).abs().max())
+                 for k in ("rgb", "opacity", "depth")}
+            if not all(bool(torch.isfinite(got[k]).all()) for k in got):
+                raise AssertionError("aot: a loaded frame is not finite")
+            print(f"aot: entry {sweep_axis(p)} loaded vs live max_abs rgb "
+                  f"{d['rgb']:.3e}, opacity {d['opacity']:.3e}, depth "
+                  f"{d['depth']:.3e}; max opacity "
+                  f"{float(got['opacity'].max()):.4f}", flush=True)
+            worst = max(worst, d["rgb"], d["opacity"])
+        res["max_abs"] = worst
+        print(f"aot: {len(poses)} loaded frames, swr_sweep_fwd launches "
+              f"{res['launches']}; export {res['export_s']:.2f} s, load "
+              f"{res['load_s']:.2f} s", flush=True)
+        if worst > AOT_TOL:
+            raise AssertionError(f"aot: loaded frames differ by {worst}")
+        if res["launches"] != len(poses):
+            raise AssertionError(f"aot: {res['launches']} swr_sweep_fwd "
+                                 f"launches for {len(poses)} frames")
+        try:
+            render(grid, mlp, _aot_pose((0.1, 0.05, 0.3)))
+        except ValueError as e:
+            print(f"aot: an inside pose raises ValueError ({e})", flush=True)
+        else:
+            raise AssertionError("aot: an inside pose rendered")
+
+        # (b) a fresh process, the defining render replaced; it loads and
+        # renders on the host's other cores while (c) and (d) run here
+        t_part = time.perf_counter()
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save({"grid": grid, "rgb_mlp": mlp,
+                    "pose": torch.as_tensor(poses[0])}, inputs)
+        got_path = os.path.join(tmp, "rgb.pt")
+        err_path = os.path.join(tmp, "child.err")
+        with open(err_path, "w") as err_f:
+            child = subprocess.Popen(
+                [sys.executable, "-c", _AOT_CHILD, out_dir, inputs,
+                 got_path], stdout=subprocess.DEVNULL, stderr=err_f,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            # (c) one entry point of a small model for two platforms
+            small = pyr.PyramidConfig(resolutions=(8, 16), features=4,
+                                      rgb_width=16, deferred=True)
+            gen = torch.Generator().manual_seed(seed)
+            sp = pyr.init_pyramid_params(small, generator=gen, device=device)
+            sp["levels"] = [g + 0.5 * torch.randn(g.shape, generator=gen).to(
+                device) for g in sp["levels"]]
+            sK, swh = intrinsics(32, 32), (32, 32)
+            sgrid = pyr.bake(sp, small).detach()
+            smlp = {k: v.detach() for k, v in sp["rgb_mlp"].items()}
+            # the entry point of AOT_EYES[4] (+z: axis 2, descending)
+            pose = poses[4]
+
+            # 4 chunks of 4 slabs: a quarter of the fold's nodes to trace
+            def infer(g, rgb_mlp, p):
+                return render_swr_fixed_axis(
+                    {"rgb_mlp": rgb_mlp}, g, small, p, sK, swh, 2, True,
+                    n_chunks=4, skip_empty=True, warp="gather")
+
+            two = os.path.join(tmp, "two")
+            t0 = time.perf_counter()
+            aot.export_compiled(infer, [sgrid, smlp, torch.as_tensor(
+                pose, device=device)], two, name="small",
+                platforms=("cuda", "cpu"))
+            secs = time.perf_counter() - t0
+            with open(os.path.join(two, "metadata.json")) as f:
+                plats = json.load(f)["small"]["platforms"]
+            n0 = sw.chunk_sweep.launches
+            a = aot.load_compiled(two, "small", device="cuda")(
+                sgrid, smlp, torch.as_tensor(pose, device=device))["rgb"]
+            torch.cuda.synchronize()
+            n_small = sw.chunk_sweep.launches - n0
+            b = aot.load_compiled(two, "small", device="cpu")(
+                sgrid.cpu(), {k: v.cpu() for k, v in smlp.items()},
+                torch.as_tensor(pose))["rgb"]
+            res["platforms_max_abs"] = float((a.cpu() - b).abs().max())
+            print(f"aot: a small model's entry point exported for {plats} "
+                  f"in {secs:.2f} s; the CUDA file ({n_small} swr_sweep_fwd "
+                  f"launch) against the CPU file: rgb max_abs "
+                  f"{res['platforms_max_abs']:.3e}", flush=True)
+            if (plats != ["cuda", "cpu"] or n_small != 1
+                    or res["platforms_max_abs"] > AOT_PLATFORM_TOL):
+                raise AssertionError("aot: the two platforms' files differ")
+
+            # (d) opcheck of both operators, fp32 and bf16 volumes
+            rng = np.random.default_rng(seed)
+            nq = 13
+            for vdt in (torch.float32, torch.bfloat16):
+                vol, rs, z_rel, ch = _rand_sweep_inputs(torch, rng, 2, 3, 8,
+                                                        12, nq, False)
+                vol = vol.to(vdt)
+                torch.library.opcheck(
+                    torch.ops.taichi_nerfs_torch.swr_sweep_fwd,
+                    (vol.clone().requires_grad_(True), rs, z_rel, ch, nq,
+                     "cubic", torch.float32))
+                frames = sw.chunk_sweep(vol, rs, z_rel, ch, nq, "cubic")
+                torch.library.opcheck(
+                    torch.ops.taichi_nerfs_torch.swr_sweep_bwd,
+                    (vol, rs, z_rel, ch, frames, torch.randn_like(frames),
+                     nq, "cubic", torch.float32))
+                print(f"aot: opcheck of swr_sweep_fwd and swr_sweep_bwd "
+                      f"passed, {str(vdt).removeprefix('torch.')} volume "
+                      f"{tuple(vol.shape)}", flush=True)
+            child.wait(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        if child.returncode != 0:
+            with open(err_path) as f:
+                raise AssertionError(f"aot: the fresh process failed: "
+                                     f"{f.read()[-2000:]}")
+        d = float((torch.load(got_path).to(device)
+                   - live(poses[0])["rgb"]).abs().max())
+        res["fresh_max_abs"] = d
+        res["secs_bcd"] = time.perf_counter() - t_part
+        print(f"aot: a fresh process (render_swr_fixed_axis raises) "
+              f"rendered entry {sweep_axis(poses[0])}: max_abs vs live "
+              f"{d:.3e}; parts (b)-(d) {res['secs_bcd']:.1f} s", flush=True)
+        if d > AOT_TOL:
+            raise AssertionError(f"aot: the fresh process's frame differs "
+                                 f"by {d}")
+        os.remove(inputs)
+
+        # (e) the two timing scripts on the record model
+        t_part = time.perf_counter()
+        ckpt = os.path.join(tmp, "model_pyramid.npz")
+        save_pyramid_npz(ckpt, params)
+        res["scripts"] = []
+        for name, argv in (
+                ("torch_eval_fps.py", ["--ckpt", ckpt, "--frames", "4",
+                                       "--resample_kind", "cubic"]),
+                ("torch_viewer_bench.py", ["--ckpt", ckpt, "--frames",
+                                           "8"])):
+            lines = _run_script(name, argv)
+            for line in lines:
+                print(f"aot: {name}: {line}", flush=True)
+            res["scripts"] += [x for x in lines if "ms/frame" in x
+                               or x.startswith("VIEWER:")]
+        if len(res["scripts"]) != 3:
+            raise AssertionError(f"aot: the scripts printed {res['scripts']}")
+        res["secs_e"] = time.perf_counter() - t_part
+        print(f"aot: the two scripts in {res['secs_e']:.1f} s", flush=True)
+
+    # (f) capped frames through the artifact and the live render
+    ms = {"artifact": [], "live": []}
+    for _ in range(2):
+        for mode, fn in (("artifact", lambda p: render(grid, mlp, p)),
+                         ("live", live)):
+            for i in range(AOT_FRAMES // 2):
+                p = poses[i % len(poses)]
+                t0 = time.perf_counter()
+                fn(p)
+                torch.cuda.synchronize()
+                ms[mode].append((time.perf_counter() - t0) * 1e3)
+    res["frame_ms"] = {k: (_median(v), min(v), max(v)) for k, v in ms.items()}
+    res["secs"] = time.perf_counter() - t_phase
+    a, b = res["frame_ms"]["artifact"], res["frame_ms"]["live"]
+    print(f"aot ({card}): 800x800 capped (lattice {lat_cap}) gather frames, "
+          f"{AOT_FRAMES} each: artifact median {a[0]:.3f} ms (min "
+          f"{a[1]:.3f}, max {a[2]:.3f}), live median {b[0]:.3f} ms (min "
+          f"{b[1]:.3f}, max {b[2]:.3f}); phase {res['secs']:.1f} s",
+          flush=True)
+    return res
+
+
 # the parallel phase: NGP steps (refreshes at steps 0 and 2) and full-depth
 # pyramid steps a run
 PAR_NGP_STEPS, PAR_SWR_STEPS = 4, 2
@@ -3222,6 +3525,7 @@ def main(argv=None):
     models = phase_ngp_models(torch, args.seed, card)
     export = phase_export(torch, args.seed, card, record)
     viewer = phase_viewer(torch, args.seed, card, ngp, record)
+    aot = phase_aot(torch, args.seed, card, record)
     del record, ngp
     par = phase_parallel(torch, card)
     print(f"summary inside and files ({card}): inside phase "
@@ -3246,6 +3550,18 @@ def main(argv=None):
           f"{viewer['ngp']['median_ms']:.2f} ms, pyramid median "
           f"{viewer['pyramid']['median_ms']:.2f} ms ({viewer['secs']:.1f} s)"
           f"", flush=True)
+    a_ms, l_ms = aot["frame_ms"]["artifact"], aot["frame_ms"]["live"]
+    print(f"summary aot ({card}): export of the 6 entry points "
+          f"{aot['export_s']:.2f} s, "
+          f"{sum(b for _, b in aot['entries'].values())} bytes, load "
+          f"{aot['load_s']:.2f} s; loaded frames within {aot['max_abs']:.3e} "
+          f"of the live render ({aot['launches']} swr_sweep_fwd launches), "
+          f"a fresh process within {aot['fresh_max_abs']:.3e}, the CUDA "
+          f"file within {aot['platforms_max_abs']:.3e} of the CPU file; "
+          f"capped frame through the artifact median {a_ms[0]:.3f} ms (min "
+          f"{a_ms[1]:.3f}, max {a_ms[2]:.3f}), live median {l_ms[0]:.3f} ms "
+          f"(min {l_ms[1]:.3f}, max {l_ms[2]:.3f}); phase "
+          f"{aot['secs']:.1f} s", flush=True)
     one, two = par["nccl 1 rank"], par["gloo 2 ranks on one card"]
     print(f"summary parallel ({card}): nccl, 1 rank: NGP steps "
           f"{_fmt_ms(one['ngp_ms'][0])} ms, pyramid steps "
@@ -3282,6 +3598,8 @@ def main(argv=None):
                                  inside["launches_outside"][0],
                              "train_files": files["launches"][0],
                              "viewer": viewer["pyramid"]["launches"],
+                             # the loaded compiled artifact's frames
+                             "aot": aot["launches"],
                              # a list: each rank's count
                              "train_parallel": _par_launches(par, 0)},
         "max_abs_err": worst,

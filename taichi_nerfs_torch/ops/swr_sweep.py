@@ -15,9 +15,13 @@ with channels ``[acc features (F-1) | depth | opacity | tau]``.
   the straight-line oracle ``_ref_sweep`` in ``tests/test_swr_pallas.py``.
 * :func:`chunk_sweep` launches the hand-written kernel
   ``csrc/swr_sweep_fwd.cu`` for CUDA tensors, and uses the plain version
-  only for CPU tensors.  On CUDA it is a ``torch.autograd.Function`` whose
-  backward is the hand-written ``csrc/swr_sweep_bwd.cu``
-  (:func:`chunk_sweep_bwd`; plain version :func:`chunk_sweep_bwd_reference`).
+  only for CPU tensors.  On CUDA it calls the registered operator
+  ``taichi_nerfs_torch::swr_sweep_fwd``, whose backward is the operator
+  ``taichi_nerfs_torch::swr_sweep_bwd`` on the hand-written
+  ``csrc/swr_sweep_bwd.cu`` (:func:`chunk_sweep_bwd`; plain version
+  :func:`chunk_sweep_bwd_reference`).  One route serves eager calls,
+  training, the ``parallel/`` ranks and programs exported with
+  ``torch.export`` (``utils/aot.py``).
 
 Two dtypes, as the Pallas kernels take them: ``vol_cs`` is float32 or
 bfloat16 (a bf16 baked grid), and ``dtype`` is the resample operand dtype
@@ -241,7 +245,40 @@ def _launch(name: str, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
+def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
+                              kind="linear", dtype=torch.float32):
+    """Plain PyTorch backward: autograd of :func:`chunk_sweep_reference`,
+    ``d<g, frames>/d vol_cs``, in ``vol_cs``'s dtype."""
+    with torch.enable_grad():
+        v = vol_cs.detach().requires_grad_(True)
+        out = chunk_sweep_reference(v, rs_par, z_rel, ch_par, nq, kind, dtype)
+        (dvol,) = torch.autograd.grad(out, v, g)
+    return dvol
+
+
+# The kernels as registered operators, so that ``torch.export`` traces a
+# sweep as one graph node (``utils/aot.py``): a traced tensor has no storage
+# for the ctypes launch, so tracing runs each operator's fake version, which
+# gives the output's shape and dtype only.  The implementations launch the
+# kernels and count the launches; they are registered for CUDA tensors only
+# (the CPU branches of the wrappers below run the plain versions outside
+# the operators: autograd does not run inside an operator's
+# implementation).  Neither mutates its inputs.  Defined on a ``Library``
+# rather than with ``torch.library.custom_op``, whose kernel wrapper
+# imports ``torch._dynamo`` at a process's first call (~2 s on a CPU,
+# ~8.5 s on the H100 machine's host: every new process that sweeps).
+_LIB = torch.library.Library("taichi_nerfs_torch", "DEF")
+_LIB.define(
+    "swr_sweep_fwd(Tensor vol_cs, Tensor rs_par, Tensor z_rel, "
+    "Tensor ch_par, int nq, str kind, ScalarType dtype) -> Tensor")
+_LIB.define(
+    "swr_sweep_bwd(Tensor vol_cs, Tensor rs_par, Tensor z_rel, "
+    "Tensor ch_par, Tensor frames, Tensor g, int nq, str kind, "
+    "ScalarType dtype) -> Tensor")
+
+
+def _sweep_fwd_op(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
+    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
     nc, dc, F, Rb, Rc = vol_cs.shape
     out = torch.empty(
         (nc, F + 2, nq, nq), dtype=torch.float32, device=vol_cs.device
@@ -257,44 +294,15 @@ def _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
     return out
 
 
-def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
-                              kind="linear", dtype=torch.float32):
-    """Plain PyTorch backward: autograd of :func:`chunk_sweep_reference`,
-    ``d<g, frames>/d vol_cs``, in ``vol_cs``'s dtype."""
-    with torch.enable_grad():
-        v = vol_cs.detach().requires_grad_(True)
-        out = chunk_sweep_reference(v, rs_par, z_rel, ch_par, nq, kind, dtype)
-        (dvol,) = torch.autograd.grad(out, v, g)
-    return dvol
-
-
-def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
-                    kind="linear", dtype=torch.float32):
-    """``d<g, frames>/d vol_cs`` of the sweep whose forward gave ``frames``,
-    in ``vol_cs``'s dtype.
-
-    On a CUDA tensor it runs ``csrc/swr_sweep_bwd.cu`` on the current
-    stream or raises: a memset and the sweep kernel, which adds the tiles'
-    sums with atomics (so the last bits may differ from run to run),
-    counted in ``chunk_sweep_bwd.launches``.  With an fp32 ``vol_cs`` and
-    fp32 operands the sums are ``dvol``'s.  With a bf16 ``vol_cs`` or bf16
-    operands they are the transposed pass's ``t``, added into an fp32
-    scratch ``(n_chunks, dc, F, nq, Rc)``, and a second kernel
-    (``swr_sweep_bwd_rows_kernel``, counted in
-    ``chunk_sweep_bwd.finish_launches``) rounds each ``t`` once (bf16
-    operands) and resamples them back along b into ``dvol``, each voxel
-    stored once in ``vol_cs``'s dtype.  On a CPU tensor it runs
-    :func:`chunk_sweep_bwd_reference` (``frames`` unused there).
-    """
-    if vol_cs.device.type == "cpu":
-        return chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g,
-                                         nq, kind, dtype)
-    if vol_cs.device.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {vol_cs.device}")
+@torch.library.register_fake("taichi_nerfs_torch::swr_sweep_fwd", lib=_LIB)
+def _(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
     _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
-    # the kernel indexes g[c, ch, i, j] directly: a cotangent that reaches
-    # here as a strided view of the fold's frame slices is copied once
-    g = g.contiguous()
+    nc, _, F = vol_cs.shape[:3]
+    return vol_cs.new_empty((nc, F + 2, nq, nq), dtype=torch.float32)
+
+
+def _sweep_bwd_op(vol_cs, rs_par, z_rel, ch_par, frames, g, nq, kind, dtype):
+    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
     _check_bwd_args(vol_cs, frames, g, nq)
     nc, dc, F, Rb, Rc = vol_cs.shape
     dvol = torch.empty_like(vol_cs)
@@ -315,25 +323,67 @@ def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
     return dvol
 
 
-class _ChunkSweep(torch.autograd.Function):
-    """Forward and backward kernels as one differentiable op.  Only
-    ``vol_cs`` gets a gradient: the camera parameters ``rs_par``, ``z_rel``
-    and ``ch_par`` get ``None``, as the JAX VJP returns zeros for them."""
+@torch.library.register_fake("taichi_nerfs_torch::swr_sweep_bwd", lib=_LIB)
+def _(vol_cs, rs_par, z_rel, ch_par, frames, g, nq, kind, dtype):
+    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
+    _check_bwd_args(vol_cs, frames, g, nq)
+    return torch.empty_like(vol_cs)
 
-    @staticmethod
-    def forward(ctx, vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
-        frames = _sweep_fwd_kernel(vol_cs, rs_par, z_rel, ch_par, nq, kind,
-                                   dtype)
-        ctx.save_for_backward(vol_cs, rs_par, z_rel, ch_par, frames)
-        ctx.nq, ctx.kind, ctx.dtype = nq, kind, dtype
-        return frames
 
-    @staticmethod
-    def backward(ctx, g):
-        vol_cs, rs_par, z_rel, ch_par, frames = ctx.saved_tensors
-        dvol = chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g,
-                               ctx.nq, ctx.kind, ctx.dtype)
-        return dvol, None, None, None, None, None, None
+_LIB.impl("swr_sweep_fwd", _sweep_fwd_op, "CUDA")
+_LIB.impl("swr_sweep_bwd", _sweep_bwd_op, "CUDA")
+
+
+def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
+                    kind="linear", dtype=torch.float32):
+    """``d<g, frames>/d vol_cs`` of the sweep whose forward gave ``frames``,
+    in ``vol_cs``'s dtype.
+
+    On a CUDA tensor it runs ``csrc/swr_sweep_bwd.cu`` on the current
+    stream or raises, through the operator
+    ``taichi_nerfs_torch::swr_sweep_bwd``: a memset and the sweep kernel,
+    which adds the tiles' sums with atomics (so the last bits may differ
+    from run to run), counted in ``chunk_sweep_bwd.launches``.  With an
+    fp32 ``vol_cs`` and fp32 operands the sums are ``dvol``'s.  With a bf16
+    ``vol_cs`` or bf16 operands they are the transposed pass's ``t``, added
+    into an fp32 scratch ``(n_chunks, dc, F, nq, Rc)``, and a second kernel
+    (``swr_sweep_bwd_rows_kernel``, counted in
+    ``chunk_sweep_bwd.finish_launches``) rounds each ``t`` once (bf16
+    operands) and resamples them back along b into ``dvol``, each voxel
+    stored once in ``vol_cs``'s dtype.  On a CPU tensor it runs
+    :func:`chunk_sweep_bwd_reference` (``frames`` unused there).
+    """
+    if vol_cs.device.type == "cpu":
+        return chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g,
+                                         nq, kind, dtype)
+    if vol_cs.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {vol_cs.device}")
+    # the kernel indexes g[c, ch, i, j] directly: a cotangent that reaches
+    # here as a strided view of the fold's frame slices is copied once
+    return torch.ops.taichi_nerfs_torch.swr_sweep_bwd(
+        vol_cs, rs_par, z_rel, ch_par, frames, g.contiguous(), nq, kind,
+        dtype)
+
+
+def _sweep_setup_context(ctx, inputs, output):
+    vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype = inputs
+    ctx.save_for_backward(vol_cs, rs_par, z_rel, ch_par, output)
+    ctx.nq, ctx.kind, ctx.dtype = nq, kind, dtype
+
+
+def _sweep_backward(ctx, g):
+    """Only ``vol_cs`` gets a gradient: the camera parameters ``rs_par``,
+    ``z_rel`` and ``ch_par`` get ``None``, as the JAX VJP returns zeros for
+    them."""
+    vol_cs, rs_par, z_rel, ch_par, frames = ctx.saved_tensors
+    dvol = chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g,
+                           ctx.nq, ctx.kind, ctx.dtype)
+    return dvol, None, None, None, None, None, None
+
+
+torch.library.register_autograd("taichi_nerfs_torch::swr_sweep_fwd",
+                                _sweep_backward,
+                                setup_context=_sweep_setup_context, lib=_LIB)
 
 
 def chunk_sweep(
@@ -352,17 +402,18 @@ def chunk_sweep(
     or bf16; ``dtype`` is the resample operand dtype (the JAX
     ``chunk_sweep``'s ``dtype``).  On a CUDA tensor it launches
     ``csrc/swr_sweep_fwd.cu`` on the current stream (counted in
-    ``chunk_sweep.launches``) or raises, and a gradient asked of ``vol_cs``
-    runs :func:`chunk_sweep_bwd`'s kernel; on a CPU tensor it runs
-    :func:`chunk_sweep_reference` under autograd.
+    ``chunk_sweep.launches``) or raises, through the operator
+    ``taichi_nerfs_torch::swr_sweep_fwd``, and a gradient asked of
+    ``vol_cs`` runs :func:`chunk_sweep_bwd`'s kernel; on a CPU tensor it
+    runs :func:`chunk_sweep_reference` under autograd.
     """
     if vol_cs.device.type == "cpu":
         return chunk_sweep_reference(vol_cs, rs_par, z_rel, ch_par, nq, kind,
                                      dtype)
     if vol_cs.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {vol_cs.device}")
-    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
-    return _ChunkSweep.apply(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
+    return torch.ops.taichi_nerfs_torch.swr_sweep_fwd(
+        vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
 
 
 chunk_sweep.launches = 0

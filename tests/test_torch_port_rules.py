@@ -27,6 +27,15 @@ def _package_files():
                 yield os.path.join(root, f)
 
 
+def _port_files():
+    """The package's files, then every ``scripts/torch_*.py``."""
+    yield from _package_files()
+    scripts = os.path.join(REPO, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
+
+
 def _modules():
     for path in _package_files():
         if path.endswith(".py"):
@@ -73,7 +82,7 @@ def test_package_imports_without_image_libraries():
 
 def test_no_file_of_the_package_names_jax():
     offenders = []
-    for path in _package_files():
+    for path in _port_files():
         with open(path, encoding="utf-8") as f:
             for n, line in enumerate(f, 1):
                 if (
@@ -391,11 +400,40 @@ def test_train_entry_takes_device_out_of_argv(argv, want):
 
 
 def test_package_has_no_cpu_fallback():
-    """No module picks the CPU because the card is missing."""
+    """No module or port script picks the CPU because the card is
+    missing."""
     offenders = []
-    for path in _package_files():
+    for path in _port_files():
         with open(path, encoding="utf-8") as f:
             for n, line in enumerate(f, 1):
                 if "is_available() else" in line:
                     offenders.append(f"{os.path.relpath(path, REPO)}:{n}")
+    assert not offenders, offenders
+
+
+def test_port_scripts_are_checked():
+    """The two checks above walk the serving and deployment scripts."""
+    names = {os.path.basename(p) for p in _port_files()}
+    assert {"torch_eval_fps.py", "torch_viewer_bench.py",
+            "torch_native_bench.py", "torch_export_lego_nsvf.py"} <= names
+
+
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` names the JAX package's kernels in strings (the
+    ``replaces`` of its kernels line), so only its import statements are
+    checked: none reaches jax, optax or the JAX package."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    offenders = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        offenders += [f"chip_smoke.py:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in FORBIDDEN]
     assert not offenders, offenders
