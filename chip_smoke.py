@@ -39,7 +39,7 @@ phases:
    step's gradient through the kernels is compared with the plain sweep's;
 7. scan: the record widths with a split sigma grid (``sigma_res=512``),
    per-sample shading and the distortion loss, which the slab scan renders:
-   8 steps on the same views (losses finite; the loss on fixed crops
+   6 steps on the same views (losses finite; the loss on fixed crops
    falls), the step median and peak device memory, one capped 800x800
    frame (finite, opacity in [0, 1]) and zero sweep-kernel launches;
 8. scan card vs CPU: one scan-path loss and its gradients at a small size,
@@ -81,7 +81,7 @@ phases:
    (both kernels launched, the eval finite), and NGP for 32 steps (losses
    finite);
 13. ngp: the sample-gather NGP path at the flagship ``config_for_scene(0.5)``
-   (brick encoder, 128^3 occupancy grid, batch 8192) trains 320 steps with
+   (brick encoder, 128^3 occupancy grid, batch 8192) trains 288 steps with
    ``Trainer`` on 8 checker views made on the card (past the 256-step
    warmup, so the sparse grid refresh runs); every loss must be finite and
    the mean of the last 16 below half the first.  One ``render_train`` on
@@ -94,7 +94,7 @@ phases:
    pos_encoder_type="triplane")``, the default ``TriPlaneConfig``: a
    3 x 1024^2 x 4 table) and the svox voxel grid (``--grid_size 256
    --sh_degree 2 --grid_radius 0.0125``: 256^3 x 27 SH coefficients) each
-   train 320 steps on the ngp phase's views (losses finite, the mean of the
+   train 288 steps on the ngp phase's views (losses finite, the mean of the
    last 16 below the first), run the ngp phase's card-vs-CPU
    ``render_train`` check and render an 800x800 test view (finite, opacity
    in [0, 1]); the steady step, peak device memory and frame time printed;
@@ -122,7 +122,17 @@ phases:
    operators (fp32 and bf16 volume); ``scripts/torch_eval_fps.py`` and
    ``scripts/torch_viewer_bench.py`` on the record model; 8 capped frames
    through the artifact and 8 through the live render, timed;
-18. parallel: data-parallel training (``parallel/``) at full width on 8
+18. scripts: ``scripts/torch_quality_run.py`` at the record widths (the
+   R=512 recipe) on 8 lego views at 256x256, 4 steps and then resumed from
+   its state to 8 (each evaluating one held-out view and writing the
+   manifest), ``torch_publish_record.py`` on them in a temporary working
+   directory, ``torch_profile_swr.py`` and ``torch_profile_parity.py`` at
+   one repeat a piece, ``torch_voxel_ceiling.py`` and
+   ``torch_swr_inside_fidelity.py`` on the shell scene (R=64, one 256x256
+   view), each in a fresh process whose printed launch counts the kernels
+   line reports (the oracles launch no sweep kernel); both notebooks, run
+   cell by cell on the card;
+19. parallel: data-parallel training (``parallel/``) at full width on 8
    checker views at 256x256: the flagship NGP configuration (its MLPs in
    fp32, a refresh every 2 steps) for 4 steps after a warm-up and a steady
    refresh from its first state, and the record pyramid at full depth
@@ -150,6 +160,7 @@ lines carry the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -195,14 +206,14 @@ LOSS_FALL = 0.95
 # card / CPU cross-check of one render_train: rays, the share of rays with
 # equal sample counts (a float tie at a cell boundary may move a sample)
 # and rgb (bf16-operand MLPs, summed in another order on each device)
-NGP_STEPS, NGP_WARMUP = 320, 256
+NGP_STEPS, NGP_WARMUP = 288, 256
 NGP_LOSS_FALL = 0.5
 NGP_CHECK_RAYS, NGP_COUNT_SHARE, NGP_RGB_TOL = 4096, 0.999, 2e-2
 NGP_TEST_WH = (800, 800)
 # the default-flag phase: 3 coarse-to-fine phases of 3 steps; the scan
 # phase: steps, and fixed crops whose loss must fall
 DEFAULT_PROG, DEFAULT_STEPS = (3, 3), 9
-SCAN_STEPS, SCAN_CROPS = 8, 2
+SCAN_STEPS, SCAN_CROPS = 6, 2
 # scan loss and gradients, card against CPU (the CPU tests' tolerances)
 SCAN_LOSS_TOL, SCAN_GRAD_TOL = 1e-5, 2e-4
 # the bf16 phase: the repo's R=512 record
@@ -250,12 +261,20 @@ def _rand_sweep_inputs(torch, rng, nc, dc, F, R, nq, realistic,
     """Random sweep operands in the style of tests/test_swr_pallas.py.
 
     ``realistic`` spreads the lattice over the whole source slab as the
-    renderer does (step ~ R / (nq - 16), h = 1 / R).  ``start`` and
-    ``step``, given as ``(low, high)``, draw the lattice's start and step
-    on both axes from those ranges instead."""
+    renderer does (step ~ R / (nq - 16), h = 1 / R), and draws the volume
+    on the card from a seed taken from ``rng`` (as ``_r512_sweep_inputs``
+    does: on the host, each training-shape volume took seconds).  ``start``
+    and ``step``, given as ``(low, high)``, draw the lattice's start and
+    step on both axes from those ranges instead."""
     import numpy as np
 
-    vol = rng.normal(0.3, 1.0, (nc, dc, F, R, R)).astype(np.float32)
+    dev = torch.device("cuda")
+    if realistic:
+        gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
+        vol = torch.randn((nc, dc, F, R, R), generator=gen,
+                          device=dev).add_(0.3)
+    else:
+        vol = rng.normal(0.3, 1.0, (nc, dc, F, R, R)).astype(np.float32)
     if realistic:
         step0 = R / (nq - 16)
         starts = rng.uniform(-10.0, 0.0, (nc, dc, 2))
@@ -284,7 +303,6 @@ def _rand_sweep_inputs(torch, rng, nc, dc, F, R, nq, realistic,
         ],
         axis=-1,
     ).astype(np.float32)
-    dev = torch.device("cuda")
     return [torch.as_tensor(a, device=dev) for a in (vol, rs, z_rel, ch)]
 
 
@@ -393,6 +411,10 @@ FWD_TIMED = (("serving nq=816", (1, 16, 8, 256, 816)),
              ("serving nq=336", (1, 16, 8, 256, 336)),
              ("training nq=272", (16, 16, 8, 256, 272)),
              ("training F=16 nq=272", (16, 16, 16, 256, 272)))
+# scripts/torch_profile_swr.py's deferred steps at R=256, F=8, 16 chunks,
+# linear, crops 128 and 192: (crop, nq), the lattice crop + 16 smaller than
+# the grid's side (its crop-256 step is the training shape above)
+PROFILE_SHAPES = ((128, 144), (192, 208))
 
 
 def phase_kernels(torch):
@@ -410,25 +432,32 @@ def phase_kernels(torch):
     rng = np.random.default_rng(0)
     worst = 0.0
     timing = {}
+    both = ("linear", "cubic")
     cases = [
-        (f"ragged F={F}", dict(nc=2, dc=3, F=F, R=40, nq=37, realistic=False))
+        (f"ragged F={F}", dict(nc=2, dc=3, F=F, R=40, nq=37, realistic=False),
+         both)
         for F in (4, 8, 16)
     ] + [
-        (f"{label} F={F}", dict(shp, F=F, realistic=False))
+        (f"{label} F={F}", dict(shp, F=F, realistic=False),
+         ("cubic",) if label == "non-finite" else both)
         for label, shp in FWD_EDGE_CASES for F in (4, 8, 16)
     ] + [
-        (label, dict(nc=nc, dc=dc, F=F, R=R, nq=nq, realistic=True))
+        (label, dict(nc=nc, dc=dc, F=F, R=R, nq=nq, realistic=True),
+         ("linear",) if F == 16 else both)
         for label, (nc, dc, F, R, nq) in FWD_TIMED
+    ] + [
+        (f"profile_swr crop {crop} nq={nq}", dict(nc=16, dc=16, F=8, R=256,
+                                                   nq=nq, realistic=True),
+         ("linear",))
+        for crop, nq in PROFILE_SHAPES
     ]
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-    for label, shp in cases:
+    for label, shp, kinds in cases:
         nq = shp["nq"]
         args = _rand_sweep_inputs(torch, rng, **shp)
-        kinds = ("linear",) if "F=16 nq" in label else ("linear", "cubic")
         if label.startswith("non-finite"):
             for c, s, k, v in NON_FINITE_RS:
                 args[1][c, s, k] = v
-            kinds = ("cubic",)
         for kind in kinds:
             got = chunk_sweep(*args, nq, kind)
             want = chunk_sweep_reference(*args, nq, kind)
@@ -518,6 +547,10 @@ def phase_bwd_kernels(torch):
         ("training F=16 R=256 nq=272", dict(nc=16, dc=16, F=16, R=256,
                                             nq=272, realistic=True),
          ("linear",)),
+    ] + [
+        (f"profile_swr crop {crop} R=256 nq={nq}",
+         dict(nc=16, dc=16, F=8, R=256, nq=nq, realistic=True), ("linear",))
+        for crop, nq in PROFILE_SHAPES
     ]
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     worst = 0.0
@@ -559,7 +592,7 @@ def phase_bwd_kernels(torch):
                     f"{BWD_TOL} (+{BWD_TOL} rel)"
                 )
             worst = max(worst, max_abs)
-            if label.startswith("training"):
+            if shp is not None and shp["realistic"]:
                 again = chunk_sweep_bwd(*args, frames, g, nq, kind)
                 rerun = float((again - got).abs().max())
                 del got, want, again
@@ -1084,12 +1117,15 @@ def _profile_step(torch, trainer, tag, draw=None):
     """One training step (on ``draw``, or the trainer's next) under
     ``torch.profiler``: its kernel launches, the card's busy share of its
     wall time, the top kernels by device time and the renderer's spans
-    (host time)."""
+    (host time, from host timers around each ``swr.*`` span).  Device
+    activity only: the host's op events of a slab-scan step (~10^6) took
+    75 s to collect and inflated the step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    spans = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            _host_spans(spans):
         t0 = time.perf_counter()
         float(trainer.run_step(draw)["loss"])
         torch.cuda.synchronize()
@@ -1106,11 +1142,37 @@ def _profile_step(torch, trainer, tag, draw=None):
               f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x"
               f"{e.count}" for e in kern[:6]), flush=True)
     print(f"{tag}: spans, host time: " + "; ".join(
-        f"{e.key} {e.cpu_time_total / 1e3:.3f} ms x{e.count}"
-        for e in sorted(avgs, key=lambda e: e.key)
-        if e.key.startswith("swr.")), flush=True)
+        f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in sorted(spans.items())),
+        flush=True)
     return {"launches": launches, "busy": busy_us / wall_us,
-            "profiled_ms": wall_us / 1e3}
+            "profiled_ms": wall_us / 1e3, "spans": spans}
+
+
+@contextlib.contextmanager
+def _host_spans(spans):
+    """While the block runs, each ``swr.*`` span of ``render/swr.py`` also
+    adds its host time (ms) and one call to ``spans[name]``: the module's
+    ``_span`` wrapped in a timer, restored afterwards.  A forward span
+    only: the backward runs outside them."""
+    import taichi_nerfs_torch.render.swr as swr
+
+    orig = swr._span
+
+    @contextlib.contextmanager
+    def timed(name):
+        t0 = time.perf_counter()
+        try:
+            with orig(name):
+                yield
+        finally:
+            ms, n = spans.get(name, (0.0, 0))
+            spans[name] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+
+    swr._span = timed
+    try:
+        yield spans
+    finally:
+        swr._span = orig
 
 
 def phase_scan_cpu(torch, seed, card):
@@ -2814,11 +2876,13 @@ def _aot_pose(eye):
     return look_at(np.asarray(eye), np.zeros(3), np.asarray(up))
 
 
-def _run_script(name, argv):
-    """``scripts/<name>.py`` in a fresh process; its output lines."""
-    r = subprocess.run([sys.executable, os.path.join("scripts", name)]
+def _run_script(name, argv, cwd=None):
+    """``scripts/<name>.py`` in a fresh process (in ``cwd``, the checkout
+    if None); its output lines."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.join(repo, "scripts", name)]
                        + argv, capture_output=True, text=True, timeout=600,
-                       cwd=os.path.dirname(os.path.abspath(__file__)))
+                       cwd=cwd or repo)
     if r.returncode != 0:
         raise AssertionError(f"{name} failed: {r.stderr[-2000:]}")
     return r.stdout.strip().splitlines()
@@ -3067,6 +3131,165 @@ def phase_aot(torch, seed, card, record):
           f"{a[1]:.3f}, max {a[2]:.3f}), live median {b[0]:.3f} ms (min "
           f"{b[1]:.3f}, max {b[2]:.3f}); phase {res['secs']:.1f} s",
           flush=True)
+    return res
+
+
+# the scripts phase: torch_quality_run.py at the record widths (its
+# defaults: 5 levels to 512, the last lean, bf16 bake) on 8 lego views at
+# 256x256, phases of 1 + 1 steps, 4 steps and then 8 (a resume); the
+# profilers' repeats; the oracles' resolution and image size
+SCRIPTS_QUALITY = ["--views", "8", "--res", "256", "--prog", "1,1",
+                   "--eval_views", "1"]
+SCRIPTS_REPS = 1
+SCRIPTS_ORACLE = ["--variant", "shell", "--res", "64", "--img", "256",
+                  "--n_views", "1"]
+# the manifest's keys (scripts/quality_run.py)
+MANIFEST_KEYS = {"eval_psnr", "eval_ssim", "per_view_psnr", "views_finite",
+                 "train_wall_s", "steps", "seed", "argv", "config_sha1",
+                 "config", "git_commit", "date"}
+
+
+def _launch_line(name, lines):
+    """``(swr_sweep_fwd, swr_sweep_bwd)`` launches a script printed."""
+    for line in lines:
+        if line.startswith("launches: swr_sweep_fwd="):
+            f, b = line.split()[1:]
+            return int(f.split("=")[1]), int(b.split("=")[1])
+    raise AssertionError(f"scripts: {name} printed no launch counts")
+
+
+def _run_notebook(name, device_cell):
+    """The code cells of ``notebooks/<name>.ipynb`` run with ``exec`` in one
+    namespace, the first (the device) kept as shipped; the namespace."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "notebooks", f"{name}.ipynb")) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    if device_cell not in cells[0]:
+        raise AssertionError(f"scripts: {name}'s first cell is {cells[0]!r}")
+    ns = {}
+    for i, src in enumerate(cells):
+        exec(compile(src, f"{name}.ipynb[{i}]", "exec"), ns)
+    return ns
+
+
+def _record_chain(run, tmp, res):
+    """``phase_scripts`` (a) and (b): the record run to 4 steps, resumed
+    from its state to 8, and its publication, in ``tmp``."""
+    import numpy as np
+
+    state = os.path.join(tmp, "q.pt")
+    manifest = os.path.join(tmp, "results", "model_pyramid.manifest.json")
+    launches = [0, 0]
+    for steps, resumed in ((4, None), (8, 4)):
+        out = "\n".join(run(f"quality_run {steps}", "torch_quality_run.py",
+                            SCRIPTS_QUALITY + ["--total_steps", str(steps),
+                                               "--state", state], cwd=tmp))
+        if resumed is not None and \
+                f"resumed at step {resumed} " not in out:
+            raise AssertionError(f"scripts: the run did not resume at step "
+                                 f"{resumed}")
+        if f"TRAIN DONE: {steps} steps" not in out:
+            raise AssertionError(f"scripts: the run did not finish {steps} "
+                                 f"steps")
+        with open(manifest) as f:
+            man = json.load(f)
+        if (set(man) != MANIFEST_KEYS or man["steps"] != steps
+                or man["views_finite"] != 1
+                or not np.isfinite(man["eval_psnr"])):
+            raise AssertionError(f"scripts: manifest {man}")
+        res[f"quality_psnr_{steps}"] = man["eval_psnr"]
+        launches = [a + b for a, b in zip(
+            launches, res["launches"][f"quality_run {steps}"])]
+    res["launches"]["quality_run"] = tuple(launches)
+    pub = os.path.join(tmp, "pub")
+    os.makedirs(pub)
+    run("publish_record", "torch_publish_record.py",
+        ["--manifest", manifest, "--state", state], cwd=pub)
+    got = sorted(os.listdir(os.path.join(pub, "docs", "records")))
+    if got != ["lego_proxy.manifest.json", "lego_proxy_depth.png",
+               "lego_proxy_gt.png", "lego_proxy_rgb.png"]:
+        raise AssertionError(f"scripts: publish_record wrote {got}")
+
+
+def phase_scripts(torch, card):
+    """The record, profiling and oracle scripts and the notebooks on the
+    card, each script in a fresh process: (a) ``torch_quality_run.py`` at
+    the record widths (``SCRIPTS_QUALITY``) to 4 steps, then resumed from
+    its state to 8 (it must print ``resumed at step 4``), each invocation
+    evaluating one held-out view and writing the manifest (its keys, a
+    finite PSNR, ``views_finite`` 1); (b) ``torch_publish_record.py`` on
+    that manifest and state in a temporary working directory (the manifest
+    and three PNGs); (c) ``torch_profile_swr.py`` and
+    ``torch_profile_parity.py`` with ``--reps SCRIPTS_REPS`` (every piece
+    printed); (d) ``torch_voxel_ceiling.py`` and
+    ``torch_swr_inside_fidelity.py`` on the shell scene (finite PSNRs, no
+    sweep kernel launched); (e) both notebooks, their first cell naming the
+    card.  One after another, each alone on the card.  The sweep kernels'
+    launches of each script come from the line it prints.  Returns a dict
+    of numbers."""
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    res = {"launches": {}, "secs": {}}
+
+    def run(tag, name, argv, cwd=None):
+        t0 = time.perf_counter()
+        lines = _run_script(name, argv, cwd)
+        res["secs"][tag] = time.perf_counter() - t0
+        for line in lines:
+            print(f"scripts: {tag}: {line}", flush=True)
+        print(f"scripts: {tag} in {res['secs'][tag]:.1f} s", flush=True)
+        res["launches"][tag] = _launch_line(name, lines)
+        return lines
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _record_chain(run, tmp, res)
+        for name in ("torch_voxel_ceiling.py",
+                     "torch_swr_inside_fidelity.py"):
+            lines = run(name[6:-3], name, SCRIPTS_ORACLE)
+            psnr = [float(x.split("psnr = ")[1].split()[0])
+                    for x in lines if "psnr = " in x]
+            if len(psnr) != 1 or not np.isfinite(psnr[0]):
+                raise AssertionError(f"scripts: {name} printed {lines}")
+            if res["launches"][name[6:-3]] != (0, 0):
+                raise AssertionError(f"scripts: {name} launched a sweep "
+                                     f"kernel")
+            res[name[6:-3]] = psnr[0]
+        t0 = time.perf_counter()
+        ns = _run_notebook("torch_autodiff", 'DEVICE, M = "cuda", 1 << 19')
+        if abs(float(ns["flat"][ns["k"]]) - float(ns["fd"])) > 1e-2:
+            raise AssertionError("scripts: the autodiff gradient check "
+                                 "failed")
+        ns = _run_notebook("torch_pipeline", 'DEVICE = "cuda"')
+        if ns["trainer"].step != 3 or not all(
+                np.isfinite(float(v)) for v in ns["metrics"].values()):
+            raise AssertionError("scripts: the pipeline notebook's steps")
+        del ns
+        res["secs"]["notebooks"] = time.perf_counter() - t0
+        for name, pieces in (("torch_profile_swr.py", 19),
+                             ("torch_profile_parity.py", 4)):
+            lines = run(name[6:-3], name, ["--reps", str(SCRIPTS_REPS)])
+            timed = [x for x in lines if " median " in x]
+            if len(timed) != pieces or any("nan" in x for x in timed):
+                raise AssertionError(f"scripts: {name} printed {timed}")
+    res["secs"]["phase"] = time.perf_counter() - t_phase
+    for tag, fwd_bwd in sorted(res["launches"].items()):
+        print(f"scripts: {tag}: swr_sweep_fwd / swr_sweep_bwd launches "
+              f"{fwd_bwd[0]} / {fwd_bwd[1]}", flush=True)
+    for tag, want in (("quality_run", (1, 1)), ("publish_record", (1, 0)),
+                      ("profile_swr", (1, 1))):
+        got = res["launches"][tag]
+        if any(w and not g for g, w in zip(got, want)):
+            raise AssertionError(f"scripts: {tag} launched {got}")
+    print(f"scripts ({card}): seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["secs"].items())
+          + f"; record run eval psnr {res['quality_psnr_4']} (4 steps), "
+          f"{res['quality_psnr_8']} (8); voxel ceiling "
+          f"{res['voxel_ceiling']:.2f} dB, inside fidelity "
+          f"{res['swr_inside_fidelity']:.2f} dB (R=64, 256x256)", flush=True)
     return res
 
 
@@ -3527,6 +3750,7 @@ def main(argv=None):
     viewer = phase_viewer(torch, args.seed, card, ngp, record)
     aot = phase_aot(torch, args.seed, card, record)
     del record, ngp
+    scripts = phase_scripts(torch, card)
     par = phase_parallel(torch, card)
     print(f"summary inside and files ({card}): inside phase "
           f"{inside['secs']:.1f} s (full-depth steps inside "
@@ -3600,6 +3824,13 @@ def main(argv=None):
                              "viewer": viewer["pyramid"]["launches"],
                              # the loaded compiled artifact's frames
                              "aot": aot["launches"],
+                             # the scripts' fresh processes
+                             "quality_run":
+                                 scripts["launches"]["quality_run"][0],
+                             "publish_record":
+                                 scripts["launches"]["publish_record"][0],
+                             "profile_swr":
+                                 scripts["launches"]["profile_swr"][0],
                              # a list: each rank's count
                              "train_parallel": _par_launches(par, 0)},
         "max_abs_err": worst,
@@ -3629,6 +3860,10 @@ def main(argv=None):
                              "train_mixed_rig_outside":
                                  inside["launches_outside"][1],
                              "train_files": files["launches"][1],
+                             "quality_run":
+                                 scripts["launches"]["quality_run"][1],
+                             "profile_swr":
+                                 scripts["launches"]["profile_swr"][1],
                              "train_parallel": _par_launches(par, 1)},
         # the backward's second kernel, swr_sweep_bwd_rows_kernel (a bf16
         # volume or bf16 operands)

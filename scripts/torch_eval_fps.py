@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -39,14 +38,6 @@ def pose_at(deg: float) -> np.ndarray:
     base = np.diag([1.0, -1.0, -1.0]).astype(np.float32)
     t = rot @ np.array([0, 0, 1.6], np.float32)
     return np.concatenate([rot @ base, t[:, None]], axis=1)
-
-
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -85,7 +76,7 @@ def main(argv=None) -> int:
     )
     from taichi_nerfs_torch.render.swr import render_swr
     from taichi_nerfs_torch.utils.convert import load_pyramid_npz
-    from taichi_nerfs_torch.utils.device import resolve_device
+    from taichi_nerfs_torch.utils.device import card_line, resolve_device
 
     device = resolve_device(args.device, "--device cpu")
     cuda = device.type == "cuda"

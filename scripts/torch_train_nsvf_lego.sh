@@ -1,0 +1,16 @@
+#!/bin/bash
+# The canonical Lego run on the PyTorch port (the card by default; append
+# --device cpu for the CPU).  Counterpart of train_nsvf_lego.sh.  Expects
+# the NSVF Synthetic-NeRF Lego scene (bbox.txt, intrinsics.txt, pose/, rgb/)
+# in $DATA_DIR/Lego; nothing is downloaded.
+REPO="$(cd "$(dirname "${BASH_SOURCE[0]}")/.." && pwd)"
+export PYTHONPATH="${REPO}${PYTHONPATH:+:${PYTHONPATH}}"
+export DATA_DIR=${DATA_DIR:-./Synthetic_NeRF}
+
+python -m taichi_nerfs_torch.train \
+    --root_dir "$DATA_DIR/Lego" \
+    --exp_name Lego \
+    --dataset_name nsvf \
+    --batch_size 8192 \
+    --lr 1e-2 \
+    "$@"

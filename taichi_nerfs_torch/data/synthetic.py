@@ -30,8 +30,6 @@ import torch
 from .base import BaseDataset
 from .cameras import look_at
 
-_VARIANTS = ("sphere", "checker", "shell", "lego")
-
 
 def sphere_density(xyz, radius: float = 0.3, sharp: float = 40.0):
     r = torch.linalg.norm(xyz, dim=-1)
@@ -73,12 +71,6 @@ def shell_density(xyz, r_mid: float = 0.39, half: float = 0.05):
                       max=80.0)
     return 40.0 / (1.0 + torch.exp(arg))
 
-
-_FIELDS = {
-    "sphere": (sphere_density, sphere_albedo),
-    "checker": (checker_density, checker_albedo),
-    "shell": (shell_density, checker_albedo),
-}
 
 # the lego-proxy build, as in the JAX package:
 # boxes (cx, cy, cz, hx, hy, hz, rot_deg, r, g, b)
@@ -163,6 +155,62 @@ def _lego_sdf(xyz):
     return out
 
 
+def lego_density(xyz):
+    """Solid plastic: a sharp sigmoid of the union SDF (edge ~2 voxels at
+    256^3)."""
+    return 60.0 / (1.0 + torch.exp(torch.clamp(220.0 * _lego_sdf(xyz),
+                                               max=80.0)))
+
+
+def lego_albedo(xyz):
+    """The colour of the nearest part (the first on ties, as
+    ``np.argmin``) times a Lambertian shade of the SDF normal (central
+    differences at 0.006) under a fixed light plus ambient."""
+    idx = torch.argmin(torch.stack(_lego_sdf_parts(xyz), dim=0), dim=0)
+    color = _on(_LEGO_COLORS, xyz.device)[idx]
+    grads = []
+    for ax in range(3):
+        e = np.zeros(3, np.float32)
+        e[ax] = 0.006
+        e = _on(e, xyz.device)
+        grads.append(_lego_sdf(xyz + e) - _lego_sdf(xyz - e))
+    n = torch.stack(grads, dim=-1)
+    n = n / torch.clamp(torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True)),
+                        min=1e-6)
+    lam = torch.clamp(torch.sum(n * _on(_LEGO_LIGHT, xyz.device), dim=-1),
+                      0.0, 1.0)
+    return color * (0.42 + 0.58 * lam)[..., None]
+
+
+# each variant's volume field: (density, albedo)
+_FIELDS = {
+    "sphere": (sphere_density, sphere_albedo),
+    "checker": (checker_density, checker_albedo),
+    "shell": (shell_density, checker_albedo),
+    "lego": (lego_density, lego_albedo),
+}
+
+
+def field_grid(variant: str, res: int, device=None):
+    """The variant's volume field sampled at the centres of a ``res``^3
+    grid over the scene cube ``[-0.5, 0.5]^3``: fp32 ``(sigma (R, R, R),
+    albedo (R, R, R, 3))`` on ``device``.  The grid is evaluated 16
+    x-slabs at a time: the lego albedo stacks one field per part, several
+    GB at R=256 in one piece."""
+    density_fn, albedo_fn = _FIELDS[variant]
+    c = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res
+    c = c - 0.5
+    sigma = torch.empty((res,) * 3, dtype=torch.float32, device=device)
+    albedo = torch.empty((res,) * 3 + (3,), dtype=torch.float32,
+                         device=device)
+    for i in range(0, res, 16):
+        xyz = torch.stack(torch.meshgrid(c[i : i + 16], c, c,
+                                         indexing="ij"), dim=-1)
+        sigma[i : i + 16] = density_fn(xyz)
+        albedo[i : i + 16] = albedo_fn(xyz)
+    return sigma, albedo
+
+
 def _gt_rays(c2w: np.ndarray, K: np.ndarray, w: int, h: int):
     """Host rays in float64, as the JAX package makes them."""
     u, v = np.meshgrid(np.arange(w), np.arange(h))
@@ -195,14 +243,17 @@ def render_gt_image(
     want_alpha: bool = False,
     device=None,
 ):
-    """Dense volume integration of the ``sphere``, ``checker`` or
-    ``shell`` scene.
+    """Dense volume integration of a variant's volume field: ``sphere``,
+    ``checker``, ``shell`` or ``lego`` (:func:`lego_density` /
+    :func:`lego_albedo`; the lego scene's own GT is the surface render
+    :func:`render_gt_image_lego`), as the JAX package's
+    ``render_gt_image``.
 
     Returns (h*w, 3) rgb and, with ``want_alpha``, (h*w,) opacity, as fp32
     numpy arrays; the integration runs on ``device`` (the CPU if None).
     """
     if variant not in _FIELDS:
-        raise ValueError(f"no volume field for variant {variant!r}")
+        raise ValueError(f"unknown synthetic variant {variant!r}")
     density_fn, albedo_fn = _FIELDS[variant]
     rays_o, rays_d = _gt_rays(np.asarray(c2w), np.asarray(K), w, h)
     ts_np = np.linspace(0.1, 2.5, n_steps, dtype=np.float32)
@@ -319,7 +370,7 @@ def parse_synthetic_spec(root_dir: str):
     if "?" in s:
         s, query = s.split("?", 1)
     name = s.strip("/").split("/")[-1].lower()
-    if name not in _VARIANTS:
+    if name not in _FIELDS:
         return {}
     out = {"variant": name}
     q = urllib.parse.parse_qs(query)
@@ -359,7 +410,7 @@ class SyntheticSphereDataset(BaseDataset):
         img_wh = spec.get("img_wh", img_wh)
         cam_radius = spec.get("cam_radius", cam_radius)
         n_steps = spec.get("n_steps", n_steps)
-        if variant not in _VARIANTS:
+        if variant not in _FIELDS:
             raise ValueError(f"unknown synthetic variant {variant!r}")
         if spec and split != "train":
             # held-out rig: enough views for a stable eval average

@@ -419,3 +419,10 @@ def chunk_sweep(
 chunk_sweep.launches = 0
 chunk_sweep_bwd.launches = 0
 chunk_sweep_bwd.finish_launches = 0
+
+
+def launch_counts() -> str:
+    """This process's kernel launches so far, on a line of their own as the
+    scripts print them: ``launches: swr_sweep_fwd=N swr_sweep_bwd=M``."""
+    return (f"launches: swr_sweep_fwd={chunk_sweep.launches} "
+            f"swr_sweep_bwd={chunk_sweep_bwd.launches}")

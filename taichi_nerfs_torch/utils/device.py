@@ -20,3 +20,14 @@ def resolve_device(device, how_to_ask_for_cpu: str) -> torch.device:
             f"{how_to_ask_for_cpu} to run on the CPU"
         )
     return dev
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]

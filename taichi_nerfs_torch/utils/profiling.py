@@ -10,7 +10,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 
 class PhaseTimer:
@@ -44,3 +44,40 @@ class PhaseTimer:
             self.seconds.clear()
             self.calls.clear()
         return out
+
+
+def time_calls(fn, n: int, warm: int, device) -> List[float]:
+    """Milliseconds of each of ``n`` calls of ``fn()``, after ``warm``
+    untimed ones.  On a CUDA device each call runs between two CUDA events
+    behind ``torch.cuda.synchronize()``; on the CPU the host clock times
+    it."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    cuda = torch.device(device).type == "cuda"
+    ms = []
+    for _ in range(n):
+        if cuda:
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize(device)
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def spread(ms: List[float]) -> str:
+    """``median M ms (min a, max b, n runs)``."""
+    s = sorted(ms)
+    mid = len(s) // 2
+    med = s[mid] if len(s) % 2 else 0.5 * (s[mid - 1] + s[mid])
+    return (f"median {med:8.3f} ms (min {s[0]:.3f}, max {s[-1]:.3f}, "
+            f"{len(s)} runs)")

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port: no JAX, no image library at import time, and
 no silent out-of-scope paths."""
 
+import json
 import os
 import subprocess
 import sys
@@ -28,12 +29,24 @@ def _package_files():
 
 
 def _port_files():
-    """The package's files, then every ``scripts/torch_*.py``."""
+    """The package's files, then every ``scripts/torch_*.py`` and
+    ``scripts/torch_*.sh`` and every ``notebooks/torch_*.ipynb``."""
     yield from _package_files()
-    scripts = os.path.join(REPO, "scripts")
-    for f in sorted(os.listdir(scripts)):
-        if f.startswith("torch_") and f.endswith(".py"):
-            yield os.path.join(scripts, f)
+    for folder, exts in (("scripts", (".py", ".sh")),
+                         ("notebooks", (".ipynb",))):
+        for f in sorted(os.listdir(os.path.join(REPO, folder))):
+            if f.startswith("torch_") and f.endswith(exts):
+                yield os.path.join(REPO, folder, f)
+
+
+def _lines(path):
+    """A port file's lines; a notebook's are those of its code cells."""
+    with open(path, encoding="utf-8") as f:
+        if not path.endswith(".ipynb"):
+            return f.read().splitlines()
+        cells = json.load(f)["cells"]
+    return [line for c in cells if c["cell_type"] == "code"
+            for line in "".join(c["source"]).splitlines()]
 
 
 def _modules():
@@ -83,15 +96,14 @@ def test_package_imports_without_image_libraries():
 def test_no_file_of_the_package_names_jax():
     offenders = []
     for path in _port_files():
-        with open(path, encoding="utf-8") as f:
-            for n, line in enumerate(f, 1):
-                if (
-                    "import jax" in line
-                    or "from jax" in line
-                    or "optax" in line
-                    or "taichi_nerfs_tpu" in line
-                ):
-                    offenders.append(f"{os.path.relpath(path, REPO)}:{n}")
+        for n, line in enumerate(_lines(path), 1):
+            if (
+                "import jax" in line
+                or "from jax" in line
+                or "optax" in line
+                or "taichi_nerfs_tpu" in line
+            ):
+                offenders.append(f"{os.path.relpath(path, REPO)}:{n}")
     assert not offenders, offenders
 
 
@@ -404,18 +416,28 @@ def test_package_has_no_cpu_fallback():
     missing."""
     offenders = []
     for path in _port_files():
-        with open(path, encoding="utf-8") as f:
-            for n, line in enumerate(f, 1):
-                if "is_available() else" in line:
-                    offenders.append(f"{os.path.relpath(path, REPO)}:{n}")
+        for n, line in enumerate(_lines(path), 1):
+            if "is_available() else" in line:
+                offenders.append(f"{os.path.relpath(path, REPO)}:{n}")
     assert not offenders, offenders
 
 
 def test_port_scripts_are_checked():
-    """The two checks above walk the serving and deployment scripts."""
+    """The two checks above walk the serving and deployment scripts, the
+    record, profiling and oracle scripts, the shell recipes and the
+    notebooks."""
     names = {os.path.basename(p) for p in _port_files()}
     assert {"torch_eval_fps.py", "torch_viewer_bench.py",
-            "torch_native_bench.py", "torch_export_lego_nsvf.py"} <= names
+            "torch_native_bench.py", "torch_export_lego_nsvf.py",
+            "torch_quality_run.py", "torch_publish_record.py",
+            "torch_profile_swr.py", "torch_profile_parity.py",
+            "torch_voxel_ceiling.py", "torch_swr_inside_fidelity.py",
+            "torch_autodiff.ipynb", "torch_pipeline.ipynb"} <= names
+    assert {f"torch_train_{n}.sh" for n in (
+        "360_v2_garden", "from_video", "lego_proxy", "ngp_dataset",
+        "nsvf_deploy", "nsvf_lego")} <= names
+    assert "DEVICE" in "\n".join(_lines(os.path.join(
+        REPO, "notebooks", "torch_pipeline.ipynb")))
 
 
 def test_chip_smoke_imports_no_jax():
