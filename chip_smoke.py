@@ -132,7 +132,21 @@ phases:
    view), each in a fresh process whose printed launch counts the kernels
    line reports (the oracles launch no sweep kernel); both notebooks, run
    cell by cell on the card;
-19. parallel: data-parallel training (``parallel/``) at full width on 8
+19. experiments: the experiment scripts at full width and cut depth:
+   ``scripts/torch_sweep_swr.py``'s ``run_cfg`` for each shipped sweep (2
+   steps on 4 checker views at 256x256: the slab scan trains, the eval
+   frames launch the forward kernel), ``torch_eval_deferred.py`` in both
+   modes (2 steps at 128x128 on 4 views: the deferred mode launches both
+   kernels, per-slab shading neither), ``torch_diag_r512.py`` as a fresh
+   process on two R=256 checkpoints the phase writes (one with a lean
+   finest level) on 8 held-out lego views at 256x256 (the forward kernel
+   on a bf16 volume; one of its frames, and that frame's middle chunk,
+   against the plain sweep), ``torch_roofline_parity.py`` settled 32
+   steps, ``torch_parity_trade.py`` for two layouts at 16 steps, and both
+   microbenchmarks at their full sizes (the compaction's three strategies
+   equal); every number printed finite, no sweep kernel on the NGP
+   scripts;
+20. parallel: data-parallel training (``parallel/``) at full width on 8
    checker views at 256x256: the flagship NGP configuration (its MLPs in
    fp32, a refresh every 2 steps) for 4 steps after a warm-up and a steady
    refresh from its first state, and the record pyramid at full depth
@@ -3293,6 +3307,327 @@ def phase_scripts(torch, card):
     return res
 
 
+# ------------------------------------------------------------ experiments
+
+# the experiment scripts' cut depth (full width): the sweeps 2 steps at
+# 256x256 on 4 views; eval_deferred's argv; the diagnosis' held-out rig
+# (8 lego views at 256x256) and views; the NGP scripts' settle and step
+# budgets, with their repeats cut
+EXP_SWR_STEPS, EXP_SWR_VIEWS, EXP_SWR_IMG = 2, 4, 256
+EXP_DEFERRED = ["--steps", "2", "--img", "128", "--crop", "128",
+                "--n_images", "4"]
+EXP_DIAG_SCENE, EXP_DIAG_VIEWS = "synthetic://lego?views=8&res=256", "0,1"
+# the diagnosis' checkpoints: the R=256 record widths, and the same with a
+# lean finest level (level_features differ)
+EXP_DIAG_FEATURES = {"a": (8, 8, 8, 8), "b": (8, 8, 8, 4)}
+EXP_ROOFLINE = ["--settle_steps", "32"]
+EXP_ROOFLINE_REPS = {"STAGE_REPS": (5, 1), "REFRESH_REPS": (3, 1),
+                     "STEP_REPS": 16}
+EXP_TRADE = ["--steps", "16", "--only", "8x4_fp32,4x8_bf16"]
+EXP_TRADE_TIMED = 8
+# a script's diagnosis frame from the kernel against the plain sweep: the
+# frame (as the serve phase's frames) and its middle chunk (fp32 operands
+# on a bf16 volume, the bf16 forward limit)
+EXP_DIAG_CHUNK_TOL = BF16_FWD_TOL["float32"]
+
+_DIAG_CHILD = (
+    "import importlib.util, sys\n"
+    "spec = importlib.util.spec_from_file_location('diag', sys.argv[1])\n"
+    "mod = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(mod)\n"
+    "mod.SCENE = sys.argv[2]\n"
+    "mod.main(sys.argv[3:])\n")
+
+
+def _script_module(name):
+    """``scripts/<name>.py`` loaded as a module of its own."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_exp_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _finite_numbers(tag, lines, pattern):
+    """The numbers of ``pattern``'s groups on each matching line; at least
+    one line, every number finite."""
+    import re
+
+    import numpy as np
+
+    got = [[float(x) for x in m.groups()] for m in
+           (re.search(pattern, line) for line in lines) if m]
+    if not got or not np.all(np.isfinite(got)):
+        raise AssertionError(f"experiments: {tag} printed {lines}")
+    return got
+
+
+def _diag_ckpts(torch, tmp, seed):
+    """The diagnosis' two checkpoints, written as ``model_pyramid.npz``
+    files from seeded record-config params (a density blob in view)."""
+    from taichi_nerfs_torch.models.pyramid import PyramidConfig
+    from taichi_nerfs_torch.utils.convert import save_pyramid_npz
+
+    paths = {}
+    for tag, lf in EXP_DIAG_FEATURES.items():
+        cfg = PyramidConfig(resolutions=FILES_LEVELS, features=lf[0],
+                            deferred=True,
+                            level_features=lf if len(set(lf)) > 1 else ())
+        paths[tag] = os.path.join(tmp, f"{tag}.npz")
+        save_pyramid_npz(paths[tag], _record_params(torch, cfg, seed,
+                                                    "cuda"))
+    return paths
+
+
+def _diag_frame_vs_plain(torch, mod, path, wh):
+    """One diagnosis frame of ``path`` (its bf16 bake, the script's
+    ``render_view``) through the kernel and through the plain sweep: the
+    volumes the sweep saw, the kernel's forward launches, the frame's and
+    the middle chunk's max abs difference."""
+    from taichi_nerfs_torch.data.cameras import intrinsics, orbit_poses
+    from taichi_nerfs_torch.models import pyramid as pyr
+    from taichi_nerfs_torch.ops.swr_sweep import (
+        chunk_sweep,
+        chunk_sweep_reference,
+    )
+    from taichi_nerfs_torch.render import swr as rswr
+
+    params, cfg = mod.load_ckpt(path, "cuda")
+    with torch.no_grad():
+        grid = pyr.bake(params, cfg, dtype=torch.bfloat16)
+    pose, K = orbit_poses(4)[1], intrinsics(*wh)
+    real_sweep, calls = rswr.chunk_sweep, []
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return real_sweep(*a, **kw)
+
+    chunk_sweep.launches = 0
+    rswr.chunk_sweep = recording
+    try:
+        got = mod.render_view(params, grid, cfg, pose, K, wh)
+    finally:
+        rswr.chunk_sweep = real_sweep
+    launches = chunk_sweep.launches
+    want = mod.render_view(params, grid, cfg, pose, K, wh,
+                           sweep_impl="reference")
+    a, kw = calls[len(calls) // 2]
+    with torch.no_grad():
+        chunk = float((chunk_sweep(*a, **kw)
+                       - chunk_sweep_reference(*a, **kw)).abs().max())
+    vols = sorted({str(x[0].dtype) for x, _ in calls})
+    return vols, launches, float(abs(got - want).max()), chunk
+
+
+def phase_experiments(torch, seed, card):
+    """The experiment scripts on the card at full width and cut depth:
+    (a) ``torch_sweep_swr.py``'s ``run_cfg`` for each ``SWEEPS`` entry,
+    ``EXP_SWR_STEPS`` steps on the checker at 256x256 (4 views; the slab
+    scan trains, the eval frames launch the forward kernel alone); (b)
+    ``torch_eval_deferred.py`` with ``EXP_DEFERRED``, both modes (the
+    deferred one launches both kernels, ``normal`` neither); (c)
+    ``torch_diag_r512.py`` as a fresh process (its held-out rig cut to
+    ``EXP_DIAG_SCENE``) on two checkpoints the phase writes, then one of
+    its frames in this process: the forward kernel launched on a bf16
+    volume, the frame within ``RENDER_TOL`` and its middle chunk within
+    ``EXP_DIAG_CHUNK_TOL`` of the plain sweep; (d)
+    ``torch_roofline_parity.py`` (``EXP_ROOFLINE``); (e)
+    ``torch_parity_trade.py`` (``EXP_TRADE``); (f) both microbenchmarks at
+    their sizes (the compaction's parity line).  All but (c) run in this
+    process through their ``main`` / ``run_cfg``, their output captured;
+    each script's numbers must be finite, and the NGP scripts launch no
+    sweep kernel.  Returns a dict of numbers."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    res = {"launches": {}, "secs": {}}
+
+    def run(tag, fn):
+        """``fn()`` with the launch counts set to 0 and stdout captured;
+        its printed lines."""
+        chunk_sweep.launches = 0
+        chunk_sweep_bwd.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        torch.cuda.synchronize()
+        res["secs"][tag] = time.perf_counter() - t0
+        res["launches"][tag] = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            print(f"experiments: {tag}: {line}", flush=True)
+        print(f"experiments: {tag} in {res['secs'][tag]:.1f} s; launches "
+              f"swr_sweep_fwd / swr_sweep_bwd {res['launches'][tag][0]} / "
+              f"{res['launches'][tag][1]}", flush=True)
+        return lines
+
+    # (a) the sweeps
+    swr = _script_module("torch_sweep_swr")
+    kw = dict(img_wh=(EXP_SWR_IMG, EXP_SWR_IMG), variant="checker",
+              n_steps=512, device=device)
+    train = SyntheticSphereDataset(n_images=EXP_SWR_VIEWS, **kw)
+    test = SyntheticSphereDataset(n_images=4, split="test", **kw)
+
+    def sweeps():
+        for name, over in swr.SWEEPS:
+            cfg = {**swr.base_config(EXP_SWR_STEPS), **over,
+                   "steps": EXP_SWR_STEPS}
+            psnr, dt, tr_psnr = swr.run_cfg(train, test, device=device,
+                                            **cfg)
+            print(f"{name}: eval={psnr:5.2f}  train_psnr={tr_psnr:5.2f}  "
+                  f"time={dt:6.1f}s", flush=True)
+
+    lines = run("sweep_swr", sweeps)
+    del train, test
+    res["sweep_swr"] = _finite_numbers(
+        "sweep_swr", lines, r"eval=\s*([-0-9.]+)\s+train_psnr=\s*([-0-9.]+)"
+        r"\s+time=\s*([0-9.]+)s")
+    if len(res["sweep_swr"]) != len(swr.SWEEPS):
+        raise AssertionError(f"experiments: sweep_swr printed {lines}")
+    fwd, bwd = res["launches"]["sweep_swr"]
+    if fwd < 1 or bwd != 0:
+        raise AssertionError(f"experiments: sweep_swr launched {fwd} / "
+                             f"{bwd} (the eval frames launch the forward, "
+                             f"the slab scan trains)")
+
+    # (b) deferred against per-slab shading
+    ev = _script_module("torch_eval_deferred")
+    lines = run("eval_deferred", lambda: ev.main(EXP_DEFERRED
+                                                 + ["--device", "cuda"]))
+    res["eval_deferred"] = _finite_numbers(
+        "eval_deferred", lines, r"^(?:normal|deferred): eval_psnr=([-0-9.]+)"
+        r" train_time=([0-9.]+)s .* step_median=([0-9.]+)ms$")
+    counts = [_launch_line("eval_deferred", [x]) for x in lines
+              if x.startswith("launches: ")]
+    if len(res["eval_deferred"]) != 2 or counts[0] != (0, 0) or min(
+            counts[1]) < 1:
+        raise AssertionError(f"experiments: eval_deferred launched "
+                             f"{counts} (normal, then normal + deferred)")
+
+    # (c) the diagnosis: a fresh process, then one frame against the plain
+    # sweep
+    diag = _script_module("torch_diag_r512")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _diag_ckpts(torch, tmp, seed)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", _DIAG_CHILD, diag.__file__,
+             EXP_DIAG_SCENE, "--a", paths["a"], "--b", paths["b"],
+             "--views", EXP_DIAG_VIEWS, "--out", os.path.join(tmp, "out")],
+            capture_output=True, text=True, timeout=600)
+        res["secs"]["diag_r512"] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"diag_r512 failed: {r.stderr[-2000:]}")
+        lines = r.stdout.strip().splitlines()
+        for line in lines:
+            print(f"experiments: diag_r512: {line}", flush=True)
+        res["diag_r512"] = _finite_numbers(
+            "diag_r512", lines, r"psnr=([-0-9.]+) mse=([0-9.e+-]+) "
+            r"edge_mse=([0-9.e+-]+) \((\d+)% px\) interior_mse=([0-9.e+-]+)")
+        pngs = sorted(os.listdir(os.path.join(tmp, "out")))
+        if len(res["diag_r512"]) != 4 or len(pngs) != 8:
+            raise AssertionError(f"experiments: diag_r512 printed {lines}, "
+                                 f"wrote {pngs}")
+        res["launches"]["diag_r512"] = _launch_line("diag_r512", lines)
+        if res["launches"]["diag_r512"][0] < 1:
+            raise AssertionError("experiments: diag_r512 launched no "
+                                 "forward kernel")
+        vols, n, frame, chunk = _diag_frame_vs_plain(
+            torch, diag, paths["b"], (EXP_SWR_IMG, EXP_SWR_IMG))
+    print(f"experiments: diag_r512 in {res['secs']['diag_r512']:.1f} s "
+          f"(a fresh process); its frame of b at {EXP_SWR_IMG}x{EXP_SWR_IMG}:"
+          f" sweep volumes {vols}, {n} forward launches, kernel vs plain "
+          f"sweep rgb max_abs={frame:.3e} (limit {RENDER_TOL}), middle "
+          f"chunk max_abs={chunk:.3e} (limit {EXP_DIAG_CHUNK_TOL})",
+          flush=True)
+    if vols != ["torch.bfloat16"] or n < 1:
+        raise AssertionError(f"experiments: the diagnosis frame swept "
+                             f"{vols} volumes with {n} launches")
+    if not (frame <= RENDER_TOL and chunk <= EXP_DIAG_CHUNK_TOL):
+        raise AssertionError(f"experiments: the diagnosis frame through the "
+                             f"kernel differs from the plain sweep by "
+                             f"{frame:.3e} (chunk {chunk:.3e})")
+    res["diag_kernel_vs_plain"] = (frame, chunk)
+
+    # (d)-(f) the NGP scripts: no sweep kernel
+    roof = _script_module("torch_roofline_parity")
+    for k, v in EXP_ROOFLINE_REPS.items():
+        setattr(roof, k, v)
+    lines = run("roofline_parity",
+                lambda: roof.main(EXP_ROOFLINE + ["--device", "cuda"]))
+    res["roofline_parity"] = dict(zip(
+        ("march", "render_fwd", "render_fwd_bwd", "grid_refresh/16"),
+        (x[0] for x in _finite_numbers("roofline_parity", lines,
+                                       r"^stage \S+ +([0-9.]+) ms$"))))
+    res["roofline_step"] = _finite_numbers(
+        "roofline_parity", lines, r"^measured step: +([0-9.]+) ms .* "
+        r"overhead ratio ([0-9.]+)x$")[0]
+    res["roofline_rates"] = _finite_numbers(
+        "roofline_parity", lines, r"^measured row rates on .*: (\d+)M "
+        r"gather, (\d+)M scatter rows/s; .* is ([0-9.]+) ms")[0]
+    trade = _script_module("torch_parity_trade")
+    trade.N_TIMED = EXP_TRADE_TIMED
+    lines = run("parity_trade",
+                lambda: trade.main(EXP_TRADE + ["--device", "cuda"]))
+    recs = [json.loads(x) for x in lines if x.startswith("{")]
+    if [r["name"] for r in recs] != EXP_TRADE[3].split(",") or not all(
+            np.isfinite([r["rays_per_s"], r["eval_psnr"]]).all()
+            for r in recs):
+        raise AssertionError(f"experiments: parity_trade printed {lines}")
+    res["parity_trade"] = {r["name"]: r for r in recs}
+    compact = _script_module("torch_microbench_compact")
+    lines = run("microbench_compact",
+                lambda: compact.main(["--device", "cuda"]))
+    if "parity ok (scatter+gather == topk)" not in lines:
+        raise AssertionError(f"experiments: microbench_compact printed "
+                             f"{lines}")
+    res["microbench_compact"] = _finite_numbers(
+        "microbench_compact", lines, r"^\w+: +([0-9.]+) ms$")
+    gather = _script_module("torch_microbench_gather")
+    lines = run("microbench_gather",
+                lambda: gather.main(["--device", "cuda"]))
+    res["microbench_gather"] = _finite_numbers(
+        "microbench_gather", lines, r" ([0-9.]+) ms +\((\d+) M rows/s\)$")
+    for tag in ("roofline_parity", "parity_trade", "microbench_compact",
+                "microbench_gather"):
+        if res["launches"][tag] != (0, 0):
+            raise AssertionError(f"experiments: {tag} launched a sweep "
+                                 f"kernel: {res['launches'][tag]}")
+    if len(res["microbench_compact"]) != 3 or len(
+            res["microbench_gather"]) != 3:
+        raise AssertionError("experiments: a microbenchmark printed too "
+                             "few timings")
+    res["secs"]["phase"] = time.perf_counter() - t_phase
+    rf = res["roofline_parity"]
+    print(f"experiments ({card}): seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["secs"].items())
+          + "; compaction topk / scatter / gather "
+          + " / ".join(f"{x[0]:.3f}" for x in res["microbench_compact"])
+          + " ms (equal); gather f32x2 / bf16 pair / brick "
+          + " / ".join(f"{x[0]:.3f} ms ({x[1]:.0f} M rows/s)"
+                       for x in res["microbench_gather"])
+          + f"; roofline (settled to step 32+) march "
+          f"{rf['march']:.2f}, fwd {rf['render_fwd']:.2f}, fwd+bwd "
+          f"{rf['render_fwd_bwd']:.2f}, refresh/16 "
+          f"{rf['grid_refresh/16']:.2f} ms, step "
+          f"{res['roofline_step'][0]:.2f} ms (overhead "
+          f"{res['roofline_step'][1]:.2f}x); parity_trade rays/s "
+          + ", ".join(f"{k} {r['rays_per_s']}"
+                      for k, r in res["parity_trade"].items()), flush=True)
+    return res
+
+
 # the parallel phase: NGP steps (refreshes at steps 0 and 2) and full-depth
 # pyramid steps a run
 PAR_NGP_STEPS, PAR_SWR_STEPS = 4, 2
@@ -3751,6 +4086,7 @@ def main(argv=None):
     aot = phase_aot(torch, args.seed, card, record)
     del record, ngp
     scripts = phase_scripts(torch, card)
+    exps = phase_experiments(torch, args.seed, card)
     par = phase_parallel(torch, card)
     print(f"summary inside and files ({card}): inside phase "
           f"{inside['secs']:.1f} s (full-depth steps inside "
@@ -3831,12 +4167,21 @@ def main(argv=None):
                                  scripts["launches"]["publish_record"][0],
                              "profile_swr":
                                  scripts["launches"]["profile_swr"][0],
+                             # the experiment scripts: the sweeps' eval
+                             # frames, deferred training and eval, the
+                             # diagnosis (a bf16 volume)
+                             "sweep_swr": exps["launches"]["sweep_swr"][0],
+                             "eval_deferred":
+                                 exps["launches"]["eval_deferred"][0],
+                             "diag_r512": exps["launches"]["diag_r512"][0],
                              # a list: each rank's count
                              "train_parallel": _par_launches(par, 0)},
         "max_abs_err": worst,
         # on one recorded chunk of each R=512 frame, each bake and operand
         # dtype
         "max_abs_err_serve_bf16": bf16_s["kernel_max_abs"],
+        # the diagnosis script's frame (bf16 bake) and its middle chunk
+        "max_abs_err_diag_r512": exps["diag_kernel_vs_plain"],
         # one chunk of the uncapped 800x800 frame, cubic, warm
         "ms": fwd["warm"],
         "plain_ms": fwd["plain"],
@@ -3864,6 +4209,8 @@ def main(argv=None):
                                  scripts["launches"]["quality_run"][1],
                              "profile_swr":
                                  scripts["launches"]["profile_swr"][1],
+                             "eval_deferred":
+                                 exps["launches"]["eval_deferred"][1],
                              "train_parallel": _par_launches(par, 1)},
         # the backward's second kernel, swr_sweep_bwd_rows_kernel (a bf16
         # volume or bf16 operands)

@@ -424,8 +424,8 @@ def test_package_has_no_cpu_fallback():
 
 def test_port_scripts_are_checked():
     """The two checks above walk the serving and deployment scripts, the
-    record, profiling and oracle scripts, the shell recipes and the
-    notebooks."""
+    record, profiling and oracle scripts, the shell recipes, the notebooks
+    and the experiment scripts."""
     names = {os.path.basename(p) for p in _port_files()}
     assert {"torch_eval_fps.py", "torch_viewer_bench.py",
             "torch_native_bench.py", "torch_export_lego_nsvf.py",
@@ -433,11 +433,36 @@ def test_port_scripts_are_checked():
             "torch_profile_swr.py", "torch_profile_parity.py",
             "torch_voxel_ceiling.py", "torch_swr_inside_fidelity.py",
             "torch_autodiff.ipynb", "torch_pipeline.ipynb"} <= names
+    assert {f"torch_{n}.py" for n in _EXPERIMENTS} <= names
     assert {f"torch_train_{n}.sh" for n in (
         "360_v2_garden", "from_video", "lego_proxy", "ngp_dataset",
         "nsvf_deploy", "nsvf_lego")} <= names
     assert "DEVICE" in "\n".join(_lines(os.path.join(
         REPO, "notebooks", "torch_pipeline.ipynb")))
+
+
+# the experiment scripts, ported from the JAX scripts of the same names
+_EXPERIMENTS = ("sweep_swr", "eval_deferred", "diag_r512", "roofline_parity",
+                "parity_trade", "microbench_compact", "microbench_gather")
+
+
+@pytest.mark.parametrize("name", _EXPERIMENTS)
+def test_experiment_script_raises_without_a_card(name, no_card, tmp_path,
+                                                 monkeypatch):
+    """Without ``--device cpu`` every experiment script asks for the card,
+    and a missing card is an error before any work, never a quiet CPU
+    run."""
+    import importlib.util
+
+    monkeypatch.chdir(tmp_path)
+    path = os.path.join(REPO, "scripts", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_script_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA device.*--device cpu"):
+        mod.main(["--out", str(tmp_path / "out")] if name == "diag_r512"
+                 else [])
+    assert os.listdir(tmp_path) == []
 
 
 def test_chip_smoke_imports_no_jax():
