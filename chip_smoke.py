@@ -1130,10 +1130,10 @@ def phase_scan(torch, seed, train, card):
 def _profile_step(torch, trainer, tag, draw=None):
     """One training step (on ``draw``, or the trainer's next) under
     ``torch.profiler``: its kernel launches, the card's busy share of its
-    wall time, the top kernels by device time and the renderer's spans
-    (host time, from host timers around each ``swr.*`` span).  Device
-    activity only: the host's op events of a slab-scan step (~10^6) took
-    75 s to collect and inflated the step's wall time."""
+    wall time, the top kernels by device time and the port's spans (host
+    time, from :func:`_host_spans`).  Device activity only: the host's op
+    events of a slab-scan step (~10^6) took 75 s to collect and inflated
+    the step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1164,29 +1164,33 @@ def _profile_step(torch, trainer, tag, draw=None):
 
 @contextlib.contextmanager
 def _host_spans(spans):
-    """While the block runs, each ``swr.*`` span of ``render/swr.py`` also
-    adds its host time (ms) and one call to ``spans[name]``: the module's
-    ``_span`` wrapped in a timer, restored afterwards.  A forward span
-    only: the backward runs outside them."""
-    import taichi_nerfs_torch.render.swr as swr
+    """While the block runs, each span of the port (``utils/profiling.py``:
+    ``span`` and ``backward_span``, so the trainer's, the renderer's and
+    the backward's) also adds its host time (ms) and one call to
+    ``spans[name]``: both wrapped in a timer, restored afterwards.  A
+    backward span's host time is the caller's wait for the backward."""
+    from taichi_nerfs_torch.utils import profiling
 
-    orig = swr._span
+    orig = profiling.span, profiling.backward_span
 
-    @contextlib.contextmanager
-    def timed(name):
-        t0 = time.perf_counter()
-        try:
-            with orig(name):
-                yield
-        finally:
-            ms, n = spans.get(name, (0.0, 0))
-            spans[name] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+    def timed(make):
+        @contextlib.contextmanager
+        def ctx(name, *args):
+            t0 = time.perf_counter()
+            try:
+                with make(name, *args):
+                    yield
+            finally:
+                ms, n = spans.get(name, (0.0, 0))
+                spans[name] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
 
-    swr._span = timed
+        return ctx
+
+    profiling.span, profiling.backward_span = map(timed, orig)
     try:
         yield spans
     finally:
-        swr._span = orig
+        profiling.span, profiling.backward_span = orig
 
 
 def phase_scan_cpu(torch, seed, card):

@@ -36,9 +36,7 @@ from ..ops.marching import (
     valid_mask,
 )
 from ..ops.rays import ray_aabb_intersect
-
-# profiler spans of the train step (ngp.march / field / composite)
-_span = torch.profiler.record_function
+from ..utils import profiling
 
 
 def _background(rcfg: RenderConfig, bg, device) -> torch.Tensor:
@@ -126,7 +124,7 @@ def render_train(
     dev = rays_o.device
     if rcfg.random_bg and bg is None:
         raise ValueError("render_train: random_bg needs the drawn bg")
-    with _span("ngp.march"):
+    with profiling.span("ngp.march"):
         hits_t = ray_aabb_intersect(rays_o, rays_d, mcfg.scale)
         t_start = perturb_t_start(hits_t, t_noise, rcfg.exp_step_factor,
                                   mcfg.grid_size, mcfg.scale)
@@ -137,14 +135,14 @@ def render_train(
             sample_cap=sample_cap,
         )
         valid = valid_mask(march.counts, sample_cap)
-    with _span("ngp.field"):
+    with profiling.span("ngp.field"):
         if pack_cap is None:
             sigmas, rgbs = _eval_field_dense(params, mcfg, rays_o, rays_d,
                                              march, valid)
         else:
             sigmas, rgbs = _eval_field_packed(params, mcfg, rays_o, rays_d,
                                               march, valid, pack_cap)
-    with _span("ngp.composite"):
+    with profiling.span("ngp.composite"):
         comp = composite_train(sigmas, rgbs, march.deltas, march.ts, valid,
                                rcfg.t_threshold)
         rgb = apply_background(comp.rgb, comp.opacity,

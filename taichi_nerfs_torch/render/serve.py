@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models import pyramid as pyr
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .swr import _RS_DTYPES, _host_f32, render_swr, render_swr_inside
 
@@ -169,7 +170,7 @@ class PyramidRenderer:
         img_wh = img_wh or self.img_wh
         if K is None or img_wh is None:
             raise ValueError("K and img_wh are needed (no defaults given)")
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("swr.frame"):
             return (render_swr_inside if inside else render_swr)(
                 self.params,
                 self.grid,

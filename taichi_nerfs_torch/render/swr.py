@@ -69,9 +69,7 @@ from ..ops.warp import (
     resample_matmul_windowed,
     resample_window,
 )
-
-# profiler spans of the frame's stages (cheap while no profiler runs)
-_span = torch.profiler.record_function
+from ..utils import profiling
 
 _RS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -227,7 +225,7 @@ def render_swr_fixed_axis(
     margin = max(0.5 * h, near)
     safe = _safe if inside else (lambda x: x)
 
-    with _span("swr.setup"):
+    with profiling.span("swr.setup"):
         b_axis, c_axis = [d for d in range(3) if d != axis]
         zs = -s + (torch.arange(R, dtype=f32, device=dev) + 0.5) * h
         if split:
@@ -432,7 +430,7 @@ def render_swr_fixed_axis(
             o, axis, s, h, nq, n_chunks, early_exit, resample_kind, rs_dtype,
         )
     else:
-        with _span("swr.setup"):
+        with profiling.span("swr.setup"):
             lat_i = torch.arange(nq, dtype=f32, device=dev)
             slabs = vol.unbind(0)
             sub = (vol_s.unbind(0), zs_s2) if split else None
@@ -440,7 +438,8 @@ def render_swr_fixed_axis(
             if skip_empty:  # one host read per frame
                 occ_t = (vol_s.amax(dim=(1, 2, 3)) if split
                          else vol[:, 0].amax(dim=(1, 2)))
-                occ = (occ_t > 1e-4).tolist()
+                with profiling.span("swr.host_read"):
+                    occ = (occ_t > 1e-4).tolist()
         # the sigma sub-slab resample step is 2x the feature step in index
         # units, so its source window doubles
         sigma_window = 2 * slab_window if split and slab_window else 0
@@ -451,9 +450,12 @@ def render_swr_fixed_axis(
                    h_s=h_s if split else None,
                    inside=(sign_face, margin) if inside else None)
         for g in range(n_chunks):
-            if early_exit > 0.0 and float(carry[2].max()) <= early_exit:
-                break  # one host read per chunk
-            with _span("swr.scan"):
+            if early_exit > 0.0:
+                with profiling.span("swr.host_read"):  # one per chunk
+                    done = float(carry[2].max()) <= early_exit
+                if done:
+                    break
+            with profiling.span("swr.scan"):
                 packed = _scan_chunk(
                     params, cfg, geo, z_ref_c[g],
                     (fb0_c[g], fdb_c[g], fc0_c[g], fdc_c[g]),
@@ -463,11 +465,11 @@ def render_swr_fixed_axis(
             if debug_frames:
                 chunk_dbg[0].append(packed[:acc_ch].permute(1, 2, 0))
                 chunk_dbg[1].append(1.0 - packed[acc_ch + 1])
-            with _span("swr.fold"):
+            with profiling.span("swr.fold"):
                 carry = fold(g, packed, carry)
     acc_g, depth_g, t_g = carry[:3]
 
-    with _span("swr.warp"):
+    with profiling.span("swr.warp"):
         # final projective warp: pixel -> global-frame lattice coords
         u = torch.arange(w_img, dtype=f32, device=dev)
         v = torch.arange(h_img, dtype=f32, device=dev)
@@ -565,7 +567,7 @@ def render_swr_fixed_axis(
                 pix = pixT.permute(1, 2, 0)  # (C, H, W)
         pix = torch.where(behind[None], 0.0, pix)
 
-    with _span("swr.shade"):
+    with profiling.span("swr.shade"):
         depth = pix[acc_ch]
         opacity = pix[acc_ch + 1]
         if cfg.deferred:
@@ -604,7 +606,7 @@ def _sweep_chunks(sweep, fold, carry, vol, zs_c, z_ref_c, frames, o, axis,
     o_a, o_b, o_c = o[axis], o[b_axis], o[c_axis]
     fb0_c, fdb_c, fc0_c, fdc_c = frames
     dc_slabs = zs_c.shape[1]
-    with _span("swr.setup"):
+    with profiling.span("swr.setup"):
         vol_c = vol.reshape(n_chunks, dc_slabs, *vol.shape[1:])
         # per-slab resample params (start_b, step_b, start_c, step_c)
         rho = (z_ref_c[:, None] - o_a) / (zs_c - o_a)  # (n_chunks, dc)
@@ -632,27 +634,30 @@ def _sweep_chunks(sweep, fold, carry, vol, zs_c, z_ref_c, frames, o, axis,
     acc_ch = vol.shape[1] - 1
     if early_exit > 0.0:
         occ_chunk = vol_c[:, :, 0].amax(dim=(1, 2, 3)) > 1e-4
-        occ = occ_chunk.tolist()  # one host read per frame
+        with profiling.span("swr.host_read"):  # one per frame
+            occ = occ_chunk.tolist()
         rem_occ = [any(occ[g:]) for g in range(n_chunks)]
         for g in range(n_chunks):
             if not rem_occ[g]:
                 break
             if not occ[g]:
                 continue  # t_g is unchanged: no need to read it
-            if carry[2].max().item() <= early_exit:  # one host read a chunk
+            with profiling.span("swr.host_read"):  # one per occupied chunk
+                done = carry[2].max().item() <= early_exit
+            if done:
                 break
-            with _span("swr.sweep"):
+            with profiling.span("swr.sweep"):
                 fr = sweep(
                     vol_c[g : g + 1], rs_par[g : g + 1], z_rel[g : g + 1],
                     ch_par[g : g + 1], nq, kind, dtype=dtype,
                 )[0]
-            with _span("swr.fold"):
+            with profiling.span("swr.fold"):
                 carry = fold(g, fr[: acc_ch + 2], carry)
         return carry
-    with _span("swr.sweep"):
+    with profiling.span("swr.sweep"):
         frames = sweep(vol_c, rs_par, z_rel, ch_par, nq, kind, dtype=dtype)
     for g in range(n_chunks):
-        with _span("swr.fold"):
+        with profiling.span("swr.fold"):
             carry = fold(g, frames[g, : acc_ch + 2], carry)
     return carry
 

@@ -21,7 +21,6 @@ does; logging reads the metrics every ``log_every`` steps.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Optional
 
@@ -97,9 +96,6 @@ class Trainer:
         self._pending_rm_samples = None
         self._pack_shrink_votes = 0
         self._cap_grow_votes = 0
-        # optional PhaseTimer (utils/profiling.py); adds a host read per
-        # phase so device time lands in the right phase
-        self.timer = None
 
     def _adapt_sample_cap(self):
         """Resize the sample and packing caps from the last step's counts
@@ -164,27 +160,17 @@ class Trainer:
         return train_step(self.state, self.data, self.cfg, self.sample_cap,
                           self.pack_cap, draws)
 
-    def _phase(self, name: str):
-        """The timer's phase ``name`` (waiting for the device at its end),
-        or nothing without a timer."""
-        if self.timer is None:
-            return contextlib.nullcontext()
-        return self.timer.phase(
-            name, sync=lambda: int(self.state.occupancy.bitfield[0]))
-
     def run_step(self):
         _require_fp32_matmul()
         cfg = self.cfg
         if self.step % cfg.train.update_interval == 0:
             warmup = self.step < cfg.train.warmup_steps
-            with self._phase("grid_update"):
-                self.state = self._grid_step(warmup)
+            self.state = self._grid_step(warmup)
             if not warmup:
                 self._cells = None
             self._adapt_sample_cap()
         draws = draw_step(cfg, self.data, self.generator)
-        with self._phase("train_step"):
-            self.state, metrics = self._train_step(draws)
+        self.state, metrics = self._train_step(draws)
         self._pending_counts_max = metrics["counts_max"]
         self._pending_rm_samples = metrics["rm_samples"]
         self.step += 1
@@ -211,6 +197,4 @@ class Trainer:
                     f"vr_s={m['vr_samples'] / n_rays:.1f} | "
                     f"S={self.sample_cap}"
                 )
-                if self.timer is not None and step > 0:
-                    self.log_fn(f"phases: {self.timer.summary(reset=True)}")
         return metrics

@@ -24,10 +24,8 @@ from ..models.registry import get_model
 from ..ops.distortion import distortion_loss
 from ..ops.rays import get_rays
 from ..render.renderer import render_train
+from ..utils import profiling
 from .state import TrainState, make_optimizer, tree_leaves, tree_map
-
-# profiler spans (with the renderer's ngp.march / field / composite)
-_span = torch.profiler.record_function
 
 
 class Batch(NamedTuple):
@@ -101,15 +99,16 @@ def loss_and_grads(
             distortion_loss(results["ws"], results["deltas"],
                             results["ts"], results["valid"])
         )
-    with _span("ngp.backward"):
-        grads = iter(torch.autograd.grad(loss, tree_leaves(state.params)))
-        grad_tree = tree_map(lambda _: next(grads), state.params)
+    leaves = tree_leaves(state.params)
+    with profiling.backward_span("ngp.backward", loss, leaves):
+        grads = iter(torch.autograd.grad(loss, leaves))
+    grad_tree = tree_map(lambda _: next(grads), state.params)
     return loss.detach(), mse.detach(), results, grad_tree
 
 
 def apply_grads(state: TrainState, cfg: Config, grad_tree) -> TrainState:
     """Adam on ``grad_tree``; params and moments updated in place."""
-    with _span("ngp.adam"):
+    with profiling.span("ngp.adam"):
         opt_state = make_optimizer(cfg).update(grad_tree, state.opt_state,
                                                state.params)
     return state._replace(opt_state=opt_state)
@@ -147,7 +146,7 @@ def density_grid_step(state: TrainState, cfg: Config, warmup: bool,
     None) and ``cells`` (the warmup's all-cells table, made when None);
     ``cell_shard`` and ``tmp_reduce`` as ``update_density_grid``'s."""
     dev = state.occupancy.density_grid.device
-    with _span("ngp.grid"):
+    with profiling.span("ngp.grid"):
         if draws is None:
             draws = draw_grid_inputs(cfg.model, warmup, generator, dev)
         occupancy = update_density_grid(

@@ -70,6 +70,7 @@ from ..render.swr import (
     render_swr_inside,
     slab_window_bound,
 )
+from ..utils import profiling
 from ..utils.convert import load_pyramid_npz
 from ..utils.device import resolve_device
 from .state import Adam, AdamState, tree_leaves, tree_map
@@ -263,38 +264,42 @@ def make_swr_loss(
     components).  ``sigma_keep`` ((R, R, R), or the sigma grid's side for a
     split config) multiplies the baked sigma (camera carving).
     """
-    c = tcfg.crop
-    x0, y0 = int(crop_xy[0]), int(crop_xy[1])
-    n_ch = gt_image.shape[-1]  # 3 = rgb, 4 = rgba (GT alpha channel)
-    gt = gt_image[y0 : y0 + c, x0 : x0 + c].reshape(c * c, n_ch)
-    gt = gt.float() / 255.0 if gt.dtype == torch.uint8 else gt.float()
-    gt_alpha = gt[:, 3] if n_ch == 4 else None
-    gt = gt[:, :3]
-    K_crop = _as_f32(K, gt_image.device).clone()
-    K_crop[0, 2] -= float(x0)
-    K_crop[1, 2] -= float(y0)
-    if tcfg.random_bg and bg is None:
-        raise ValueError("random_bg needs the (crop^2, 3) background bg")
-    if tcfg.alpha_w > 0 and gt_alpha is None:
-        raise ValueError("alpha_w needs the GT alpha channel (alphas=)")
-
+    with profiling.span("swr.plan"):
+        c = tcfg.crop
+        x0, y0 = int(crop_xy[0]), int(crop_xy[1])
+        n_ch = gt_image.shape[-1]  # 3 = rgb, 4 = rgba (GT alpha channel)
+        gt = gt_image[y0 : y0 + c, x0 : x0 + c].reshape(c * c, n_ch)
+        gt = gt.float() / 255.0 if gt.dtype == torch.uint8 else gt.float()
+        gt_alpha = gt[:, 3] if n_ch == 4 else None
+        gt = gt[:, :3]
+        K_crop = _as_f32(K, gt_image.device).clone()
+        K_crop[0, 2] -= float(x0)
+        K_crop[1, 2] -= float(y0)
+        if tcfg.random_bg and bg is None:
+            raise ValueError("random_bg needs the (crop^2, 3) background bg")
+        if tcfg.alpha_w > 0 and gt_alpha is None:
+            raise ValueError("alpha_w needs the GT alpha channel (alphas=)")
+        mask = face_mask(pose, K_crop, c, axis, flip) if inside else None
     bake_dtype = _RS_DTYPES[tcfg.bake_dtype]
-    mask = face_mask(pose, K_crop, c, axis, flip) if inside else None
 
     def masked_mean(x):
         if mask is None:
             return torch.mean(x)
         return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
+    def bake(params):
+        with profiling.span("swr.bake"):
+            return pyr.bake(params, mcfg, bake_dtype)
+
     def loss_fn(params):
         # checkpoint the bake at large R: its forward intermediates (the
         # progressive upsample chain, ~R^3 F each) would otherwise stay live
         # across the render for the backward, as the JAX trainer remats it
+        # (the recomputation opens swr.bake again, inside the backward)
         if mcfg.grid_res >= 384:
-            grid = checkpoint(pyr.bake, params, mcfg, bake_dtype,
-                              use_reentrant=False)
+            grid = checkpoint(bake, params, use_reentrant=False)
         else:
-            grid = pyr.bake(params, mcfg, bake_dtype)
+            grid = bake(params)
         if sigma_keep is not None:
             grid = apply_sigma_keep(grid, sigma_keep)
         out = render_swr_fixed_axis(
@@ -312,45 +317,47 @@ def make_swr_loss(
             sweep_impl=tcfg.sweep_impl,
             resample_kind=tcfg.resample_kind,
         )
-        rgb_pred = out["rgb"]
-        gt_eff = gt
-        if tcfg.random_bg:
-            rgb_pred = rgb_pred + (1.0 - out["opacity"])[:, None] * bg
-            if gt_alpha is not None:
-                # GT was stored over bg0 (white or black): put it over bg
-                bg0 = 1.0 if tcfg.white_bg else 0.0
-                gt_eff = gt + (1.0 - gt_alpha)[:, None] * (bg - bg0)
-        err = (rgb_pred - gt_eff) ** 2
-        if inside:
-            mse = torch.sum(err * mask[:, None]) / torch.clamp(
-                3.0 * torch.sum(mask), min=1.0)
-        else:
-            mse = torch.mean(err)
-        loss = mse
-        if tcfg.alpha_w > 0:
-            loss = loss + tcfg.alpha_w * masked_mean(
-                (out["opacity"] - gt_alpha) ** 2)
-        if tcfg.distortion_w > 0:
-            loss = loss + tcfg.distortion_w * masked_mean(out["distortion"])
-        if tcfg.sigma_l1 > 0:
-            sigma = grid[0] if mcfg.split else grid[..., 0]
-            loss = loss + tcfg.sigma_l1 * torch.mean(sigma)
-        if tcfg.tv_w > 0:
-            tv = 0.0
-            for g in params["levels"][:-1]:
-                for ax in range(3):
-                    d = torch.diff(g, dim=ax)
-                    tv = tv + torch.mean(d * d)
-            # the finest level(s): a random window of the first axis each
-            # step (stochastic TV, ~1/4 of the traffic)
-            for fine, s0 in zip(tv_levels(params, mcfg), tv_starts,
-                                strict=True):
-                s0 = int(s0)
-                sl = fine[s0 : s0 + tv_window(fine.shape[0])]
-                for ax in range(3):
-                    d = torch.diff(sl, dim=ax)
-                    tv = tv + torch.mean(d * d)
-            loss = loss + tcfg.tv_w * tv
+        with profiling.span("swr.loss"):
+            rgb_pred = out["rgb"]
+            gt_eff = gt
+            if tcfg.random_bg:
+                rgb_pred = rgb_pred + (1.0 - out["opacity"])[:, None] * bg
+                if gt_alpha is not None:
+                    # GT was stored over bg0 (white or black): put it over bg
+                    bg0 = 1.0 if tcfg.white_bg else 0.0
+                    gt_eff = gt + (1.0 - gt_alpha)[:, None] * (bg - bg0)
+            err = (rgb_pred - gt_eff) ** 2
+            if inside:
+                mse = torch.sum(err * mask[:, None]) / torch.clamp(
+                    3.0 * torch.sum(mask), min=1.0)
+            else:
+                mse = torch.mean(err)
+            loss = mse
+            if tcfg.alpha_w > 0:
+                loss = loss + tcfg.alpha_w * masked_mean(
+                    (out["opacity"] - gt_alpha) ** 2)
+            if tcfg.distortion_w > 0:
+                loss = loss + tcfg.distortion_w * masked_mean(
+                    out["distortion"])
+            if tcfg.sigma_l1 > 0:
+                sigma = grid[0] if mcfg.split else grid[..., 0]
+                loss = loss + tcfg.sigma_l1 * torch.mean(sigma)
+            if tcfg.tv_w > 0:
+                tv = 0.0
+                for g in params["levels"][:-1]:
+                    for ax in range(3):
+                        d = torch.diff(g, dim=ax)
+                        tv = tv + torch.mean(d * d)
+                # the finest level(s): a random window of the first axis each
+                # step (stochastic TV, ~1/4 of the traffic)
+                for fine, s0 in zip(tv_levels(params, mcfg), tv_starts,
+                                    strict=True):
+                    s0 = int(s0)
+                    sl = fine[s0 : s0 + tv_window(fine.shape[0])]
+                    for ax in range(3):
+                        d = torch.diff(sl, dim=ax)
+                        tv = tv + torch.mean(d * d)
+                loss = loss + tcfg.tv_w * tv
         return loss, mse
 
     return loss_fn
@@ -425,8 +432,11 @@ def swr_train_step(
 def loss_and_grads(loss_fn, params):
     """``(loss, mse, gradients)`` of ``loss_fn(params)``: detached scalars
     and the gradients in :func:`tree_leaves` order."""
-    loss, mse = loss_fn(params)
-    grads = torch.autograd.grad(loss, tree_leaves(params))
+    with profiling.span("swr.forward"):
+        loss, mse = loss_fn(params)
+    leaves = tree_leaves(params)
+    with profiling.backward_span("swr.backward", loss, leaves):
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), mse.detach(), list(grads)
 
 
@@ -436,8 +446,9 @@ def apply_swr_grads(state: SwrTrainState, tcfg: SwrTrainConfig, loss, mse,
     state and the metrics ``loss`` and ``psnr``."""
     it = iter(grads)
     grad_tree = tree_map(lambda _: next(it), state.params)
-    opt = make_optimizer(tcfg).update(grad_tree, state.opt_state,
-                                      state.params)
+    with profiling.span("swr.adam"):
+        opt = make_optimizer(tcfg).update(grad_tree, state.opt_state,
+                                          state.params)
     metrics = {"loss": loss, "psnr": -10.0 * torch.log10(mse)}
     return SwrTrainState(state.params, opt), metrics
 
@@ -750,28 +761,33 @@ class SwrTrainer:
     def run_step(self, draw: SwrDraw | SwrShardedDraw | None = None):
         """One training step on ``draw`` (the next :meth:`draw`, with a mesh
         :meth:`draw_sharded`, if None)."""
-        _require_fp32_matmul()
-        self._advance_phases()
-        if self.mesh is not None:
-            return self._run_step_sharded(draw or self.draw_sharded())
-        if draw is None:
-            draw = self.draw()
-        pl = self.plan(draw)
-        self.state, metrics = swr_train_step(
-            self.state, self.images[draw.i], self.poses_np[draw.i], self.K,
-            draw.crop_xy, self.cur_mcfg, self.tcfg, pl.axis, pl.flip,
-            draw.bg, draw.tv_starts, self.lat_size, pl.warp, pl.slab_window,
-            pl.inside, self.sigma_keep, pl.slope_bounds,
-        )
-        self.step += 1
-        return metrics
+        with profiling.span("swr.step"):
+            with profiling.span("swr.plan"):
+                _require_fp32_matmul()
+                self._advance_phases()
+                if self.mesh is not None:
+                    draw = draw or self.draw_sharded()
+                    pl = self.plan_sharded(draw)
+                else:
+                    draw = draw or self.draw()
+                    pl = self.plan(draw)
+            if self.mesh is not None:
+                return self._run_step_sharded(draw, pl)
+            self.state, metrics = swr_train_step(
+                self.state, self.images[draw.i], self.poses_np[draw.i],
+                self.K, draw.crop_xy, self.cur_mcfg, self.tcfg, pl.axis,
+                pl.flip, draw.bg, draw.tv_starts, self.lat_size, pl.warp,
+                pl.slab_window, pl.inside, self.sigma_keep, pl.slope_bounds,
+            )
+            self.step += 1
+            return metrics
 
-    def _run_step_sharded(self, draw: SwrShardedDraw):
-        """One crop-parallel step: this rank trains crop ``rank`` of the
-        draw; the step of each sweep choice is made once a phase."""
+    def _run_step_sharded(self, draw: SwrShardedDraw, pl: SwrStepPlan):
+        """One crop-parallel step on ``draw``'s plan ``pl``: this rank
+        trains crop ``rank`` of the draw; the step of each sweep choice is
+        made once a phase."""
         from ..parallel.swr_shard import make_swr_sharded_step
 
-        pl = self.plan_sharded(draw)
         with_sk = self.sigma_keep is not None
         with_sb = pl.slope_bounds is not None
         key = (self._phase_idx, pl.axis, pl.flip, pl.inside, pl.warp,

@@ -1,49 +1,92 @@
-"""Wall-clock phase accounting of the training loop.
+"""The port's tracing: named profiler ranges that cost nothing with no
+profiler, and host timers of device work.
 
-Port of the JAX package's ``utils/profiling.py:PhaseTimer`` (its
-``jax.profiler`` trace is ``torch.profiler`` in the port's train entry,
-``--profile_dir``).
+:func:`span` and :func:`backward_span` are the ranges the benchmark reads
+(``benchmark/harness/trace.py`` charges each kernel to the ranges open on
+the thread that launched it, and labels each idle gap of the device with
+the innermost range the host was in).  They enter a range only while the
+autograd profiler is on: otherwise a span is one flag check and a
+backward span installs no hook.  The train entry's ``--profile_dir``
+turns the profiler on.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, List
+from typing import List, Sequence
+
+import torch
+
+_OFF = contextlib.nullcontext()
 
 
-class PhaseTimer:
-    """Accumulates wall-clock seconds and calls per named phase."""
+def _profiling() -> bool:
+    return torch.autograd._profiler_enabled()
 
-    def __init__(self) -> None:
-        self.seconds: Dict[str, float] = defaultdict(float)
-        self.calls: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def phase(self, name: str, sync=None) -> Iterator[None]:
-        """Time a block.  ``sync``: a callable that waits for the device
-        (a host read), so this phase's device time is not counted in the
-        next one."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                sync()
-            self.seconds[name] += time.perf_counter() - t0
-            self.calls[name] += 1
+def span(name: str):
+    """A context that is ``torch.profiler.record_function(name)`` while the
+    profiler runs, and does nothing otherwise."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _OFF
 
-    def summary(self, reset: bool = False) -> str:
-        total = sum(self.seconds.values()) or 1.0
-        out = " | ".join(
-            f"{k} {self.calls[k]}x {v:.2f}s ({100.0 * v / total:.1f}%)"
-            for k, v in sorted(self.seconds.items(), key=lambda kv: -kv[1])
-        )
-        if reset:
-            self.seconds.clear()
-            self.calls.clear()
-        return out
+
+class _BackwardRange:
+    """The range ``name`` over the backward from ``root`` to ``leaves``,
+    on the thread that runs it: opened by a pre-hook of ``root.grad_fn``,
+    closed by the hook of the last leaf whose gradient is made (or on leaving
+    the block, should the backward raise or skip a leaf)."""
+
+    def __init__(self, name: str, root: torch.Tensor,
+                 leaves: Sequence[torch.Tensor]):
+        self.name = name
+        self.root = root
+        self.leaves = leaves
+        self.left = len(leaves)
+        self.handles: List = []
+        self.record = None
+
+    def __enter__(self):
+        self.handles.append(self.root.grad_fn.register_prehook(self._open))
+        self.handles += [t.register_hook(self._leaf_done)
+                         for t in self.leaves]
+        return self
+
+    def __exit__(self, *exc):
+        self._close()
+        return False
+
+    def _open(self, grad_outputs):
+        self.record = torch.ops.profiler._record_function_enter_new(
+            self.name, None)
+
+    def _leaf_done(self, grad):
+        self.left -= 1
+        if self.left == 0:
+            self._close()
+
+    def _close(self):
+        for h in self.handles:
+            h.remove()
+        self.handles = []
+        if self.record is not None:
+            torch.ops.profiler._record_function_exit._RecordFunction(
+                self.record)
+            self.record = None
+
+
+def backward_span(name: str, root: torch.Tensor,
+                  leaves: Sequence[torch.Tensor]):
+    """A context around the backward of ``root`` to ``leaves`` (a
+    ``torch.autograd.grad`` call): while the profiler runs, the range
+    ``name`` opens on the thread that runs the backward when it starts and
+    closes there when the last leaf's gradient is made, so the kernels it
+    launches on autograd's device thread fall inside.  Otherwise nothing."""
+    if not _profiling() or root.grad_fn is None:
+        return _OFF
+    return _BackwardRange(name, root, leaves)
 
 
 def time_calls(fn, n: int, warm: int, device) -> List[float]:
@@ -51,8 +94,6 @@ def time_calls(fn, n: int, warm: int, device) -> List[float]:
     untimed ones.  On a CUDA device each call runs between two CUDA events
     behind ``torch.cuda.synchronize()``; on the CPU the host clock times
     it."""
-    import torch
-
     for _ in range(warm):
         fn()
     cuda = torch.device(device).type == "cuda"

@@ -25,7 +25,6 @@ from taichi_nerfs_torch.ops.rays import get_rays
 from taichi_nerfs_torch.render.renderer import render_image
 from taichi_nerfs_torch.train.loop import Trainer
 from taichi_nerfs_torch.train.metrics import psnr, ssim
-from taichi_nerfs_torch.utils.profiling import PhaseTimer
 
 
 def tiny_config(enc="hash") -> Config:
@@ -55,32 +54,22 @@ def scene():
     return SyntheticSphereDataset(n_images=12, img_wh=(48, 48))
 
 
-def _train(scene, cfg, steps, timer=None):
+def _train(scene, cfg, steps):
     trainer = Trainer(cfg, scene.as_batch(), scene.K, scene.img_wh,
                       log_fn=lambda *_: None)
-    trainer.timer = timer
     losses = [float(trainer.run_step()["loss"]) for _ in range(steps)]
     return trainer, losses
 
 
 @pytest.fixture(scope="module")
 def trained(scene):
-    trainer, losses = _train(scene, tiny_config(), 300, PhaseTimer())
+    trainer, losses = _train(scene, tiny_config(), 300)
     return trainer, losses[0], losses[-1]
 
 
 def test_loss_decreases(trained):
     _, first, last = trained
     assert last < first * 0.5, (first, last)
-
-
-def test_phase_timer_attributed(trained):
-    trainer, _, _ = trained
-    assert trainer.timer.calls["train_step"] == 300
-    assert trainer.timer.calls["grid_update"] > 0
-    assert trainer.timer.seconds["train_step"] > 0
-    s = trainer.timer.summary()
-    assert "train_step" in s and "grid_update" in s
 
 
 def test_render_matches_ground_truth(trained):

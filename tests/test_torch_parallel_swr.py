@@ -6,7 +6,9 @@ cubemap face, with the carving mask and per-crop slope bounds) against
 one process that averages the two crops' gradients and applies Adam
 once, within 2e-6; and ``SwrTrainer(mesh=...)`` over its coarse-to-fine
 growth on outside and mixed rigs against the same reproduction of the
-draws it made.  Every rank's params are bitwise equal.
+draws it made.  Every rank's params are bitwise equal.  Under the
+profiler a trainer's crop-parallel step is ``swr.step`` over the spans of
+a one-process step (``tests/test_torch_tracing.py``).
 """
 
 import numpy as np
@@ -129,3 +131,15 @@ def test_trainer_mesh_equals_mean_of_crops(trainer_ranks, kind):
     _close(outs[0]["params"], ranks.host(ref.state.params))
     _same_on_every_rank(outs)
     assert outs[0]["render_finite"]
+
+
+def test_trainer_mesh_step_spans(tmp_path):
+    tops = ("swr.plan", "swr.forward", "swr.backward", "swr.adam")
+    for ranges in _launch(ranks.swr_trainer_spans_rank, str(tmp_path)):
+        (step,) = [r for r in ranges if r[0] == "swr.step"]
+        top = sorted(r[1:3] for r in ranges if r[0] in tops)
+        assert {r[0] for r in ranges} >= set(tops) | {"swr.bake",
+                                                      "swr.loss"}
+        for a, b in zip(top, top[1:]):
+            assert a[1] <= b[0], (a, b)
+        assert step[1] <= top[0][0] and top[-1][1] <= step[2]

@@ -370,3 +370,28 @@ def swr_trainer_rank(mesh, threads, rig, steps):
         out["render_finite"] = bool(torch.isfinite(
             tr.render(tr.poses_np[1])["rgb"]).all())
     return out
+
+
+def swr_trainer_spans_rank(mesh, threads):
+    """One crop-parallel step of ``SwrTrainer`` on the outside rig under
+    ``torch.profiler``, after an unprofiled one: the step's user ranges as
+    ``(name, start, end, tid)``."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.set_num_threads(threads)
+    tr = swr_trainer(swr_rig("outside"), mesh)
+    tr.run_step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.run_step()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sorted((e["name"], e["ts"], e["ts"] + e["dur"], e["tid"])
+                  for e in events if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation")
