@@ -18,11 +18,15 @@ phases:
    shapes (backward, linear and cubic, with the difference of a second
    run), and at the default flags' full-depth shape (F=16, linear); both
    kernels are timed warm and cold (after 128 MB written to evict the L2),
-   each time beside its bound and its share of it;
+   each time beside its bound and its share of it; the final band warp
+   (``swr_band_warp``) against its plain version at the served lattices
+   (nq 816 and 336, 800x800, 9 and 10 channels, both warp modes, fp32 and
+   bf16 operands), timed the same way;
 4. serve: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
    uncapped, with cubic resampling; the outputs are checked, the forward
-   kernel's launch count during those frames must be > 0, and one view is
-   rendered again through the plain sweep and compared;
+   kernel's launch count during those frames must be > 0 and the band
+   warp's one a frame, and one view is rendered again through the plain
+   sweep and through the plain band warp and compared;
 5. train: ``SwrTrainer`` trains the record configuration for 24 steps
    through all three coarse-to-fine phases on procedural lego views made on
    the card; every loss must be finite and the loss must fall, both
@@ -646,6 +650,108 @@ def _time_bwd(torch, label, args, frames, g, out, v, nq, kind, flush,
     return dict(warm=warm, cold=cold, plain=plain, bound=bound, by=by)
 
 
+# the served frames' final warp: 800x800 pixels at the uncapped and capped
+# lattices; the record model's global frame has 9 channels (7 features,
+# depth, opacity), and 10 is timed beside it
+WARP_TIMED = (("uncapped nq=816", 816), ("capped nq=336", 336))
+WARP_CHANNELS = (9, 10)
+
+
+def band_warp_bound(C, nq, H, W):
+    """The band warp's bound: the global frame (C, nq, nq), lj, behind and
+    the frame's scalars read once and the (C, H, W) pixels written once;
+    6 multiply-adds a pixel and channel (4 taps of pass A, 2 of pass B)."""
+    from taichi_nerfs_torch.ops.warp import GEO_LEN
+
+    nbytes = 4 * C * nq * nq + 5 * H * W + 4 * GEO_LEN + 4 * C * H * W
+    return (*_bound_ms(nbytes, 12 * C * H * W), nbytes, 12 * C * H * W)
+
+
+def _warp_inputs(torch, nq, C, seed):
+    """The band warp's arguments as ``render_swr_fixed_axis`` builds them
+    for an 800x800 orbit view (a small pyramid rendered on the card at
+    lattice ``nq``), with the global frame replaced by ``C`` seeded
+    channels."""
+    from taichi_nerfs_torch.data.cameras import intrinsics, orbit_poses
+    from taichi_nerfs_torch.models import pyramid as pyr
+    from taichi_nerfs_torch.ops.warp import band_warp_reference
+    from taichi_nerfs_torch.render import swr
+
+    cfg = pyr.PyramidConfig(resolutions=(16, 32), features=4, rgb_width=16,
+                            deferred=True)
+    gen = torch.Generator().manual_seed(seed)
+    params = pyr.init_pyramid_params(cfg, generator=gen, device="cuda")
+    pose = orbit_poses(4)[seed % 4]
+    axis, flip = swr.sweep_axis(pose)
+    seen = {}
+
+    def record(img, *rest):
+        seen["args"] = rest
+        return band_warp_reference(img, *rest)
+
+    real = swr.band_warp
+    swr.band_warp = record
+    try:
+        with torch.no_grad():
+            swr.render_swr_fixed_axis(
+                params, pyr.bake(params, cfg), cfg, pose,
+                intrinsics(*RECORD_WH), RECORD_WH, axis, flip, n_chunks=4,
+                lat_size=nq)
+    finally:
+        swr.band_warp = real
+    lj, behind, pose_t, K, frame, axis, _, _ = seen["args"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.randn((C, nq, nq), generator=g, device="cuda")
+    return img, lj, behind, pose_t, K, frame, axis
+
+
+def phase_warp(torch):
+    """``swr_band_warp`` against the plain band warp at the served shapes,
+    both warp modes, fp32 and bf16 operands (within 1e-6 of max |img|:
+    the two passes' two-term sums in another order), each timed warm and
+    cold beside its bound, and the plain version's warm time."""
+    from taichi_nerfs_torch.ops.warp import band_warp, band_warp_reference
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    res = {}
+    for label, nq in WARP_TIMED:
+        for C in WARP_CHANNELS:
+            args = _warp_inputs(torch, nq, C, seed=nq + C)
+            lim = 1e-6 * float(args[0].abs().max())
+            for warp in ("matmul", "matmul_x"):
+                for dtype in (torch.float32, torch.bfloat16):
+                    def run(fn=band_warp):
+                        return fn(*args, warp, dtype)
+                    got = run()
+                    want = run(band_warp_reference)
+                    err = float((got - want).abs().max())
+                    tag = (f"{label} C={C} {warp} "
+                           f"{str(dtype).split('.')[-1]}")
+                    print(f"kernel swr_band_warp {tag}: max_abs={err:.3e} "
+                          f"(limit {lim:.3e}) "
+                          f"{'ok' if err <= lim else 'FAIL'}", flush=True)
+                    if not err <= lim:
+                        raise AssertionError(f"swr_band_warp {tag}: {err}")
+                    del got, want
+                    if warp == "matmul" or C == 9:
+                        warm = _time_ms(torch, run, 20)
+                        cold = _time_ms(torch, run, 20, flush)
+                        plain = _time_ms(
+                            torch, lambda: run(band_warp_reference), 5)
+                        bound, by, nbytes, flops = band_warp_bound(
+                            C, nq, *RECORD_WH)
+                        print(f"  time {tag}: kernel warm {warm:.4f} ms, "
+                              f"cold {cold:.4f} ms; bound {bound:.4f} ms "
+                              f"({by}: {nbytes / 1e6:.1f} MB), share warm "
+                              f"{bound / warm:.1%}, cold {bound / cold:.1%};"
+                              f" plain {plain:.4f} ms (medians, CUDA "
+                              f"events)", flush=True)
+                        res[tag] = dict(warm=warm, cold=cold, plain=plain,
+                                        bound=bound, by=by, max_abs=err)
+            del args
+    return res
+
+
 def _device_ms_by_kernel(torch, fn, reps=5):
     """Device ms of each kernel (and memset) that ``fn`` launches once, by
     short name: the mean over the launches ``torch.profiler``'s CUDA
@@ -740,6 +846,8 @@ def _record_params(torch, cfg, seed, device):
 def phase_slice(torch, ckpt_path, seed):
     from taichi_nerfs_torch.data.cameras import intrinsics, orbit_poses
     from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep
+    from taichi_nerfs_torch.ops.warp import band_warp, band_warp_reference
+    from taichi_nerfs_torch.render import swr
     from taichi_nerfs_torch.render.serve import (
         PyramidRenderer,
         config_for_params,
@@ -771,7 +879,7 @@ def phase_slice(torch, ckpt_path, seed):
         rend.render(poses[0], lat_cap=cap)
     torch.cuda.synchronize()
 
-    chunk_sweep.launches = 0
+    chunk_sweep.launches = band_warp.launches = 0
     frame_ms = {}
     for name, cap in modes:
         per_view = []
@@ -801,11 +909,13 @@ def phase_slice(torch, ckpt_path, seed):
                   f"(median of 3), max opacity {hi:.4f}", flush=True)
         frame_ms[name] = _median(per_view)
     torch.cuda.synchronize()
-    launches = chunk_sweep.launches
+    launches, warps = chunk_sweep.launches, band_warp.launches
     print(f"slice: chunk_sweep.launches during the served frames: "
-          f"{launches}", flush=True)
+          f"{launches}; band_warp.launches: {warps}", flush=True)
     if launches <= 0:
         raise AssertionError("the served frames never launched the kernel")
+    if warps != len(modes) * len(poses) * 3:
+        raise AssertionError(f"{warps} band-warp launches, not one a frame")
 
     # one view again through the plain sweep
     for name, cap in modes:
@@ -819,7 +929,21 @@ def phase_slice(torch, ckpt_path, seed):
               f"{d:.3e}", flush=True)
         if not d <= RENDER_TOL:
             raise AssertionError(f"{name}: rgb differs by {d} > {RENDER_TOL}")
-    return launches, frame_ms
+    # and through the plain band warp (the benchmark's limit of a frame's
+    # rgb RMS gap, 1e-5)
+    for name, cap in modes:
+        a = rend.render(poses[0], lat_cap=cap)
+        swr.band_warp = band_warp_reference
+        try:
+            b = rend.render(poses[0], lat_cap=cap)
+        finally:
+            swr.band_warp = band_warp
+        gap = float(torch.sqrt(((a["rgb"] - b["rgb"]) ** 2).mean()))
+        print(f"slice {name} view 0: rgb band-warp kernel vs plain warp rms="
+              f"{gap:.3e}", flush=True)
+        if not gap <= 1e-5:
+            raise AssertionError(f"{name}: rgb rms gap {gap} > 1e-5")
+    return launches, warps, frame_ms
 
 
 def phase_train(torch, seed, device="cuda"):
@@ -3171,7 +3295,7 @@ def _launch_line(name, lines):
     """``(swr_sweep_fwd, swr_sweep_bwd)`` launches a script printed."""
     for line in lines:
         if line.startswith("launches: swr_sweep_fwd="):
-            f, b = line.split()[1:]
+            f, b = line.split()[1:3]
             return int(f.split("=")[1]), int(b.split("=")[1])
     raise AssertionError(f"scripts: {name} printed no launch counts")
 
@@ -4043,7 +4167,9 @@ def main(argv=None):
     phase_build()
     worst, timing = phase_kernels(torch)
     worst_bwd, bwd_timing = phase_bwd_kernels(torch)
-    serve_launches, frame_ms = phase_slice(torch, args.ckpt_path, args.seed)
+    warp_timing = phase_warp(torch)
+    serve_launches, serve_warps, frame_ms = phase_slice(
+        torch, args.ckpt_path, args.seed)
     print(f"slice: 800x800 cubic frame median: capped "
           f"{frame_ms['capped']:.3f} ms, uncapped "
           f"{frame_ms['uncapped']:.3f} ms", flush=True)
@@ -4233,6 +4359,25 @@ def main(argv=None):
                                                 "plain", "rerun_max_abs")}
                            for (label, kind), t in sorted(bwd_timing.items())},
                         **bf16_shapes("bwd")},
+    }, {
+        "name": "swr_band_warp",
+        "route": "cuda",
+        "source": "taichi_nerfs_torch/csrc/swr_warp.cu",
+        "replaces": None,  # the JAX package's warp is XLA band matmuls
+        "launches": serve_warps,
+        "launches_by_path": {"serve": serve_warps},
+        "max_abs_err": max(t["max_abs"] for t in warp_timing.values()),
+        # the uncapped 800x800 frame's warp, 9 channels, "matmul", warm
+        "ms": warp_timing["uncapped nq=816 C=9 matmul float32"]["warm"],
+        "plain_ms": warp_timing["uncapped nq=816 C=9 matmul float32"][
+            "plain"],
+        "bound_ms": warp_timing["uncapped nq=816 C=9 matmul float32"][
+            "bound"],
+        "bound_by": warp_timing["uncapped nq=816 C=9 matmul float32"]["by"],
+        "library_ms": None,  # no single PyTorch call computes the warp
+        "ms_by_shape": {k: {m: t[m] for m in ("warm", "cold", "bound",
+                                              "plain")}
+                        for k, t in sorted(warp_timing.items())},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

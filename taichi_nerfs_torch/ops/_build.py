@@ -5,8 +5,11 @@ compiled on first use for Hopper (``sm_90a``) into
 ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout;
 the hash covers the source, the shared headers ``csrc/*.cuh`` and the
 flags, so an edited source or header rebuilds.
-Nothing here runs when the module is imported, and a failed build raises:
-there is no fallback.
+Nothing is built when the module is imported, and a failed build raises:
+there is no fallback.  The module also holds the operator namespace
+``taichi_nerfs_torch`` (:data:`LIB`) on which the wrappers register their
+kernels, :func:`entry`, which binds a kernel's C entry, and :func:`launch`,
+which calls it on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -28,6 +33,16 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+
+# The kernels as registered operators, so that ``torch.export`` traces each
+# call as one graph node (``utils/aot.py``): a traced tensor has no storage
+# for the ctypes launch, so tracing runs each operator's fake version, which
+# gives the output's shape and dtype only.  Defined on a ``Library`` rather
+# than with ``torch.library.custom_op``, whose kernel wrapper imports
+# ``torch._dynamo`` at a process's first call (~2 s on a CPU, ~8.5 s on the
+# H100 machine's host: every new process that renders).
+LIB = torch.library.Library("taichi_nerfs_torch", "DEF")
 
 
 class KernelBuildError(RuntimeError):
@@ -101,3 +116,24 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library ``name``."""
     path, _, _ = build(name)
     return ctypes.CDLL(path)
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, argtypes: tuple):
+    """The C entry ``name`` of ``csrc/<name>.cu`` (built and loaded if
+    needed): it returns a CUDA error code and takes ``argtypes``, then the
+    stream."""
+    fn = getattr(load(name), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    return fn
+
+
+def launch(name: str, fn, device, *args) -> None:
+    """Call the C entry ``fn`` (of kernel ``name``) with ``args`` and the
+    current stream of ``device``; raise if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")

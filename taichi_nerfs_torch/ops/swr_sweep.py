@@ -35,11 +35,12 @@ dtype.  The other operands are fp32.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from .warp import interp_kernel
+from ._build import LIB as _LIB
+from ._build import entry, launch
+from .warp import band_warp, interp_kernel
 
 _KINDS = {"linear": 0, "cubic": 1}
 _KERNEL_F = (4, 8, 16)
@@ -221,28 +222,20 @@ def _check_bwd_args(vol_cs, frames, g, nq):
             raise ValueError(f"{name} must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str):
-    from ._build import load
+# each kernel's C arguments before the stream: pointers, then (n_chunks,
+# dc, F, Rb, Rc, nq, kind, vol dtype, operand dtype)
+_ARGTYPES = {
+    name: (ctypes.c_void_p,) * n_ptr + (ctypes.c_int,) * 9
+    for name, n_ptr in (("swr_sweep_fwd", 5), ("swr_sweep_bwd", 8))
+}
 
-    fn = getattr(load(name), name)
-    fn.restype = ctypes.c_int
-    # pointers, then (n_chunks, dc, F, Rb, Rc, nq, kind, vol dtype, operand
-    # dtype), then the stream
-    n_ptr = {"swr_sweep_fwd": 5, "swr_sweep_bwd": 8}[name]
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p
-    ]
-    return fn
+
+def _kernel_fn(name: str):
+    return entry(name, _ARGTYPES[name])
 
 
 def _launch(name: str, device, *args) -> None:
-    fn = _kernel_fn(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launch(name, _kernel_fn(name), device, *args)
 
 
 def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
@@ -256,18 +249,11 @@ def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
     return dvol
 
 
-# The kernels as registered operators, so that ``torch.export`` traces a
-# sweep as one graph node (``utils/aot.py``): a traced tensor has no storage
-# for the ctypes launch, so tracing runs each operator's fake version, which
-# gives the output's shape and dtype only.  The implementations launch the
-# kernels and count the launches; they are registered for CUDA tensors only
-# (the CPU branches of the wrappers below run the plain versions outside
-# the operators: autograd does not run inside an operator's
-# implementation).  Neither mutates its inputs.  Defined on a ``Library``
-# rather than with ``torch.library.custom_op``, whose kernel wrapper
-# imports ``torch._dynamo`` at a process's first call (~2 s on a CPU,
-# ~8.5 s on the H100 machine's host: every new process that sweeps).
-_LIB = torch.library.Library("taichi_nerfs_torch", "DEF")
+# The kernels as registered operators on ``_build.LIB`` (see there).  The
+# implementations launch the kernels and count the launches; they are
+# registered for CUDA tensors only (the CPU branches of the wrappers below
+# run the plain versions outside the operators: autograd does not run
+# inside an operator's implementation).  Neither mutates its inputs.
 _LIB.define(
     "swr_sweep_fwd(Tensor vol_cs, Tensor rs_par, Tensor z_rel, "
     "Tensor ch_par, int nq, str kind, ScalarType dtype) -> Tensor")
@@ -423,6 +409,8 @@ chunk_sweep_bwd.finish_launches = 0
 
 def launch_counts() -> str:
     """This process's kernel launches so far, on a line of their own as the
-    scripts print them: ``launches: swr_sweep_fwd=N swr_sweep_bwd=M``."""
+    scripts print them: ``launches: swr_sweep_fwd=N swr_sweep_bwd=M
+    band_warp=K``."""
     return (f"launches: swr_sweep_fwd={chunk_sweep.launches} "
-            f"swr_sweep_bwd={chunk_sweep_bwd.launches}")
+            f"swr_sweep_bwd={chunk_sweep_bwd.launches} "
+            f"band_warp={band_warp.launches}")

@@ -8,6 +8,13 @@ static window helpers ``residual_window`` and ``drift_window``.  The
 roll-select ``resample_affine`` of the JAX module exists for TPU grid sizes
 and is not carried.
 
+The shear-warp renderer's final projective warp lives here too:
+:func:`band_warp_reference`, the two-pass band-matrix warp of the JAX
+renderer (dense (J, I, N) and (N, J, N') tent matrices, two batched
+products), and :func:`band_warp`, which runs the hand-written kernel
+``csrc/swr_warp.cu`` (operator ``taichi_nerfs_torch::swr_band_warp``) on a
+CUDA frame that needs no gradient and the plain version otherwise.
+
 Operand dtypes follow the JAX module: the interpolation weights take
 ``dtype`` if it is given, else ``x``'s dtype; products accumulate in fp32
 and the result is fp32, cast to ``dtype`` only when it is given.  Every
@@ -20,10 +27,13 @@ default).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 import torch.nn.functional as nnf
+
+from ._build import LIB, entry, launch
 
 
 def residual_window(
@@ -191,3 +201,180 @@ def resample_matmul_windowed(
     w = interp_matrix(start - (off - window).to(torch.float32), step,
                       window, out_len, dtype=dtype or x.dtype)
     return torch.movedim(_dot(xw, w, dtype), -1, axis)
+
+
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to the operand ``dtype``, kept fp32 (a matmul of such
+    operands is the JAX fp32-accumulated product)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def band_warp_reference(img, lj, behind, pose, K, frame, axis, warp,
+                        rs_dtype=torch.float32):
+    """Plain two-pass (Catmull-Smith) warp of the global frame to pixels,
+    as batched band-matrix products.
+
+    ``img`` is the (C, nq, nq) global frame on its lattice, ``lj`` the
+    (H, W) lattice j coordinate of each pixel's ray and ``behind`` (H, W)
+    the pixels whose ray misses the frame's plane (zeroed); ``pose`` (3, 4)
+    and ``K`` (3, 3) the camera, ``frame`` the global frame's plane and
+    lattice ``(z_g, g_b0, g_db, g_c0, g_dc)`` (0-d tensors) and ``axis``
+    the sweep axis.  Pass A solves each lattice row j for one camera-plane
+    coordinate ("matmul": y, per column u; "matmul_x": x, per row v), pass
+    B resamples along j.  Both passes use linear tents; with a bf16
+    ``rs_dtype`` the tents and both passes' operands are rounded to bf16,
+    the sums fp32.  Returns the (C, H, W) fp32 pixels.
+    """
+    z_g, g_b0, g_db, g_c0, g_dc = frame
+    f32, dev = torch.float32, img.device
+    nq = img.shape[1]
+    h_img, w_img = lj.shape
+    b_axis, c_axis = [d for d in range(3) if d != axis]
+    o = pose[:, 3]
+    o_a, o_b, o_c = o[axis], o[b_axis], o[c_axis]
+    r = pose[:, :3]  # world = r @ cam
+    ra, rb, rc = r[axis], r[b_axis], r[c_axis]
+    xs_pix = (torch.arange(w_img, dtype=f32, device=dev) - K[0, 2]
+              + 0.5) / K[0, 0]
+    ys_pix = (torch.arange(h_img, dtype=f32, device=dev) - K[1, 2]
+              + 0.5) / K[1, 1]
+    j_ar = torch.arange(nq, dtype=f32, device=dev)
+    oa_rel = o_a - z_g
+    gam = o_c - g_c0 - j_ar * g_dc  # (J,)
+    if warp == "matmul_x":
+        fidx, sidx, free = 1, 0, ys_pix
+    else:
+        fidx, sidx, free = 0, 1, xs_pix
+    num = (oa_rel * rc[fidx] - gam[:, None] * ra[fidx]) * free[
+        None, :
+    ] + (oa_rel * rc[2] - gam[:, None] * ra[2])  # (J, N)
+    den = (
+        gam[:, None] * ra[sidx] - oa_rel * rc[sidx]
+        + torch.zeros_like(num)
+    )
+    sol = num / torch.where(torch.abs(den) < 1e-12, 1e-12, den)
+    if warp == "matmul_x":
+        x_p, y_p = sol, free[None, :] + torch.zeros_like(sol)
+    else:
+        x_p, y_p = free[None, :] + torch.zeros_like(sol), sol
+    da_j = ra[0] * x_p + ra[1] * y_p + ra[2]  # (J, N)
+    db_j = rb[0] * x_p + rb[1] * y_p + rb[2]
+    posA = ((o_b - g_b0) * da_j - oa_rel * db_j) / (
+        g_db * torch.where(torch.abs(da_j) < 1e-12, 1e-12, da_j)
+    )  # (J, N): source-i position for (row j, output line n)
+    posA = torch.where(torch.isfinite(posA), posA, -1e9)
+    i_ar = torch.arange(nq, dtype=f32, device=dev)
+    WA = _round_to(torch.clamp(
+        1.0 - torch.abs(i_ar[None, :, None] - posA[:, None, :]), min=0.0
+    ), rs_dtype)  # (J, I, N)
+    # inter[j, c, n] = sum_i img[c, i, j] * WA[j, i, n]
+    inter = torch.bmm(_round_to(img.permute(2, 0, 1), rs_dtype),
+                      WA)  # (J, C, N)
+    posB = lj if warp == "matmul_x" else lj.T  # (N', N)
+    posB = torch.where(torch.isfinite(posB), posB, -1e9)
+    WB = _round_to(torch.clamp(
+        1.0 - torch.abs(j_ar[None, :, None] - posB[:, None, :]), min=0.0
+    ), rs_dtype)  # (N, J, N')
+    # pixT[n, c, n'] = sum_j inter[j, c, n] * WB[n, j, n']
+    pixT = torch.bmm(_round_to(inter.permute(2, 1, 0), rs_dtype),
+                     WB)  # (N, C, N')
+    if warp == "matmul_x":
+        pix = pixT.permute(1, 0, 2)  # (C, H, W)
+    else:
+        pix = pixT.permute(1, 2, 0)  # (C, H, W)
+    return torch.where(behind[None], 0.0, pix)
+
+
+_WARPS = {"matmul": 0, "matmul_x": 1}
+_OP_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's per-frame scalars: pose (3, 4) and K (3, 3) row-major, then
+# (z_g, g_b0, g_db, g_c0, g_dc)
+GEO_LEN = 12 + 9 + 5
+
+
+def _check_band_warp_args(img, lj, behind, geo, axis, warp, dtype):
+    if warp not in _WARPS:
+        raise ValueError(f"no band-warp kernel for warp {warp!r}")
+    if dtype not in _OP_DTYPES:
+        raise TypeError(f"resample operand dtype {dtype}: float32 or "
+                        "bfloat16 only")
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis {axis} is not 0, 1 or 2")
+    if img.dim() != 3 or img.shape[1] != img.shape[2]:
+        raise ValueError(f"img must be (C, nq, nq), got {tuple(img.shape)}")
+    if lj.dim() != 2 or tuple(behind.shape) != tuple(lj.shape):
+        raise ValueError(f"lj {tuple(lj.shape)} and behind "
+                         f"{tuple(behind.shape)} must be one (H, W)")
+    if tuple(geo.shape) != (GEO_LEN,):
+        raise ValueError(f"geo shape {tuple(geo.shape)} != ({GEO_LEN},)")
+    if min(*img.shape, *lj.shape) <= 0:
+        raise ValueError("empty band warp")
+    for name, t, want in (("img", img, torch.float32),
+                          ("lj", lj, torch.float32),
+                          ("behind", behind, torch.bool),
+                          ("geo", geo, torch.float32)):
+        if t.device != img.device:
+            raise ValueError(f"{name} is on {t.device}, img on {img.device}")
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}; the band-warp kernel "
+                            f"takes {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+# pointers (img, lj, behind, geo, out), then (C, nq, H, W, axis, warp,
+# operand dtype)
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
+
+LIB.define(
+    "swr_band_warp(Tensor img, Tensor lj, Tensor behind, Tensor geo, "
+    "int axis, str warp, ScalarType dtype) -> Tensor")
+
+
+def _band_warp_op(img, lj, behind, geo, axis, warp, dtype):
+    _check_band_warp_args(img, lj, behind, geo, axis, warp, dtype)
+    (h, w), (c, nq) = lj.shape, img.shape[:2]
+    out = torch.empty((c, h, w), dtype=torch.float32, device=img.device)
+    launch("swr_warp", entry("swr_warp", _ARGTYPES), img.device,
+           img.data_ptr(), lj.data_ptr(), behind.data_ptr(), geo.data_ptr(),
+           out.data_ptr(), c, nq, h, w, axis, _WARPS[warp],
+           _OP_DTYPES[dtype])
+    band_warp.launches += 1
+    return out
+
+
+@torch.library.register_fake("taichi_nerfs_torch::swr_band_warp", lib=LIB)
+def _(img, lj, behind, geo, axis, warp, dtype):
+    _check_band_warp_args(img, lj, behind, geo, axis, warp, dtype)
+    return img.new_empty((img.shape[0], *lj.shape), dtype=torch.float32)
+
+
+LIB.impl("swr_band_warp", _band_warp_op, "CUDA")
+
+
+def band_warp(img, lj, behind, pose, K, frame, axis, warp,
+              rs_dtype=torch.float32):
+    """The band-matrix warp of :func:`band_warp_reference` ("matmul" or
+    "matmul_x"), (C, H, W) fp32 pixels.
+
+    A CUDA frame that needs no gradient (``img`` does not require grad:
+    every served frame) runs
+    ``csrc/swr_warp.cu`` on the current stream through the operator
+    ``taichi_nerfs_torch::swr_band_warp``, counted in
+    ``band_warp.launches``: only the two nonzero tents of each pass, with
+    the per-frame scalars packed into one small device tensor (no host
+    read).  The kernel has no backward: a frame under autograd (a training
+    step) and a CPU frame run :func:`band_warp_reference`.
+    """
+    if img.device.type == "cpu" or img.requires_grad:
+        return band_warp_reference(img, lj, behind, pose, K, frame, axis,
+                                   warp, rs_dtype)
+    if img.device.type != "cuda":
+        raise ValueError(f"no band-warp kernel for device {img.device}")
+    geo = torch.cat([pose.reshape(-1), K.reshape(-1),
+                     *(x.reshape(1) for x in frame)])
+    return torch.ops.taichi_nerfs_torch.swr_band_warp(
+        img, lj, behind, geo, axis, warp, rs_dtype)
+
+
+band_warp.launches = 0

@@ -20,8 +20,11 @@ cube.  One frame (see the JAX module's docstring for the geometry):
      loss's running sums, each slab checkpointed for the backward;
 4. the chunk frames fold front to back into one global frame on the cube's
    centre plane (with the distortion loss's cross-chunk term);
-5. a two-pass band-matrix warp (or a bilinear gather) takes that frame to
-   pixels; deferred shading then runs the rgb MLP once per pixel.
+5. a two-pass band warp (:func:`taichi_nerfs_torch.ops.warp.band_warp`:
+   the CUDA kernel's 2-tap sums for a frame on the card that needs no
+   gradient, else the dense band-matrix products) or a bilinear gather
+   takes that frame to pixels; deferred shading then runs the rgb MLP once
+   per pixel.
 
 Cameras inside the scene cube render one cubemap face per call
 (``inside=True``): the frustum slopes are bounded by the face's dominance
@@ -64,6 +67,7 @@ from ..models import pyramid as pyr
 from ..ops.sh import sh_encode
 from ..ops.swr_sweep import chunk_sweep, chunk_sweep_reference
 from ..ops.warp import (
+    band_warp,
     resample_matmul,
     resample_matmul_batched,
     resample_matmul_windowed,
@@ -117,12 +121,6 @@ def _host_f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
     return np.asarray(x, np.float32)
-
-
-def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``x`` rounded to the operand ``dtype``, kept fp32 (a matmul of such
-    operands is the JAX fp32-accumulated product)."""
-    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def _dirs(pose: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
@@ -510,62 +508,13 @@ def render_swr_fixed_axis(
                 + img[:, i0 + 1, j0] * (fi * (1 - fj))
                 + img[:, i0 + 1, j0 + 1] * (fi * fj)
             )  # (C, h, w)
+            pix = torch.where(behind[None], 0.0, pix)
         else:
-            # two-pass (Catmull-Smith) warp as batched band-matrix products;
-            # pass A solves each lattice row j for one camera-plane coordinate
-            # ("matmul": y, per column u; "matmul_x": x, per row v), pass B
-            # resamples along j.  Both passes use linear tents.
-            r = pose[:, :3]  # world = r @ cam
-            ra, rb, rc = r[axis], r[b_axis], r[c_axis]
-            xs_pix = (torch.arange(w_img, dtype=f32, device=dev) - K[0, 2]
-                      + 0.5) / K[0, 0]
-            ys_pix = (torch.arange(h_img, dtype=f32, device=dev) - K[1, 2]
-                      + 0.5) / K[1, 1]
-            j_ar = torch.arange(nq, dtype=f32, device=dev)
-            oa_rel = o_a - z_g
-            gam = o_c - g_c0 - j_ar * g_dc  # (J,)
-            if warp == "matmul_x":
-                fidx, sidx, free = 1, 0, ys_pix
-            else:
-                fidx, sidx, free = 0, 1, xs_pix
-            num = (oa_rel * rc[fidx] - gam[:, None] * ra[fidx]) * free[
-                None, :
-            ] + (oa_rel * rc[2] - gam[:, None] * ra[2])  # (J, N)
-            den = (
-                gam[:, None] * ra[sidx] - oa_rel * rc[sidx]
-                + torch.zeros_like(num)
-            )
-            sol = num / torch.where(torch.abs(den) < 1e-12, 1e-12, den)
-            if warp == "matmul_x":
-                x_p, y_p = sol, free[None, :] + torch.zeros_like(sol)
-            else:
-                x_p, y_p = free[None, :] + torch.zeros_like(sol), sol
-            da_j = ra[0] * x_p + ra[1] * y_p + ra[2]  # (J, N)
-            db_j = rb[0] * x_p + rb[1] * y_p + rb[2]
-            posA = ((o_b - g_b0) * da_j - oa_rel * db_j) / (
-                g_db * torch.where(torch.abs(da_j) < 1e-12, 1e-12, da_j)
-            )  # (J, N): source-i position for (row j, output line n)
-            posA = torch.where(torch.isfinite(posA), posA, -1e9)
-            i_ar = torch.arange(nq, dtype=f32, device=dev)
-            WA = _round_to(torch.clamp(
-                1.0 - torch.abs(i_ar[None, :, None] - posA[:, None, :]), min=0.0
-            ), rs_dtype)  # (J, I, N)
-            # inter[j, c, n] = sum_i img[c, i, j] * WA[j, i, n]
-            inter = torch.bmm(_round_to(img.permute(2, 0, 1), rs_dtype),
-                              WA)  # (J, C, N)
-            posB = lj if warp == "matmul_x" else lj.T  # (N', N)
-            posB = torch.where(torch.isfinite(posB), posB, -1e9)
-            WB = _round_to(torch.clamp(
-                1.0 - torch.abs(j_ar[None, :, None] - posB[:, None, :]), min=0.0
-            ), rs_dtype)  # (N, J, N')
-            # pixT[n, c, n'] = sum_j inter[j, c, n] * WB[n, j, n']
-            pixT = torch.bmm(_round_to(inter.permute(2, 1, 0), rs_dtype),
-                             WB)  # (N, C, N')
-            if warp == "matmul_x":
-                pix = pixT.permute(1, 0, 2)  # (C, H, W)
-            else:
-                pix = pixT.permute(1, 2, 0)  # (C, H, W)
-        pix = torch.where(behind[None], 0.0, pix)
+            # the two-pass band-matrix warp: the kernel for a CUDA frame
+            # that needs no gradient, else the plain band-matrix products
+            pix = band_warp(img, lj, behind, pose, K,
+                            (z_g, g_b0, g_db, g_c0, g_dc), axis, warp,
+                            rs_dtype)
 
     with profiling.span("swr.shade"):
         depth = pix[acc_ch]

@@ -257,8 +257,9 @@ def test_diag_r512_matches_the_jax_script(tmp_path, monkeypatch, capsys):
                                 "--device", "cpu"])
     out = capsys.readouterr().out
     got = {m[:2]: m[2:] for m in _DIAG_LINE.findall(out)}
-    assert re.search(r"^launches: swr_sweep_fwd=0 swr_sweep_bwd=0$", out,
-                     re.M)
+    assert re.search(
+        r"^launches: swr_sweep_fwd=0 swr_sweep_bwd=0 band_warp=0$", out,
+        re.M)
     keys = [("a", "0"), ("a", "1"), ("b", "0"), ("b", "1")]
     assert list(got) == list(want) == keys
     assert len(jimgs) == 4
@@ -371,7 +372,8 @@ def test_eval_deferred_runs_both_modes(monkeypatch, capsys):
                        out, re.M)
     assert [m[0] for m in modes] == ["normal", "deferred"]
     assert all(float(x) > 5 for e in evals for x in e) and len(evals) == 2
-    assert out.count("launches: swr_sweep_fwd=0 swr_sweep_bwd=0") == 2
+    assert out.count(
+        "launches: swr_sweep_fwd=0 swr_sweep_bwd=0 band_warp=0") == 2
     assert len(re.findall(r"\| step=[01] \| psnr=", out)) == 4
 
 

@@ -233,8 +233,9 @@ def test_quality_run_pauses_resumes_and_publishes(tmp_path, monkeypatch,
     out = capsys.readouterr().out
     assert f"resumed at step {k}" in out and "TRAIN DONE: 3 steps" in out
     assert re.search(r"^RECORD: eval_psnr=[0-9.]+ ", out, re.M)
-    assert re.search(r"^launches: swr_sweep_fwd=0 swr_sweep_bwd=0$", out,
-                     re.M)
+    assert re.search(
+        r"^launches: swr_sweep_fwd=0 swr_sweep_bwd=0 band_warp=0$", out,
+        re.M)
     with open("results/model_pyramid.manifest.json") as f:
         man = json.load(f)
     assert man["steps"] == 3 and man["views_finite"] == 1
@@ -440,8 +441,9 @@ def test_publish_manifest_alone_needs_no_card(tmp_path, monkeypatch,
     (tmp_path / "m.json").write_text(json.dumps(man))
     assert _script("torch_publish_record").main(
         ["--manifest", "m.json", "--name", "x"]) == 0
-    assert re.search(r"^launches: swr_sweep_fwd=0 swr_sweep_bwd=0$",
-                     capsys.readouterr().out, re.M)
+    assert re.search(
+        r"^launches: swr_sweep_fwd=0 swr_sweep_bwd=0 band_warp=0$",
+        capsys.readouterr().out, re.M)
     with open(tmp_path / "docs" / "records" / "x.manifest.json") as f:
         assert json.load(f) == man
     assert os.listdir(tmp_path / "docs" / "records") == ["x.manifest.json"]
