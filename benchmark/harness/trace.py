@@ -53,7 +53,8 @@ class Reading:
     frames profiled; ``window_s`` the sub-window's wall seconds; ``busy_s``
     the seconds in which some device operation ran; ``flops`` the
     algorithm's operations over the profiled units as ``[(term, flops,
-    precision)]``; ``context`` the system's facts (shapes, kinds)."""
+    precision)]``; ``context`` the system's facts (shapes, kinds) and the
+    traffic driver's (a view run's ``frame_ms_p95``)."""
 
     kind: str
     units: int

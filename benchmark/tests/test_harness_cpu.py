@@ -4,7 +4,6 @@ that a cell can have come out not correct."""
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 
@@ -13,7 +12,7 @@ import torch
 
 from benchmark.harness import session
 from benchmark.harness.spec import CHECKOUT, PACKAGE_DIR, Spec
-from benchmark.tests.tiny import write_root
+from benchmark.tests.tiny import family, write_root
 
 CELLS = [w["name"] for w in json.load(
     open(os.path.join(CHECKOUT, "BENCHMARK.json")))["workloads"]]
@@ -59,68 +58,13 @@ def test_control_fails(spec, cell):
     assert any(v > float(limits[k]) for k, v in nums.items()), nums
 
 
-@contextlib.contextmanager
-def _patched(obj, name, value):
-    old = getattr(obj, name)
-    setattr(obj, name, value)
-    try:
-        yield
-    finally:
-        setattr(obj, name, old)
-
-
-class _HalfMean:
-    """``torch`` for one module, whose ``mean`` of a crop's rows takes the
-    first half of them only."""
-
-    def __init__(self, rows):
-        self.rows = rows
-
-    def __getattr__(self, name):
-        return getattr(torch, name)
-
-    def mean(self, x, *a, **k):
-        if x.dim() >= 1 and x.shape[0] == self.rows:
-            x = x[: self.rows // 2]
-        return torch.mean(x, *a, **k)
-
-
 def _faults(spec, cell):
-    """The faults this cell can have, each a context that plants it."""
-    import taichi_nerfs_torch.render.serve as serve
-    import taichi_nerfs_torch.train.swr_step as swr_step
-
-    kind = spec.traffic(spec.cell(cell)["traffic"])["kind"]
-    if kind == "train":
-        crop = spec.config(spec.cell(cell)["config"])["train"]["crop"]
-
-        def unchanged(self, draw=None):
-            return {"loss": torch.tensor(0.5), "psnr": torch.tensor(3.0)}
-
-        return {
-            "state unchanged": _patched(swr_step.SwrTrainer, "run_step",
-                                        unchanged),
-            "half the batch": _patched(swr_step, "torch",
-                                       _HalfMean(crop * crop)),
-        }
-    orig = serve.PyramidRenderer.render
-
-    def altered(self, *a, **k):
-        out = orig(self, *a, **k)
-        out["rgb"] = out["rgb"].clone()
-        out["rgb"][7] += 0.05
-        return out
-
-    def half(self, *a, **k):
-        out = orig(self, *a, **k)
-        n = out["rgb"].shape[0]
-        out["rgb"] = out["rgb"].clone()
-        out["rgb"][n // 2:] = 1.0
-        return out
-
-    return {"an answer altered": _patched(serve.PyramidRenderer, "render",
-                                          altered),
-            "half the frame": _patched(serve.PyramidRenderer, "render", half)}
+    """The faults this cell can have, each a context that plants it: its
+    family's, two or more."""
+    name = spec.config(spec.cell(cell)["config"])["family"]
+    faults = family(spec, name).faults(spec, cell)
+    assert len(faults) >= 2, (name, cell, sorted(faults))
+    return faults
 
 
 @pytest.mark.parametrize("cell", CELLS)

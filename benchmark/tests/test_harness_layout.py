@@ -1,11 +1,12 @@
 """The benchmark's files against its contract: every name resolves to its
 file, names and units keep to their characters, no file loads JAX or the
-JAX package, the reference loads nothing of the program, and a cell added
-as new files alone runs."""
+JAX package, the reference loads nothing of the program, and a cell or a
+model family added as new files alone runs."""
 
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 import os
 import re
@@ -52,6 +53,13 @@ def test_every_cell_resolves(spec):
         assert 1 <= len(w["why"]) <= 200
     used = {w["config"] for w in spec.bench["workloads"]}
     assert used == configs
+
+
+def test_every_family_has_its_files(spec):
+    for c in spec.bench["configs"]:
+        fam = spec.config(c["name"])["family"]
+        for parts in (("systems",), ("reference",), ("tests", "families")):
+            assert os.path.exists(spec.code(*parts, f"{fam}.py")), (fam, parts)
 
 
 def test_configs(spec):
@@ -162,7 +170,7 @@ def test_a_cell_of_new_files_alone_runs(tmp_path):
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     t = json.load(open(os.path.join(root, "benchmark", "traffic",
-                                    "orbit_capped.json")))
+                                    "orbit_uncapped.json")))
     t["orbit"]["elevation"] = [0.5, 0.7]
     json.dump(t, open(os.path.join(root, "benchmark", "traffic",
                                    "orbit_high.json"), "w"))
@@ -175,7 +183,7 @@ def test_a_cell_of_new_files_alone_runs(tmp_path):
                                "traffic": "orbit_high", "chips": 1,
                                "why": "a dummy cell"})
     for m in bench["end_to_end"]:
-        if m["name"] in ("frames_per_s", "frame_ms_p95"):
+        if m["name"] == "frames_per_s":
             m["workloads"].append(cell)
     bench["per_layer"].append({
         "name": "frames_profiled.view", "unit": "frames", "better": "higher",
@@ -188,3 +196,130 @@ def test_a_cell_of_new_files_alone_runs(tmp_path):
     r = session.run_cell(cell, 5, 0.5, True, "cpu", 0.0, spec)
     assert r["correct"]
     assert r["metrics"]["frames_profiled.view"]["value"] == 2
+
+
+def _hashes(top):
+    out = {}
+    for d, _, files in os.walk(top):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, top)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def _grown_only(old, new):
+    """``new`` keeps every entry of ``old`` as it was, but for cells
+    appended to a metric's ``workloads``."""
+    for key, value in old.items():
+        if key not in ("configs", "workloads", "end_to_end", "per_layer"):
+            assert new[key] == value, key
+            continue
+        grown = {e["name"]: e for e in new[key]}
+        for e in value:
+            g = dict(grown[e["name"]])
+            if "workloads" in e:
+                assert g["workloads"][:len(e["workloads"])] == e["workloads"]
+                g["workloads"] = e["workloads"]
+            assert g == e, (key, e["name"])
+
+
+TWIN = "pyramid_twin"
+TWIN_FILES = {
+    ("systems", f"{TWIN}.py"):
+        '"""The dense pyramid under a second family name."""\n'
+        "from benchmark.systems.pyramid import (  # noqa: F401\n"
+        "    TrainSession, ViewSession)\n",
+    ("reference", f"{TWIN}.py"):
+        "from benchmark.reference.pyramid import (  # noqa: F401\n"
+        "    PyramidReference)\n",
+    ("tests", "families", f"{TWIN}.py"):
+        "from benchmark.tests.families.pyramid import (  # noqa: F401\n"
+        "    LIMITS, faults, shrink_config, shrink_traffic)\n",
+}
+
+
+def _family_copy(top, family_files):
+    """A copy of the benchmark under ``top`` with a family ``TWIN`` added as
+    the new files ``family_files`` (path parts under ``benchmark/`` ->
+    text), a configuration of it and one training cell; returns the
+    copy's code directory, its hashes before the addition, its
+    ``BENCHMARK.json`` before and the cell's name."""
+    import shutil
+
+    code = os.path.join(top, "benchmark")
+    shutil.copytree(PACKAGE_DIR, code,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(CHECKOUT, "BENCHMARK.json"), top)
+    before = _hashes(code)
+    with open(os.path.join(top, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    old = json.loads(json.dumps(bench))
+    for parts, text in family_files.items():
+        with open(os.path.join(code, *parts), "w") as f:
+            f.write(text)
+    base = Spec(top).bench["configs"][0]
+    cfg = Spec(top).config(base["name"])
+    cfg["family"] = TWIN
+    with open(os.path.join(code, "configs", f"{TWIN}.json"), "w") as f:
+        json.dump(cfg, f)
+    bench["configs"].append(dict(base, name=TWIN,
+                                 file=f"benchmark/configs/{TWIN}.json"))
+    train = next(w for w in bench["workloads"] if w["config"] == base["name"]
+                 and Spec(top).traffic(w["traffic"])["kind"] == "train")
+    cell = f"{TWIN}.train"
+    bench["workloads"].append(dict(train, name=cell, config=TWIN,
+                                   why="the first family's training cell "
+                                       "under a second family"))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if train["name"] in m.get("workloads", ()):
+            m["workloads"].append(cell)
+    with open(os.path.join(top, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    return code, before, old, cell
+
+
+def test_a_family_of_new_files_alone_runs(tmp_path):
+    """A second model family added as new files and BENCHMARK.json entries
+    to a copy of the benchmark: on the CPU its cell runs and agrees with
+    the reference, its control fails and each of its faults comes out not
+    correct, and no file that was there has changed."""
+    import torch
+
+    from benchmark.tests import test_harness_cpu as cpu
+    from benchmark.tests.tiny import write_root
+
+    torch.set_num_threads(2)
+    src = str(tmp_path / "src")
+    code, before, old, cell = _family_copy(src, TWIN_FILES)
+    spec = Spec(write_root(str(tmp_path / "tiny"), src, code), code_dir=code)
+    assert spec.config(spec.cell(cell)["config"])["family"] == TWIN
+    assert spec.system(TWIN).__file__ == os.path.join(
+        code, "systems", f"{TWIN}.py")
+    cpu.test_cell_runs_and_agrees(spec, cell, False)
+    cpu.test_control_fails(spec, cell)
+    cpu.test_faults_come_out_not_correct(spec, cell)
+    after = _hashes(code)
+    assert {k: after[k] for k in before} == before
+    assert set(after) - set(before) >= {
+        os.path.join(*p) for p in TWIN_FILES}
+    with open(os.path.join(src, "BENCHMARK.json")) as f:
+        _grown_only(old, json.load(f))
+
+
+@pytest.mark.parametrize("lacks", ["its file", "a limit"])
+def test_write_root_names_what_a_family_lacks(tmp_path, lacks):
+    from benchmark.tests.tiny import write_root
+
+    files = dict(TWIN_FILES)
+    family_file = ("tests", "families", f"{TWIN}.py")
+    if lacks == "its file":
+        del files[family_file]
+    else:
+        files[family_file] += "LIMITS = {}\n"
+    src = str(tmp_path / "src")
+    code = _family_copy(src, files)[0]
+    with pytest.raises((FileNotFoundError, KeyError)) as e:
+        write_root(str(tmp_path / "tiny"), src, code)
+    assert os.path.join(code, *family_file) in str(e.value)

@@ -1,56 +1,74 @@
 """A tiny copy of the benchmark's cells that the CPU can run: the same
 drivers, systems and readers on shrunk configurations and mixes, written
-to a temporary root."""
+to a temporary root.
+
+What a model family's cells shrink to, their tiny limits and the faults
+they can have are the family's: ``tests/families/<family>.py`` under the
+code directory, found by a configuration's ``family`` as its
+``systems/<family>.py`` is.  It defines ``shrink_config(config)``,
+``shrink_traffic(traffic)``, ``LIMITS`` (the tiny limit of each limit name
+its mixes use) and ``faults(spec, cell)`` (a context that plants each
+fault, by name).
+"""
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 
-from benchmark.harness.spec import CHECKOUT
-
-TINY_MODEL = {"resolutions": [8, 16], "level_features": [8, 8]}
-TINY_TRAIN = {"crop": 16, "n_chunks": 4}
-TINY_SCENE = {"n_views": 4, "img_wh": [24, 24], "gt_steps": 24, "gt_ss": 1}
-TINY_VIEW = {"img_wh": [24, 24],
-             "orbit": {"views": 6, "radius": 1.2, "rig_seed": 1,
-                       "elevation": [0.06, 1.15], "jitter": 0.3},
-             "trace_units": 2}
-# the CPU runs the plain sweep on both sides: only rounding separates them
-TINY_LIMITS = {"loss_gap": 1e-4, "grad_gap": 1e-4, "change_gap": 1e-4,
-               "rgb_rms_gap": 1e-5, "grad_diff_median": 1e-4}
+from benchmark.harness.spec import CHECKOUT, PACKAGE_DIR, Spec
 
 
-def _load(*parts):
-    with open(os.path.join(CHECKOUT, *parts)) as f:
-        return json.load(f)
+def family(spec: Spec, name: str):
+    """The CPU tests' file of model family ``name``; raises
+    ``FileNotFoundError`` naming its path where there is none."""
+    return spec.module("tests", "families", f"{name}.py")
 
 
-def write_root(root: str) -> str:
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _dump(obj, *parts):
+    with open(os.path.join(*parts), "w") as f:
+        json.dump(obj, f)
+
+
+def write_root(root: str, src: str = CHECKOUT,
+               code_dir: str = PACKAGE_DIR) -> str:
     """Write ``BENCHMARK.json`` and shrunk configuration and traffic files
-    under ``root``; returns it."""
-    bench = _load("BENCHMARK.json")
+    of the checkout at ``src`` under ``root``, each shrunk by its family's
+    file under ``code_dir``; returns ``root``."""
+    spec = Spec(src, code_dir=code_dir)
+    bench = spec.bench
     os.makedirs(os.path.join(root, "benchmark", "configs"), exist_ok=True)
     os.makedirs(os.path.join(root, "benchmark", "traffic"), exist_ok=True)
+    families = {}
     for c in bench["configs"]:
-        cfg = _load(c["file"])
-        if cfg["family"] == "pyramid":
-            cfg["model"].update(TINY_MODEL)
-            cfg["train"].update(TINY_TRAIN)
-            cfg["scene"].update(TINY_SCENE)
-        with open(os.path.join(root, c["file"]), "w") as f:
-            json.dump(cfg, f)
+        cfg = spec.config(c["name"])
+        families[c["name"]] = fam = family(spec, cfg["family"])
+        _dump(fam.shrink_config(cfg), root, c["file"])
+    mixes = {}
     for w in bench["workloads"]:
-        t = _load("benchmark", "traffic", f"{w['traffic']}.json")
-        t = copy.deepcopy(t)
-        if t["kind"] == "view":
-            t.update(TINY_VIEW)
+        fam = families[w["config"]]
+        t = fam.shrink_traffic(copy.deepcopy(spec.traffic(w["traffic"])))
         t["trace_units"] = min(int(t["trace_units"]), 2)
-        t["limits"] = {k: TINY_LIMITS[k] for k in t["limits"]}
-        with open(os.path.join(root, "benchmark", "traffic",
-                               f"{w['traffic']}.json"), "w") as f:
-            json.dump(t, f)
-    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
-        json.dump(bench, f)
+        missing = set(t["limits"]) - set(fam.LIMITS)
+        if missing:
+            raise KeyError(f"{fam.__file__} defines no LIMITS for "
+                           f"{sorted(missing)} of mix {w['traffic']!r}")
+        t["limits"] = {k: fam.LIMITS[k] for k in t["limits"]}
+        if mixes.setdefault(w["traffic"], t) != t:
+            raise ValueError(f"mix {w['traffic']!r} shrinks differently "
+                             f"for the families of its cells")
+        _dump(t, root, "benchmark", "traffic", f"{w['traffic']}.json")
+    _dump(bench, root, "BENCHMARK.json")
     return root
