@@ -26,6 +26,7 @@ from ..ops.brick_encoder import (
 from ..ops.hash_encoder import build_layout, hash_encode, init_hash_table
 from ..ops.sh import sh_encode
 from ..ops.triplane import init_triplane_table, triplane_encode
+from ..utils import profiling
 from .mlp import MLPSpec, apply_mlp, init_mlp
 
 Params = Dict[str, Any]
@@ -92,6 +93,13 @@ def init_ngp_params(cfg: ModelConfig,
 
 
 def _encode_position(params: Params, cfg: ModelConfig, x01: torch.Tensor):
+    """The position encoding, inside the span ``ngp.encode`` (the encoders'
+    backwards open it again on the thread that runs them)."""
+    with profiling.span("ngp.encode"):
+        return _encode(params, cfg, x01)
+
+
+def _encode(params: Params, cfg: ModelConfig, x01: torch.Tensor):
     if cfg.pos_encoder_type == "hash":
         table = params["hash_table"]
         if cfg.grid.table_dtype == "bfloat16":

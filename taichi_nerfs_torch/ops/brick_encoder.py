@@ -16,23 +16,28 @@ unsigned; the port computes them in int64 with the hash encoder's
 
 The JAX ``custom_vjp`` becomes :class:`_BrickEncode`, whose backward returns
 only the table gradient (positions come from the marcher and carry none):
-per level a scatter-add (``index_add_``) of the weighted output cotangent
-into that level's rows, and for dense levels the transposed 8-shift add into
-the corner grid.  With ``table_dtype="bfloat16"`` the parameters are cast
-to bf16 inside the function (the gather reads bf16, the products widen to
-fp32) and the gradient stays fp32, as in the JAX code.  The corner
+a scatter-add (``index_add_``) of the weighted output cotangent into the
+rows, one for all hashed levels and one a dense level, and for dense levels
+the transposed 8-shift add into the corner grid.  Row indices and weights
+are computed for all levels at once (few launches a call: the step is
+short enough that the host's issue rate matters).  With
+``table_dtype="bfloat16"`` the parameters are cast to bf16 inside the
+function (the gather reads bf16, the products widen to fp32) and the
+gradient stays fp32, as in the JAX code.  The corner
 reduction is an fp32 sum over the corner axis, not a matmul.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from ..config import BrickGridConfig
+from ..utils import profiling
 from .hash_encoder import fast_hash, level_scales, linear_index
 from .math import as_u32
 
@@ -175,18 +180,27 @@ def _cell_and_weights(xyz: torch.Tensor, layout: BrickGridLayout):
     return g.to(torch.int32), _corner_weights(pos - g)
 
 
+@functools.lru_cache(maxsize=32)
+def _level_columns(layout: BrickGridLayout, device=None):
+    """Per level, on ``device``: resolution, hashed rows, first row and
+    whether the level is dense, each (L,) to broadcast over (M, L)."""
+
+    def col(vals, dtype=torch.int64):
+        return torch.tensor(vals, dtype=dtype, device=device)
+
+    return (col(layout.resolutions), col(layout.rows), col(layout.offsets),
+            col(layout.dense, torch.bool))
+
+
 def _row_indices(g: torch.Tensor, layout: BrickGridLayout) -> torch.Tensor:
-    """(M, L, 3) cell coords -> (M, L) int64 global brick rows."""
-    cols = []
-    for lv in range(layout.levels):
-        c = as_u32(g[:, lv, :])
-        res = layout.resolutions[lv]
-        if layout.dense[lv]:
-            idx = linear_index(c[:, 0], c[:, 1], c[:, 2], res)
-        else:
-            idx = fast_hash(c[:, 0], c[:, 1], c[:, 2]) % layout.rows[lv]
-        cols.append(idx + layout.offsets[lv])
-    return torch.stack(cols, dim=1)
+    """(M, L, 3) cell coords -> (M, L) int64 global brick rows: dense
+    levels the cell's linear index, hashed ones its hash mod the rows, all
+    levels at once."""
+    res, rows, offsets, dense = _level_columns(layout, g.device)
+    c = as_u32(g)
+    lin = linear_index(c[..., 0], c[..., 1], c[..., 2], res)
+    hashed = fast_hash(c[..., 0], c[..., 1], c[..., 2]) % rows
+    return torch.where(dense, lin, hashed) + offsets
 
 
 class _BrickEncode(torch.autograd.Function):
@@ -209,30 +223,35 @@ class _BrickEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        idx, xyz = ctx.saved_tensors
-        layout = ctx.layout
-        F, W = layout.F, layout.row_width
-        dev = dout.device
-        dcorners = torch.zeros((layout.n_corner_params, F),
-                               dtype=torch.float32, device=dev)
-        dbricks = torch.zeros((max(layout.hashed_rows, 1), W),
-                              dtype=torch.float32, device=dev)
-        scales = level_scales(layout).tolist()
-        hoff = 0
-        for lv in range(layout.levels):
-            n = layout.rows[lv]
+        with profiling.span("ngp.encode"):
+            idx, xyz = ctx.saved_tensors
+            layout = ctx.layout
+            M, L = xyz.shape[0], layout.levels
+            F, W = layout.F, layout.row_width
+            # the dense levels come first: resolutions grow with the level
+            nd = sum(layout.dense)
+            dev = dout.device
+            dcorners = torch.zeros((layout.n_corner_params, F),
+                                   dtype=torch.float32, device=dev)
+            dbricks = torch.zeros((max(layout.hashed_rows, 1), W),
+                                  dtype=torch.float32, device=dev)
             # the weights are recomputed from xyz, as the JAX backward does
-            pos = xyz * scales[lv] + 0.5
-            w8 = _corner_weights(pos - torch.floor(pos))  # (M, 8)
+            _, w8 = _cell_and_weights(xyz, layout)  # (M, L, 8)
             # rows are corner-major: d(row)[c*F + f] = dout[lv*F + f] w8[c]
-            dw = (w8[:, :, None] * dout[:, None, lv * F:(lv + 1) * F])
-            if layout.dense[lv]:
-                d_lv = torch.zeros((n, W), dtype=torch.float32, device=dev)
-                d_lv.index_add_(0, idx[:, lv] - layout.offsets[lv],
-                                dw.reshape(-1, W))
+            d4 = dout.reshape(M, L, 1, F)
+            if nd < L:
+                dbricks.index_add_(
+                    0, (idx[:, nd:] - layout.offsets[nd]).reshape(-1),
+                    (w8[:, nd:, :, None] * d4[:, nd:]).reshape(-1, W))
+            for lv in range(nd):
                 res = layout.resolutions[lv]
                 cres = layout.corner_res[lv]
                 coff = layout.corner_offsets[lv]
+                d_lv = torch.zeros((layout.rows[lv], W), dtype=torch.float32,
+                                   device=dev)
+                dw = w8[:, lv, :, None] * d4[:, lv]
+                d_lv.index_add_(0, idx[:, lv] - layout.offsets[lv],
+                                dw.reshape(-1, W))
                 db = d_lv.reshape(res, res, res, 8, F)
                 dc = dcorners[coff : coff + cres**3].view(cres, cres, cres, F)
                 ci = 0
@@ -242,11 +261,7 @@ class _BrickEncode(torch.autograd.Function):
                             dc[cz : cz + res, cy : cy + res,
                                cx : cx + res] += db[:, :, :, ci]
                             ci += 1
-            else:
-                dbricks[hoff : hoff + n].index_add_(
-                    0, idx[:, lv] - layout.offsets[lv], dw.reshape(-1, W))
-                hoff += n
-        return dcorners, dbricks, None, None
+            return dcorners, dbricks, None, None
 
 
 def brick_encode(params, xyz: torch.Tensor,

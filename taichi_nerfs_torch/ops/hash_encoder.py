@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..config import HashGridConfig
+from ..utils import profiling
 from .math import U32, as_u32, mul_u32
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -122,9 +123,11 @@ class _GatherBF16(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         F = g.shape[0]
-        acc = torch.zeros((F, ctx.n), dtype=torch.float32, device=g.device)
-        acc.index_add_(1, idx.reshape(-1), g.reshape(F, -1))
-        return acc.to(torch.bfloat16), None
+        with profiling.span("ngp.encode"):
+            acc = torch.zeros((F, ctx.n), dtype=torch.float32,
+                              device=g.device)
+            acc.index_add_(1, idx.reshape(-1), g.reshape(F, -1))
+            return acc.to(torch.bfloat16), None
 
 
 def fast_hash(cx: torch.Tensor, cy: torch.Tensor,

@@ -30,6 +30,7 @@ import torch
 from ..config import Config
 from ..models.occupancy import all_cells, mark_invisible_cells
 from ..render.serve import _require_fp32_matmul
+from ..utils import profiling
 from .state import TrainState, create_train_state
 from .step import Batch, density_grid_step, draw_step, train_step
 
@@ -161,19 +162,22 @@ class Trainer:
                           self.pack_cap, draws)
 
     def run_step(self):
-        _require_fp32_matmul()
-        cfg = self.cfg
-        if self.step % cfg.train.update_interval == 0:
-            warmup = self.step < cfg.train.warmup_steps
-            self.state = self._grid_step(warmup)
-            if not warmup:
-                self._cells = None
-            self._adapt_sample_cap()
-        draws = draw_step(cfg, self.data, self.generator)
-        self.state, metrics = self._train_step(draws)
-        self._pending_counts_max = metrics["counts_max"]
-        self._pending_rm_samples = metrics["rm_samples"]
-        self.step += 1
+        """One step (opening with the scheduled refresh), inside the span
+        ``ngp.step``."""
+        with profiling.span("ngp.step"):
+            _require_fp32_matmul()
+            cfg = self.cfg
+            if self.step % cfg.train.update_interval == 0:
+                warmup = self.step < cfg.train.warmup_steps
+                self.state = self._grid_step(warmup)
+                if not warmup:
+                    self._cells = None
+                self._adapt_sample_cap()
+            draws = draw_step(cfg, self.data, self.generator)
+            self.state, metrics = self._train_step(draws)
+            self._pending_counts_max = metrics["counts_max"]
+            self._pending_rm_samples = metrics["rm_samples"]
+            self.step += 1
         return metrics
 
     def fit(self, max_steps: Optional[int] = None, log_every: int = 1000):

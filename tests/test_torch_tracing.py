@@ -8,9 +8,16 @@ records ``swr.step`` over four spans that do not overlap (``swr.plan``,
 ``swr.adam``); the backward's ops, on the thread that runs them, lie
 inside ``swr.backward`` (``ngp.backward`` for the NGP step); a frame is
 one ``swr.frame`` with one ``swr.host_read`` a blocking read; a backward
-that raises or skips a leaf still closes its range.  The ``cuda``-marked
-test checks on the card that ``swr.backward`` is open on the thread that
-launches the sweep backward's kernel:
+that raises or skips a leaf still closes its range.  One NGP step of the
+default path (the brick encoder) records one ``ngp.step`` holding every
+other range of the step and all its ops, with ``ngp.encode`` in the
+field's forward (and the refresh's) and again in the brick backward,
+inside ``ngp.backward`` on its thread.  The ``cuda``-marked tests check on
+the card that ``swr.backward`` is open on the thread that launches the
+sweep backward's kernel, that the brick backward's ``ngp.encode`` is open
+on autograd's device thread where its kernels are launched, and that the
+kernels launched while ``ngp.step`` is open (on its thread or autograd's)
+take 99 % or more of the step's kernel time:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_tracing.py
@@ -28,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch_port_helpers import numpy_pyramid_params
 
 from taichi_nerfs_torch.config import (
+    BrickGridConfig,
     Config,
     HashGridConfig,
     ModelConfig,
@@ -62,14 +70,18 @@ def _swr_trainer(sphere, device="cpu"):
                           alphas=sphere.alphas, device=device)
 
 
-def _ngp_trainer():
-    """``tests/test_torch_ngp_e2e.py``'s tiny hash configuration."""
+def _ngp_trainer(encoder="hash", device="cpu"):
+    """``tests/test_torch_ngp_e2e.py``'s tiny configuration: the hash
+    encoder, or with ``encoder="brick"`` a 4-level brick grid (two dense
+    levels, two hashed) and bf16 MLP operands, the default path's."""
     model = ModelConfig(
-        scale=0.5, pos_encoder_type="hash",
+        scale=0.5, pos_encoder_type=encoder,
         grid=HashGridConfig(levels=4, feature_per_level=2, log2_T=11,
                             base_res=4, max_res=32),
+        brick=BrickGridConfig(levels=4, feature_per_level=4, log2_rows=10,
+                              base_res=4, max_res=32),
         grid_size=32, xyz_net_width=16, rgb_net_width=16,
-        mlp_dtype="float32")
+        mlp_dtype="float32" if encoder == "hash" else "bfloat16")
     cfg = Config(model=model,
                  render=RenderConfig(exp_step_factor=0.0,
                                      train_sample_cap=256,
@@ -77,8 +89,8 @@ def _ngp_trainer():
                  train=TrainConfig(batch_size=256, max_steps=20,
                                    warmup_steps=4, update_interval=8))
     scene = SyntheticSphereDataset(n_images=4, img_wh=(24, 24))
-    return Trainer(cfg, scene.as_batch(), scene.K, scene.img_wh,
-                   log_fn=lambda *_: None)
+    return Trainer(cfg, scene.as_batch(device), scene.K, scene.img_wh,
+                   log_fn=lambda *_: None, device=device)
 
 
 def _renderer(deferred: bool):
@@ -168,7 +180,7 @@ def _off_backward_span():
 
 
 @pytest.mark.parametrize("case", ["span", "backward_span", "pyramid_step",
-                                  "ngp_step", "frame"])
+                                  "ngp_step", "ngp_brick_step", "frame"])
 def test_no_profiler_enters_no_range_and_no_hook(case, sphere, no_entry):
     assert not torch.autograd._profiler_enabled()
     if case == "span":
@@ -179,6 +191,8 @@ def test_no_profiler_enters_no_range_and_no_hook(case, sphere, no_entry):
         assert np.isfinite(float(_swr_trainer(sphere).run_step()["loss"]))
     elif case == "ngp_step":
         assert np.isfinite(float(_ngp_trainer().run_step()["loss"]))
+    elif case == "ngp_brick_step":
+        assert np.isfinite(float(_ngp_trainer("brick").run_step()["loss"]))
     else:
         out = _renderer(True).render(_pose(), early_exit=1e-2)
         assert torch.isfinite(out["rgb"]).all()
@@ -205,6 +219,54 @@ def test_pyramid_step_spans(sphere, tmp_path):
                  "swr.shade"):
         rs = _ranges(ev, name)
         assert rs and all(_within(r, fwd) for r in rs), name
+
+
+def _same_thread(inner, outer):
+    return _within(inner, outer) and inner[2] == outer[2]
+
+
+def _top_level_ops(events):
+    """``(start, end, tid)`` of the ops no other op on their thread
+    encloses."""
+    evs = sorted((e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+                 if e.get("cat") == "cpu_op")
+    out, ends = [], {}
+    for a, b, tid in evs:
+        if a >= ends.get(tid, -1.0):
+            out.append((a, b, tid))
+            ends[tid] = b
+    return out
+
+
+@pytest.mark.parametrize("refresh", [False, True], ids=["step", "refresh"])
+def test_ngp_step_spans(refresh, tmp_path):
+    """One brick step (and one that opens with a refresh): one ``ngp.step``
+    holding every range and op of the call; ``ngp.encode`` in the field's
+    forward (and the refresh's), and in the backward on its thread."""
+    trainer = _ngp_trainer("brick")
+    trainer.run_step()  # the first step builds what later steps reuse
+    while (trainer.step % trainer.cfg.train.update_interval == 0) != refresh:
+        trainer.run_step()
+    ev = _traced(trainer.run_step, tmp_path)
+    (step,) = _ranges(ev, "ngp.step")
+    names = {e["name"] for e in ev if e.get("cat") == "user_annotation"}
+    assert {"ngp.march", "ngp.field", "ngp.encode", "ngp.backward",
+            "ngp.adam"} <= names
+    assert ("ngp.grid" in names) == refresh
+    for name in names - {"ngp.step"}:
+        assert all(_within(r, step) for r in _ranges(ev, name)), name
+    (field,) = _ranges(ev, "ngp.field")
+    (bwd,) = _ranges(ev, "ngp.backward")
+    encodes = _ranges(ev, "ngp.encode")
+    assert sum(_same_thread(r, field) for r in encodes) == 1
+    assert sum(_same_thread(r, bwd) for r in encodes) == 1
+    if refresh:
+        (grid,) = _ranges(ev, "ngp.grid")
+        assert sum(_same_thread(r, grid) for r in encodes) == 1
+    assert len(encodes) == 2 + refresh
+    ops = _top_level_ops(ev)
+    inside = sum(b - a for a, b, _ in ops if step[0] <= a <= step[1])
+    assert inside >= 0.99 * sum(b - a for a, b, _ in ops)
 
 
 def _backward_ops(ev, rng):
@@ -331,3 +393,34 @@ def test_backward_span_shares_the_sweep_backward_thread(cuda_device, sphere,
         launch = launches[k["args"]["correlation"]]
         assert launch["tid"] == rng[2] != step[2]
         assert rng[0] <= launch["ts"] <= rng[1]
+
+
+@pytest.mark.cuda
+def test_ngp_backward_encode_on_autograd_thread(cuda_device, tmp_path):
+    """On the card the brick backward's ``ngp.encode`` is open on autograd's
+    device thread, with its kernels launched inside it; the kernels launched
+    while ``ngp.step`` is open, on either thread, take 99 % or more of the
+    step's kernel time."""
+    trainer = _ngp_trainer("brick", cuda_device)
+    trainer.run_step()
+    ev = _traced(trainer.run_step, tmp_path, cuda=True)
+    (step,) = _ranges(ev, "ngp.step")
+    (bwd,) = _ranges(ev, "ngp.backward")
+    (encode,) = [r for r in _ranges(ev, "ngp.encode")
+                 if _same_thread(r, bwd)]
+    assert bwd[2] != step[2]
+    launches = {e["args"]["correlation"]: e for e in ev
+                if e.get("cat", "").startswith("cuda_")
+                and "correlation" in e.get("args", {})}
+    under = total = 0.0
+    in_encode = 0
+    for k in (e for e in ev if e.get("cat") == "kernel"):
+        total += k["dur"]
+        launch = launches.get(k["args"].get("correlation"))
+        if launch is None:
+            continue
+        ts, tid = launch["ts"], launch["tid"]
+        in_encode += encode[0] <= ts <= encode[1] and tid == encode[2]
+        under += k["dur"] if step[0] <= ts <= step[1] else 0.0
+    assert in_encode > 0
+    assert under >= 0.99 * total
