@@ -21,7 +21,14 @@ phases:
    each time beside its bound and its share of it; the final band warp
    (``swr_band_warp``) against its plain version at the served lattices
    (nq 816 and 336, 800x800, 9 and 10 channels, both warp modes, fp32 and
-   bf16 operands), timed the same way;
+   bf16 operands), timed the same way; the brick encoder's gather and
+   scatter (``brick_encode_fwd`` / ``_bwd``) against
+   ``brick_encode_reference`` at the NGP cell's layout (8 x 4, 2^17 rows;
+   fp32 and bf16 tables) on ~274 K positions along rays through the lego
+   proxy's surface and a 1 M-point refresh batch (features within 1e-6,
+   table gradients within 1e-5 of their largest entry, a second run's
+   gradient beside it), timed the same way beside the encoder's bound
+   (``benchmark/counts/ngp.py:encode_bound``) and the plain version;
 4. serve: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
    uncapped, with cubic resampling; the outputs are checked, the forward
    kernel's launch count during those frames must be > 0 and the band
@@ -92,8 +99,9 @@ phases:
    4,096 rays runs on the card and on the CPU from identical params,
    bitfield and draws (equal counts on >= 99.9 % of rays, rgb within
    2e-2); ``render_image`` renders an 800x800 test view (finite, opacity in
-   [0, 1]); 3 steady steps run under ``torch.profiler``.  This path has no
-   hand-written kernel (the JAX package has no TPU kernel on it);
+   [0, 1]); 3 steady steps run under ``torch.profiler``.  The brick
+   encoder's kernels must launch in every step (the JAX package has no TPU
+   kernel on this path);
 14. ngp_models: the tri-plane encoder (``config_for_scene(0.5,
    pos_encoder_type="triplane")``, the default ``TriPlaneConfig``: a
    3 x 1024^2 x 4 table) and the svox voxel grid (``--grid_size 256
@@ -749,6 +757,148 @@ def phase_warp(torch):
                         res[tag] = dict(warm=warm, cold=cold, plain=plain,
                                         bound=bound, by=by, max_abs=err)
             del args
+    return res
+
+
+# the brick encoder phase: rays through the lego proxy's surface, samples
+# a ray and their spacing (the NGP cell's ~274 K samples a step, ~33.5 a
+# ray, 1/256 of the camera distance apart); the refresh batch; the limits
+# of the kernels against brick_encode_reference: features (the 8-corner sum
+# in another order) and each table gradient's largest difference over its
+# largest entry (sums in another order, by atomics)
+BRICK_RAYS, BRICK_RAY_SAMPLES, BRICK_DT = 8192, 34, 1.2 / 256
+BRICK_SAMPLES, BRICK_REFRESH = 274_000, 1 << 20
+BRICK_FEATURE_TOL, BRICK_GRAD_TOL = 1e-6, 1e-5
+
+
+def _shell_positions(torch, seed):
+    """``BRICK_SAMPLES`` positions in [0, 1]^3 (the NGP cell's scale 0.5):
+    rays of ``BRICK_RAY_SAMPLES`` samples, each centred on a point of the
+    lego proxy's surface (density between 0.5 and 59.5 of its 60) and
+    pointing from an eye on the rig's 1.2 sphere, consecutive as the
+    marcher packs them."""
+    from taichi_nerfs_torch.data.synthetic import lego_density
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pts = []
+    while sum(len(p) for p in pts) < BRICK_RAYS:
+        x = torch.rand((1 << 20, 3), generator=gen, device="cuda") - 0.5
+        sig = lego_density(x)
+        pts.append(x[(sig > 0.5) & (sig < 59.5)])
+    centre = torch.cat(pts)[:BRICK_RAYS]
+    eye = torch.randn((BRICK_RAYS, 3), generator=gen, device="cuda")
+    eye = 1.2 * eye / torch.linalg.norm(eye, dim=1, keepdim=True)
+    d = centre - eye
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    k = torch.arange(BRICK_RAY_SAMPLES, device="cuda") - BRICK_RAY_SAMPLES // 2
+    x = centre[:, None] + (k[None, :, None] * BRICK_DT) * d[:, None]
+    # as the encoder clamps them (a ray's ends may leave the cube)
+    return torch.clamp(x.reshape(-1, 3)[:BRICK_SAMPLES] + 0.5, 0.0, 1.0)
+
+
+def phase_brick_encode(torch):
+    """The brick encoder's kernels against ``brick_encode_reference`` at the
+    NGP cell's layout, fp32 and bf16 tables: the training step's samples
+    (forward, gradients, a second run's gradients) and a refresh batch
+    (forward), each timed warm and cold beside the plain version's time and
+    the encoder's bound (``encode_bound``: the forward's, and the step's
+    forward and backward together against the two kernels' sum)."""
+    import dataclasses
+
+    from benchmark.counts.ngp import encode_bound
+    from benchmark.reference.ngp import BrickGeometry
+    from taichi_nerfs_torch.config import BrickGridConfig
+    from taichi_nerfs_torch.ops import brick_encoder as tb
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    ops = torch.ops.taichi_nerfs_torch
+    cfg = BrickGridConfig()
+    geo = BrickGeometry.of(dataclasses.asdict(cfg))
+    shell = _shell_positions(torch, 21)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    refresh = torch.rand((BRICK_REFRESH, 3), generator=g, device="cuda")
+    keys = ("corners", "bricks")
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        layout = tb.build_brick_layout(
+            dataclasses.replace(cfg, table_dtype=dtype))
+        params = {k: v.cuda() for k, v in tb.init_brick_params(
+            layout, torch.Generator().manual_seed(23)).items()}
+        levels = tb._kernel_levels(layout)
+        rows = [params[k].shape[0] for k in keys]
+        for label, xyz in (("step", shell), ("refresh", refresh)):
+            tag = f"{label} M={xyz.shape[0]} {dtype}"
+            step = label == "step"
+            dout = torch.randn((xyz.shape[0], layout.out_dim), generator=g,
+                               device="cuda")
+
+            def fwd():
+                return ops.brick_encode_fwd(params["corners"],
+                                            params["bricks"], xyz, *levels,
+                                            dtype == "bfloat16")
+
+            def bwd():
+                return ops.brick_encode_bwd(dout, xyz, *rows, *levels)
+
+            leaves = {k: v.clone().requires_grad_() for k, v in
+                      params.items()}
+            n = tb.brick_encode.launches
+            out = tb.brick_encode(leaves, xyz, layout)
+            want = tb.brick_encode_reference(leaves, xyz, layout)
+            r = {"max_abs": float((out - want).abs().max().detach())}
+            ok = r["max_abs"] <= BRICK_FEATURE_TOL
+            line = (f"kernel brick_encode {tag}: features max_abs="
+                    f"{r['max_abs']:.3e} (limit {BRICK_FEATURE_TOL:.0e})")
+            if step:
+                got = torch.autograd.grad(torch.sum(out * dout),
+                                          [leaves[k] for k in keys])
+                ref = torch.autograd.grad(torch.sum(want * dout),
+                                          [leaves[k] for k in keys])
+                for k, a, b, c in zip(keys, got, ref, bwd()):
+                    top = float(b.abs().max())
+                    r[f"d{k}_rel"] = float((a - b).abs().max()) / top
+                    r[f"d{k}_rerun_rel"] = float((a - c).abs().max()) / top
+                    ok = ok and r[f"d{k}_rel"] <= BRICK_GRAD_TOL
+                    line += (f"; d{k} rel={r[f'd{k}_rel']:.3e} (limit "
+                             f"{BRICK_GRAD_TOL:.0e}), second run "
+                             f"{r[f'd{k}_rerun_rel']:.3e}")
+            torch.cuda.synchronize()
+            # the forward, and in a step the backward and its second run
+            launched = tb.brick_encode.launches - n
+            ok = ok and launched == (3 if step else 1)
+            print(f"{line}; {launched} launches {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"brick_encode {tag}: {r}, {launched} "
+                                     f"launches")
+            del out, want, leaves
+            _, idx = tb._plain_forward(params["corners"], params["bricks"],
+                                       xyz, layout)
+            parts = [("fwd", fwd, lambda: tb._plain_forward(
+                params["corners"], params["bricks"], xyz, layout))]
+            if step:
+                parts.append(("bwd", bwd, lambda: tb._plain_backward(
+                    idx, xyz, dout, layout)))
+            for part, kern, plain in parts:
+                r[part] = dict(warm=_time_ms(torch, kern, 20),
+                               cold=_time_ms(torch, kern, 20, flush),
+                               plain=_time_ms(torch, plain, 5))
+                print(f"  time {tag} {part}: kernel warm "
+                      f"{r[part]['warm']:.4f} ms, cold "
+                      f"{r[part]['cold']:.4f} ms; plain "
+                      f"{r[part]['plain']:.4f} ms (medians, CUDA events)",
+                      flush=True)
+            bound, by, nbytes, _ = encode_bound(xyz, geo, backward=step)
+            warm = sum(r[p]["warm"] for p, _, _ in parts)
+            cold = sum(r[p]["cold"] for p, _, _ in parts)
+            print(f"  bound {tag} ({'+'.join(p for p, _, _ in parts)}): "
+                  f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB), share "
+                  f"warm {bound / warm:.1%}, cold {bound / cold:.1%}",
+                  flush=True)
+            r.update(bound=bound, by=by, share_warm=bound / warm,
+                     share_cold=bound / cold)
+            res[tag] = r
+            del dout, idx
     return res
 
 
@@ -2548,6 +2698,9 @@ def phase_ngp(torch, seed):
           f"{cfg.model.brick.feature_per_level}, batch "
           f"{cfg.train.batch_size}", flush=True)
 
+    from taichi_nerfs_torch.ops.brick_encoder import brick_encode
+
+    launches0 = brick_encode.launches
     losses, step_ms = [], []
     for i in range(NGP_STEPS):
         t0 = time.perf_counter()
@@ -2562,6 +2715,13 @@ def phase_ngp(torch, seed):
                   f" {step_ms[-1]:.2f} ms", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"ngp: non-finite loss: {losses}")
+    # each step's gather and scatter, and the refreshes' gathers
+    brick_launches = brick_encode.launches - launches0
+    print(f"ngp: brick_encode launches over {NGP_STEPS} steps: "
+          f"{brick_launches}", flush=True)
+    if brick_launches < 2 * NGP_STEPS:
+        raise AssertionError(f"ngp: {brick_launches} brick_encode launches "
+                             f"in {NGP_STEPS} steps")
     last = float(np.mean(losses[-16:]))
     print(f"ngp: loss first {losses[0]:.6f}, mean of the last 16 {last:.6f} "
           f"(ratio {last / losses[0]:.4f}, must be < {NGP_LOSS_FALL})",
@@ -2613,7 +2773,7 @@ def phase_ngp(torch, seed):
     busy = _profile_ngp_steps(torch, "ngp", trainer)
     return {"warm_ms": warm, "steady_ms": steady, "frame_ms": frame_ms[1],
             "busy": busy, "occupied": occ, "trainer": trainer,
-            "test": test}
+            "test": test, "brick_launches": brick_launches}
 
 
 # the ngp_models phase: the tri-plane encoder at the default TriPlaneConfig
@@ -4168,6 +4328,7 @@ def main(argv=None):
     worst, timing = phase_kernels(torch)
     worst_bwd, bwd_timing = phase_bwd_kernels(torch)
     warp_timing = phase_warp(torch)
+    brick_timing = phase_brick_encode(torch)
     serve_launches, serve_warps, frame_ms = phase_slice(
         torch, args.ckpt_path, args.seed)
     print(f"slice: 800x800 cubic frame median: capped "
@@ -4206,6 +4367,8 @@ def main(argv=None):
     inside = phase_inside(torch, args.seed, card)
     files = phase_files(torch, args.seed, card)
     ngp = phase_ngp(torch, args.seed)
+    ngp_launches = ngp["brick_launches"]
+    brick_step = brick_timing[f"step M={BRICK_SAMPLES} float32"]
     print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
           f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
           f"{ngp['frame_ms']:.2f} ms, device busy "
@@ -4378,6 +4541,23 @@ def main(argv=None):
         "ms_by_shape": {k: {m: t[m] for m in ("warm", "cold", "bound",
                                               "plain")}
                         for k, t in sorted(warp_timing.items())},
+    }, {
+        "name": "brick_encode",
+        "route": "cuda",
+        "source": "taichi_nerfs_torch/csrc/brick_encode.cu",
+        "replaces": None,  # the JAX package's brick encoder is XLA ops
+        "launches": ngp_launches,
+        "launches_by_path": {"train_ngp": ngp_launches},
+        "max_abs_err": max(t["max_abs"] for t in brick_timing.values()),
+        # the NGP cell's step: forward and backward, fp32 table, warm
+        "ms": brick_step["fwd"]["warm"] + brick_step["bwd"]["warm"],
+        "plain_ms": brick_step["fwd"]["plain"] + brick_step["bwd"]["plain"],
+        "bound_ms": brick_step["bound"],
+        "bound_by": brick_step["by"],
+        "library_ms": None,  # no single PyTorch call computes the encoder
+        "ms_by_shape": {k: {p: t[p] for p in ("fwd", "bwd", "bound",
+                                              "share_warm") if p in t}
+                        for k, t in sorted(brick_timing.items())},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

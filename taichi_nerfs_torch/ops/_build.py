@@ -119,11 +119,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def entry(name: str, argtypes: tuple):
-    """The C entry ``name`` of ``csrc/<name>.cu`` (built and loaded if
-    needed): it returns a CUDA error code and takes ``argtypes``, then the
-    stream."""
-    fn = getattr(load(name), name)
+def entry(name: str, argtypes: tuple, symbol: str | None = None):
+    """The C entry ``symbol`` (default ``name``) of ``csrc/<name>.cu``
+    (built and loaded if needed): it returns a CUDA error code and takes
+    ``argtypes``, then the stream."""
+    fn = getattr(load(name), symbol or name)
     fn.restype = ctypes.c_int
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     return fn

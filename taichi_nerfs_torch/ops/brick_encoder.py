@@ -4,31 +4,41 @@ Port of the JAX package's ``ops/brick_encoder.py``.  One flat table of
 ``(n_rows, 8F)`` rows, each the full 2x2x2xF corner block of one cell:
 
 * dense levels (``res^3 <= 2**log2_rows``) keep a shared-corner grid
-  ``(res+1)^3 x F`` as parameters; their bricks are materialised from it by
-  8 shifted slices every call, and the gradient comes back through the
-  transposed shifts;
+  ``(res+1)^3 x F`` as parameters;
 * hashed levels keep brick rows as parameters, keyed by ``fast_hash(cell)
   % rows``.
 
-uint32 arithmetic: the hash multiplies wrap mod 2**32 and the modulo is
-unsigned; the port computes them in int64 with the hash encoder's
-:func:`~taichi_nerfs_torch.ops.hash_encoder.fast_hash`, bit-equal to JAX.
-
 The JAX ``custom_vjp`` becomes :class:`_BrickEncode`, whose backward returns
-only the table gradient (positions come from the marcher and carry none):
-a scatter-add (``index_add_``) of the weighted output cotangent into the
-rows, one for all hashed levels and one a dense level, and for dense levels
-the transposed 8-shift add into the corner grid.  Row indices and weights
-are computed for all levels at once (few launches a call: the step is
-short enough that the host's issue rate matters).  With
-``table_dtype="bfloat16"`` the parameters are cast to bf16 inside the
-function (the gather reads bf16, the products widen to fp32) and the
-gradient stays fp32, as in the JAX code.  The corner
-reduction is an fp32 sum over the corner axis, not a matmul.
+only the table gradient (positions come from the marcher and carry none).
+With ``table_dtype="bfloat16"`` the table is read as bf16 (the products
+widen to fp32) and the gradient stays fp32, as in the JAX code.
+
+Two implementations of the one function:
+
+* CUDA positions run the hand-written kernels of ``csrc/brick_encode.cu``
+  (operators ``taichi_nerfs_torch::brick_encode_fwd`` / ``_bwd``): one
+  gather a call, which reads the dense levels' corner grids and the hashed
+  rows where they lie, and one scatter of the gradient straight back into
+  them.  They take F in :data:`KERNEL_F` and up to :data:`MAX_LEVELS`
+  levels, and raise on anything else: there is no fallback.
+* CPU positions, and :func:`brick_encode_reference` on any device, run the
+  plain version: the dense levels' bricks materialised by 8 shifted slices
+  every call, the whole table gathered, and a backward of ``index_add_``
+  scatters (one for all hashed levels, one a dense level) with the
+  transposed 8-shift add into each corner grid.  Row indices and weights
+  are computed for all levels at once; uint32 arithmetic (the hash
+  multiplies wrap mod 2**32, the modulo is unsigned) is computed in int64
+  with the hash encoder's
+  :func:`~taichi_nerfs_torch.ops.hash_encoder.fast_hash`, bit-equal to JAX.
+  The corner reduction is an fp32 sum over the corner axis, not a matmul.
+
+Both compute the cells and weights in the same fp32 roundings; they differ
+in the order of the 8-corner sum and of the gradient's sums.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import List, Tuple
@@ -38,6 +48,7 @@ import torch
 
 from ..config import BrickGridConfig
 from ..utils import profiling
+from ._build import LIB, entry, launch
 from .hash_encoder import fast_hash, level_scales, linear_index
 from .math import as_u32
 
@@ -203,72 +214,282 @@ def _row_indices(g: torch.Tensor, layout: BrickGridLayout) -> torch.Tensor:
     return torch.where(dense, lin, hashed) + offsets
 
 
-class _BrickEncode(torch.autograd.Function):
-    """(corners, bricks, xyz in [0, 1]^3 (M, 3)) -> (M, L * F)."""
+def _plain_forward(corners, bricks, xyz, layout: BrickGridLayout):
+    """The plain forward: (M, L F) features and the (M, L) int64 global
+    rows they were gathered from."""
+    M = xyz.shape[0]
+    L, F = layout.levels, layout.F
+    if layout.table_dtype == "bfloat16":
+        corners, bricks = corners.bfloat16(), bricks.bfloat16()
+    table = _full_brick_table(corners, bricks, layout)
+    g, w8 = _cell_and_weights(xyz, layout)
+    idx = _row_indices(g, layout)  # (M, L)
+    rows = table[idx.reshape(-1)].reshape(M * L, 8, F)
+    feats = torch.sum(rows * w8.reshape(M * L, 8, 1), dim=1)
+    return feats.reshape(M, L * F), idx
+
+
+def _plain_backward(idx, xyz, dout, layout: BrickGridLayout):
+    """The plain table gradient ``(dcorners, dbricks)`` of the rows ``idx``
+    that the forward gathered for positions ``xyz``."""
+    M, L = xyz.shape[0], layout.levels
+    F, W = layout.F, layout.row_width
+    # the dense levels come first: resolutions grow with the level
+    nd = sum(layout.dense)
+    dev = dout.device
+    dcorners = torch.zeros((layout.n_corner_params, F), dtype=torch.float32,
+                           device=dev)
+    dbricks = torch.zeros((max(layout.hashed_rows, 1), W),
+                          dtype=torch.float32, device=dev)
+    # the weights are recomputed from xyz, as the JAX backward does
+    _, w8 = _cell_and_weights(xyz, layout)  # (M, L, 8)
+    # rows are corner-major: d(row)[c*F + f] = dout[lv*F + f] w8[c]
+    d4 = dout.reshape(M, L, 1, F)
+    if nd < L:
+        dbricks.index_add_(
+            0, (idx[:, nd:] - layout.offsets[nd]).reshape(-1),
+            (w8[:, nd:, :, None] * d4[:, nd:]).reshape(-1, W))
+    for lv in range(nd):
+        res = layout.resolutions[lv]
+        cres = layout.corner_res[lv]
+        coff = layout.corner_offsets[lv]
+        d_lv = torch.zeros((layout.rows[lv], W), dtype=torch.float32,
+                           device=dev)
+        dw = w8[:, lv, :, None] * d4[:, lv]
+        d_lv.index_add_(0, idx[:, lv] - layout.offsets[lv],
+                        dw.reshape(-1, W))
+        db = d_lv.reshape(res, res, res, 8, F)
+        dc = dcorners[coff : coff + cres**3].view(cres, cres, cres, F)
+        ci = 0
+        for cz in (0, 1):
+            for cy in (0, 1):
+                for cx in (0, 1):
+                    dc[cz : cz + res, cy : cy + res,
+                       cx : cx + res] += db[:, :, :, ci]
+                    ci += 1
+    return dcorners, dbricks
+
+
+class _BrickEncodeReference(torch.autograd.Function):
+    """The plain encoder on any device: (corners, bricks, xyz in [0, 1]^3
+    (M, 3)) -> (M, L * F)."""
 
     @staticmethod
     def forward(ctx, corners, bricks, xyz, layout):
-        M = xyz.shape[0]
-        L, F = layout.levels, layout.F
-        if layout.table_dtype == "bfloat16":
-            corners, bricks = corners.bfloat16(), bricks.bfloat16()
-        table = _full_brick_table(corners, bricks, layout)
-        g, w8 = _cell_and_weights(xyz, layout)
-        idx = _row_indices(g, layout)  # (M, L)
-        rows = table[idx.reshape(-1)].reshape(M * L, 8, F)
-        feats = torch.sum(rows * w8.reshape(M * L, 8, 1), dim=1)
+        feats, idx = _plain_forward(corners, bricks, xyz, layout)
         ctx.save_for_backward(idx, xyz)
         ctx.layout = layout
-        return feats.reshape(M, L * F)
+        return feats
+
+    @staticmethod
+    def backward(ctx, dout):
+        idx, xyz = ctx.saved_tensors
+        return (*_plain_backward(idx, xyz, dout, ctx.layout), None, None)
+
+
+# ---- the kernels (csrc/brick_encode.cu) ----------------------------------
+
+# the feature widths the kernels are built for, and the most levels a block
+# holds (one warp a level)
+KERNEL_F = (1, 2, 4, 8)
+MAX_LEVELS = 16
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_levels(layout: BrickGridLayout):
+    """The layout as the kernels take it: the fp32 scale of each level and,
+    per level, (cells a side, hashed rows or 0 for a dense level, its first
+    corner entry or brick row)."""
+    info, hoff = [], 0
+    for lv in range(layout.levels):
+        if layout.dense[lv]:
+            info += [layout.resolutions[lv], 0, layout.corner_offsets[lv]]
+        else:
+            info += [layout.resolutions[lv], layout.rows[lv], hoff]
+            hoff += layout.rows[lv]
+    return tuple(level_scales(layout).tolist()), tuple(info)
+
+
+@functools.lru_cache(maxsize=32)
+def _c_levels(scales, info):
+    """The level table as C arrays (cached: a step passes the same one)."""
+    return ((ctypes.c_float * len(scales))(*scales),
+            (ctypes.c_longlong * len(info))(*info))
+
+
+def _check_kernel_args(corners, bricks, xyz, feats, scales, info):
+    """Raise unless the kernels take these: ``feats`` is the (M, L F)
+    output (forward) or its cotangent (backward)."""
+    L = len(scales)
+    if not 1 <= L <= MAX_LEVELS or len(info) != 3 * L:
+        raise ValueError(f"no brick-encode kernel for {L} levels (1 to "
+                         f"{MAX_LEVELS}, 3 numbers each in info)")
+    F = corners.shape[-1]
+    if F not in KERNEL_F:
+        raise ValueError(f"no brick-encode kernel for F={F} (built for "
+                         f"{KERNEL_F})")
+    M = xyz.shape[0]
+    for name, t, shape in (("corners", corners, (corners.shape[0], F)),
+                           ("bricks", bricks, (bricks.shape[0], 8 * F)),
+                           ("xyz", xyz, (M, 3)),
+                           ("features", feats, (M, L * F))):
+        if t.dim() != 2 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != xyz.device:
+            raise ValueError(f"{name} is on {t.device}, xyz on {xyz.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the brick-encode kernels "
+                            "take float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for lv in range(L):
+        res, rows, start = info[3 * lv : 3 * lv + 3]
+        end, have = ((start + (res + 1) ** 3, corners.shape[0]) if rows == 0
+                     else (start + rows, bricks.shape[0]))
+        if res < 1 or rows < 0 or start < 0 or end > have:
+            raise ValueError(f"level {lv} ({res}, {rows}, {start}) does not "
+                             f"fit the tables")
+
+
+def _launch(name, *args):
+    fn = entry("brick_encode", _ARGTYPES[name], name)
+    dev = args[0].device
+    ptrs = [t.data_ptr() for t in args[:4]]
+    launch("brick_encode", fn, dev, *ptrs, *args[4:])
+    brick_encode.launches += 1
+
+
+# pointers (xyz, corners, bricks, out) / (dout, xyz, dcorners, dbricks),
+# then M, L, F (and bf16, forward), then the level table
+_ARGTYPES = {
+    "brick_encode_fwd": ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+                         + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2),
+    "brick_encode_bwd": ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+                         + (ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 2),
+}
+
+LIB.define(
+    "brick_encode_fwd(Tensor corners, Tensor bricks, Tensor xyz, "
+    "float[] scales, int[] info, bool bf16) -> Tensor")
+LIB.define(
+    "brick_encode_bwd(Tensor dout, Tensor xyz, int n_corners, int n_bricks, "
+    "float[] scales, int[] info) -> (Tensor, Tensor)")
+
+
+def _fwd_op(corners, bricks, xyz, scales, info, bf16):
+    out = xyz.new_empty((xyz.shape[0], len(scales) * corners.shape[1]))
+    _check_kernel_args(corners, bricks, xyz, out, scales, info)
+    # the kernel reads the tables in 16-byte vectors
+    if corners.data_ptr() % 16 or bricks.data_ptr() % 16:
+        raise ValueError("the brick-encode kernel reads corners and bricks "
+                         "16-byte aligned")
+    if xyz.shape[0]:
+        c_scales, c_info = _c_levels(tuple(scales), tuple(info))
+        _launch("brick_encode_fwd", xyz, corners, bricks, out, xyz.shape[0],
+                len(scales), corners.shape[1], int(bf16),
+                ctypes.addressof(c_scales), ctypes.addressof(c_info))
+    return out
+
+
+def _table_grads(dout, n_corners, n_bricks, scales, empty=torch.zeros):
+    """The (n_corners, F) and (n_bricks, 8F) fp32 table gradients."""
+    F = dout.shape[1] // max(len(scales), 1)
+    return (empty((n_corners, F), dtype=torch.float32, device=dout.device),
+            empty((n_bricks, 8 * F), dtype=torch.float32, device=dout.device))
+
+
+def _bwd_op(dout, xyz, n_corners, n_bricks, scales, info):
+    dcorners, dbricks = _table_grads(dout, n_corners, n_bricks, scales)
+    _check_kernel_args(dcorners, dbricks, xyz, dout, scales, info)
+    if xyz.shape[0]:
+        c_scales, c_info = _c_levels(tuple(scales), tuple(info))
+        _launch("brick_encode_bwd", dout, xyz, dcorners, dbricks,
+                xyz.shape[0], len(scales), dcorners.shape[1],
+                ctypes.addressof(c_scales), ctypes.addressof(c_info))
+    return dcorners, dbricks
+
+
+@torch.library.register_fake("taichi_nerfs_torch::brick_encode_fwd",
+                             lib=LIB)
+def _(corners, bricks, xyz, scales, info, bf16):
+    out = xyz.new_empty((xyz.shape[0], len(scales) * corners.shape[1]))
+    _check_kernel_args(corners, bricks, xyz, out, scales, info)
+    return out
+
+
+@torch.library.register_fake("taichi_nerfs_torch::brick_encode_bwd",
+                             lib=LIB)
+def _(dout, xyz, n_corners, n_bricks, scales, info):
+    dcorners, dbricks = _table_grads(dout, n_corners, n_bricks, scales,
+                                     torch.empty)
+    _check_kernel_args(dcorners, dbricks, xyz, dout, scales, info)
+    return dcorners, dbricks
+
+
+LIB.impl("brick_encode_fwd", _fwd_op, "CUDA")
+LIB.impl("brick_encode_bwd", _bwd_op, "CUDA")
+
+
+class _BrickEncode(torch.autograd.Function):
+    """(corners, bricks, xyz in [0, 1]^3 (M, 3)) -> (M, L * F): the kernels
+    on CUDA tensors, the plain version on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, corners, bricks, xyz, layout):
+        if xyz.device.type == "cpu":
+            return _BrickEncodeReference.forward(ctx, corners, bricks, xyz,
+                                                 layout)
+        if xyz.device.type != "cuda":
+            raise ValueError(f"no brick-encode kernel for device "
+                             f"{xyz.device}")
+        # the cells and weights are recomputed from xyz in the backward
+        ctx.save_for_backward(xyz)
+        ctx.layout = layout
+        ctx.table_rows = (corners.shape[0], bricks.shape[0])
+        return torch.ops.taichi_nerfs_torch.brick_encode_fwd(
+            corners, bricks, xyz, *_kernel_levels(layout),
+            layout.table_dtype == "bfloat16")
 
     @staticmethod
     def backward(ctx, dout):
         with profiling.span("ngp.encode"):
-            idx, xyz = ctx.saved_tensors
-            layout = ctx.layout
-            M, L = xyz.shape[0], layout.levels
-            F, W = layout.F, layout.row_width
-            # the dense levels come first: resolutions grow with the level
-            nd = sum(layout.dense)
-            dev = dout.device
-            dcorners = torch.zeros((layout.n_corner_params, F),
-                                   dtype=torch.float32, device=dev)
-            dbricks = torch.zeros((max(layout.hashed_rows, 1), W),
-                                  dtype=torch.float32, device=dev)
-            # the weights are recomputed from xyz, as the JAX backward does
-            _, w8 = _cell_and_weights(xyz, layout)  # (M, L, 8)
-            # rows are corner-major: d(row)[c*F + f] = dout[lv*F + f] w8[c]
-            d4 = dout.reshape(M, L, 1, F)
-            if nd < L:
-                dbricks.index_add_(
-                    0, (idx[:, nd:] - layout.offsets[nd]).reshape(-1),
-                    (w8[:, nd:, :, None] * d4[:, nd:]).reshape(-1, W))
-            for lv in range(nd):
-                res = layout.resolutions[lv]
-                cres = layout.corner_res[lv]
-                coff = layout.corner_offsets[lv]
-                d_lv = torch.zeros((layout.rows[lv], W), dtype=torch.float32,
-                                   device=dev)
-                dw = w8[:, lv, :, None] * d4[:, lv]
-                d_lv.index_add_(0, idx[:, lv] - layout.offsets[lv],
-                                dw.reshape(-1, W))
-                db = d_lv.reshape(res, res, res, 8, F)
-                dc = dcorners[coff : coff + cres**3].view(cres, cres, cres, F)
-                ci = 0
-                for cz in (0, 1):
-                    for cy in (0, 1):
-                        for cx in (0, 1):
-                            dc[cz : cz + res, cy : cy + res,
-                               cx : cx + res] += db[:, :, :, ci]
-                            ci += 1
+            if dout.device.type == "cpu":
+                return _BrickEncodeReference.backward(ctx, dout)
+            (xyz,) = ctx.saved_tensors
+            dcorners, dbricks = torch.ops.taichi_nerfs_torch.brick_encode_bwd(
+                dout.contiguous(), xyz, *ctx.table_rows,
+                *_kernel_levels(ctx.layout))
             return dcorners, dbricks, None, None
+
+
+def _flat_positions(xyz: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(xyz.reshape(-1, 3), 0.0, 1.0)
 
 
 def brick_encode(params, xyz: torch.Tensor,
                  layout: BrickGridLayout) -> torch.Tensor:
-    """Positions (..., 3) in [0, 1]^3 (clamped) -> (..., L * F)."""
+    """Positions (..., 3) in [0, 1]^3 (clamped) -> (..., L * F).
+
+    CUDA positions run ``csrc/brick_encode.cu`` (operators
+    ``taichi_nerfs_torch::brick_encode_fwd`` / ``::brick_encode_bwd``, each
+    launch counted in ``brick_encode.launches``) and raise where the
+    kernels take no such layout or tensors; CPU positions run the plain
+    version, :func:`brick_encode_reference`'s."""
     batch_shape = xyz.shape[:-1]
-    flat = torch.clamp(xyz.reshape(-1, 3), 0.0, 1.0)
-    out = _BrickEncode.apply(params["corners"], params["bricks"], flat,
-                             layout)
+    out = _BrickEncode.apply(params["corners"], params["bricks"],
+                             _flat_positions(xyz), layout)
+    return out.reshape(*batch_shape, layout.out_dim)
+
+
+brick_encode.launches = 0
+
+
+def brick_encode_reference(params, xyz: torch.Tensor,
+                           layout: BrickGridLayout) -> torch.Tensor:
+    """:func:`brick_encode` in plain PyTorch on any device (the table
+    materialised, a gather, an index-add backward)."""
+    batch_shape = xyz.shape[:-1]
+    out = _BrickEncodeReference.apply(params["corners"], params["bricks"],
+                                      _flat_positions(xyz), layout)
     return out.reshape(*batch_shape, layout.out_dim)

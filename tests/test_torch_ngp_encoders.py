@@ -118,9 +118,24 @@ def test_hash_encode_and_grad(F, dtype):
         np.testing.assert_allclose(np32(tg), jg, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("F,dtype", [(2, "float32"), (4, "float32"),
-                                     (4, "bfloat16")])
+BRICK_CASES = [(2, "float32"), (4, "float32"), (4, "bfloat16"),
+               (1, "float32"), (8, "bfloat16")]
+
+
+@pytest.mark.parametrize("F,dtype", BRICK_CASES)
 def test_brick_encode_and_grad(F, dtype):
+    _check_brick_encode(F, dtype, tbrick.brick_encode)
+
+
+@pytest.mark.parametrize("F,dtype", BRICK_CASES)
+def test_brick_encode_reference_and_grad(F, dtype):
+    """On CPU positions ``brick_encode`` is the plain version, which
+    ``brick_encode_reference`` runs on any device (the CUDA kernels are held
+    to it on the card)."""
+    _check_brick_encode(F, dtype, tbrick.brick_encode_reference)
+
+
+def _check_brick_encode(F, dtype, encode):
     tc, jc = _brick_cfg(F, dtype)
     jl, tl = jbrick.build_brick_layout(jc), tbrick.build_brick_layout(tc)
     params = jax.device_get(jbrick.init_brick_params(jax.random.PRNGKey(0),
@@ -137,7 +152,7 @@ def test_brick_encode_and_grad(F, dtype):
     want = np.asarray(jf(jp))
     jg = jax.grad(lambda p: jnp.sum(jf(p) * cot))(jp)
     tp = {k: t32(v).requires_grad_() for k, v in params.items()}
-    got = tbrick.brick_encode(tp, t32(x), tl)
+    got = encode(tp, t32(x), tl)
     np.testing.assert_allclose(np32(got), want, rtol=1e-4, atol=1e-5)
     tg = torch.autograd.grad(torch.sum(got * t32(cot)),
                              (tp["corners"], tp["bricks"]))
@@ -147,6 +162,50 @@ def test_brick_encode_and_grad(F, dtype):
                                    atol=1e-5)
     assert float(torch.abs(tg[0]).max()) > 0  # dense levels reached
     assert float(torch.abs(tg[1]).max()) > 0  # hashed levels reached
+
+
+def _brick_grads(x, cot, F=4):
+    tc, _ = _brick_cfg(F)
+    layout = tbrick.build_brick_layout(tc)
+    gen = torch.Generator().manual_seed(3)
+    params = {k: v.requires_grad_()
+              for k, v in tbrick.init_brick_params(layout, gen).items()}
+    out = tbrick.brick_encode(params, t32(x), layout)
+    return torch.autograd.grad(torch.sum(out * t32(cot)),
+                               (params["corners"], params["bricks"]))
+
+
+def test_patched_brick_backward_changes_the_gradient():
+    """The benchmark plants a fault by patching ``_BrickEncode.backward``
+    (every other row of its cotangent dropped): the patch must reach the
+    table gradient, and an unchanged wrapper must leave it as it was."""
+    x = _positions(7)
+    cot = np.random.default_rng(8).normal(size=(x.shape[0], 16)).astype(
+        np.float32)
+    want = _brick_grads(x, cot)
+    real = tbrick._BrickEncode.backward
+
+    def same(ctx, dout):
+        return real(ctx, dout)
+
+    def half(ctx, dout):
+        dout = dout.clone()
+        dout[1::2] = 0.0
+        return real(ctx, dout)
+
+    for patch, moves in ((same, False), (half, True)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tbrick._BrickEncode, "backward", patch)
+            got = _brick_grads(x, cot)
+        for a, b in zip(got, want):
+            assert (not torch.equal(a, b)) == moves
+
+
+def test_brick_encode_launches_nothing_on_the_cpu():
+    x = _positions(9)
+    n = tbrick.brick_encode.launches
+    _brick_grads(x, np.ones((x.shape[0], 16), np.float32))
+    assert tbrick.brick_encode.launches == n
 
 
 def _tiny_model(enc, mlp_dtype, table_dtype="float32"):
