@@ -193,6 +193,10 @@ import subprocess
 import sys
 import time
 
+# a kernel's bound is the larger of its bytes over the card's published
+# memory rate and its flops over the fp32 peak (``benchmark/counts/``)
+from benchmark.counts.sweep import bound_ms, sweep_bwd_bound, sweep_fwd_bound
+
 # the tolerance of kernel against plain sweep: both compute the same fp32
 # function, but the kernel sums the 2x2 / 4x4 taps where the plain version
 # runs two dense fp32 matmuls, so the additions happen in another order
@@ -213,11 +217,6 @@ GRAD_TOL = 1e-3
 # (R, dc, nq) per coarse-to-fine phase; nq is the capped lattice
 # int(1.25 R) + 16 while it is below crop + 16, else crop + 16
 TRAIN_SHAPES = ((64, 4, 96), (128, 8, 176), (256, 16, 272))
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): device
-# memory rate, and fp32 outside the tensor cores; a kernel's bound is the
-# larger of bytes / rate and flops / peak
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 # bytes written between cold-timed launches: more than the 50 MB L2
 FLUSH_BYTES = 128 << 20
 # the spin queued before each timed run: ~0.5 ms at the H100's clocks,
@@ -262,12 +261,13 @@ BF16_FWD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # bf16 tolerance (tests/test_half.py)
 BF16_SMALL_FWD_TOL = 2e-2
 # Max abs cannot tell those moves from a kernel that skips the roundings
-# (scripts/torch_sweep_bf16_tol.py on the H100: the kernels within 2.0e-3
-# max abs at the small shapes, such a kernel 2.8e-4 to 3.1e-2).  Relative
-# norms can, and every bf16-operand case is held to them: frames (the
-# kernels within 6.0e-5, such a kernel 8.1e-4 or more) and d vol (the
-# kernels within 9.3e-5 at any dtype pair; such a backward 4.5e-3 or more,
-# one that rounds t per 64-column tile up to 2.7e-3, 4.7e-4 at R=512)
+# (on the H100, against copies built with the operand rounding switched
+# off: the kernels within 2.0e-3 max abs at the small shapes, such a kernel
+# 2.8e-4 to 3.1e-2).  Relative norms can, and every bf16-operand case is
+# held to them: frames (the kernels within 6.0e-5, such a kernel 8.1e-4 or
+# more) and d vol (the kernels within 9.3e-5 at any dtype pair; such a
+# backward 4.5e-3 or more, one that rounds t per 64-column tile up to
+# 2.7e-3, 4.7e-4 at R=512)
 BF16_FWD_REL_TOL = 3e-4
 BF16_DVOL_TOL = 2.5e-4
 # one full-depth step's level gradients through the kernels vs the plain
@@ -357,50 +357,6 @@ def _time_ms(torch, fn, reps, flush=None):
         events.append((a, b))
     torch.cuda.synchronize()
     return _median([a.elapsed_time(b) for a, b in events])
-
-
-def _bound_ms(nbytes, flops):
-    """``(bound ms, "bytes" or "operations")``: the larger of the bytes over
-    the device memory rate and the flops over the fp32 peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _resample_flops(nc, dc, F, Rc, nq, kind):
-    """Flops of the separable resample of every slab and channel onto the
-    lattice: a multiply-add (2 flops) per tap, NT taps (2 linear, 4 cubic)
-    per output of the pass along b (nq x Rc) and along c (nq x nq)."""
-    nt = 2 if kind == "linear" else 4
-    return 2 * nt * nc * dc * F * (nq * Rc + nq * nq)
-
-
-def sweep_fwd_bound(nc, dc, F, Rb, Rc, nq, kind, vol_bytes=4):
-    """The forward's bound: each input read once (vol, of ``vol_bytes`` a
-    voxel, rs_par, z_rel, ch_par) and the frames written once; the
-    separable resample plus the composite's 2 (F - 1) + 10 flops per
-    lattice point and slab."""
-    nbytes = (vol_bytes * nc * dc * F * Rb * Rc
-              + 4 * (nc * dc * 5 + nc * 6 + nc * (F + 2) * nq * nq))
-    flops = (_resample_flops(nc, dc, F, Rc, nq, kind)
-             + nc * dc * nq * nq * (2 * (F - 1) + 10))
-    return (*_bound_ms(nbytes, flops), nbytes, flops)
-
-
-def sweep_bwd_bound(nc, dc, F, Rb, Rc, nq, kind, vol_bytes=4):
-    """The backward's bound: vol, the parameters, the frames' tau channel
-    (the only one it reads) and g read once, dvol (vol's dtype, of
-    ``vol_bytes`` a voxel) written once; the forward's resample again, its
-    transpose (the same count) and the reverse composite's 4 (F - 1) + 20
-    flops per lattice point and slab.  The fp32 scratch of the transposed
-    pass (a bf16 volume or bf16 operands) is the implementation's cost, not
-    the function's: it is not counted."""
-    nbytes = (vol_bytes * 2 * nc * dc * F * Rb * Rc
-              + 4 * (nc * dc * 5 + nc * 6 + nc * nq * nq
-                     + nc * (F + 2) * nq * nq))
-    flops = (2 * _resample_flops(nc, dc, F, Rc, nq, kind)
-             + nc * dc * nq * nq * (4 * (F - 1) + 20))
-    return (*_bound_ms(nbytes, flops), nbytes, flops)
 
 
 # the forward's edge cases, each for F in {4, 8, 16}: the lattice runs
@@ -672,7 +628,7 @@ def band_warp_bound(C, nq, H, W):
     from taichi_nerfs_torch.ops.warp import GEO_LEN
 
     nbytes = 4 * C * nq * nq + 5 * H * W + 4 * GEO_LEN + 4 * C * H * W
-    return (*_bound_ms(nbytes, 12 * C * H * W), nbytes, 12 * C * H * W)
+    return (*bound_ms(nbytes, 12 * C * H * W), nbytes, 12 * C * H * W)
 
 
 def _warp_inputs(torch, nq, C, seed):
@@ -796,6 +752,22 @@ def _shell_positions(torch, seed):
     return torch.clamp(x.reshape(-1, 3)[:BRICK_SAMPLES] + 0.5, 0.0, 1.0)
 
 
+def _brick_launches():
+    """The brick encoder's launches so far: gathers and scatters."""
+    from taichi_nerfs_torch.ops._build import LAUNCHES
+
+    return LAUNCHES["brick_encode_fwd"] + LAUNCHES["brick_encode_bwd"]
+
+
+def _sweep_launches(since=(0, 0)):
+    """The sweep kernels' launches (forward, backward) since ``since``, an
+    earlier reading (``_build.LAUNCHES``)."""
+    from taichi_nerfs_torch.ops._build import LAUNCHES
+
+    return (LAUNCHES["swr_sweep_fwd"] - since[0],
+            LAUNCHES["swr_sweep_bwd"] - since[1])
+
+
 def phase_brick_encode(torch):
     """The brick encoder's kernels against ``brick_encode_reference`` at the
     NGP cell's layout, fp32 and bf16 tables: the training step's samples
@@ -842,7 +814,7 @@ def phase_brick_encode(torch):
 
             leaves = {k: v.clone().requires_grad_() for k, v in
                       params.items()}
-            n = tb.brick_encode.launches
+            n = _brick_launches()
             out = tb.brick_encode(leaves, xyz, layout)
             want = tb.brick_encode_reference(leaves, xyz, layout)
             r = {"max_abs": float((out - want).abs().max().detach())}
@@ -864,7 +836,7 @@ def phase_brick_encode(torch):
                              f"{r[f'd{k}_rerun_rel']:.3e}")
             torch.cuda.synchronize()
             # the forward, and in a step the backward and its second run
-            launched = tb.brick_encode.launches - n
+            launched = _brick_launches() - n
             ok = ok and launched == (3 if step else 1)
             print(f"{line}; {launched} launches {'ok' if ok else 'FAIL'}",
                   flush=True)
@@ -995,7 +967,7 @@ def _record_params(torch, cfg, seed, device):
 
 def phase_slice(torch, ckpt_path, seed):
     from taichi_nerfs_torch.data.cameras import intrinsics, orbit_poses
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep
+    from taichi_nerfs_torch.ops._build import LAUNCHES
     from taichi_nerfs_torch.ops.warp import band_warp, band_warp_reference
     from taichi_nerfs_torch.render import swr
     from taichi_nerfs_torch.render.serve import (
@@ -1029,7 +1001,7 @@ def phase_slice(torch, ckpt_path, seed):
         rend.render(poses[0], lat_cap=cap)
     torch.cuda.synchronize()
 
-    chunk_sweep.launches = band_warp.launches = 0
+    LAUNCHES["swr_sweep_fwd"] = LAUNCHES["swr_warp"] = 0
     frame_ms = {}
     for name, cap in modes:
         per_view = []
@@ -1059,9 +1031,9 @@ def phase_slice(torch, ckpt_path, seed):
                   f"(median of 3), max opacity {hi:.4f}", flush=True)
         frame_ms[name] = _median(per_view)
     torch.cuda.synchronize()
-    launches, warps = chunk_sweep.launches, band_warp.launches
-    print(f"slice: chunk_sweep.launches during the served frames: "
-          f"{launches}; band_warp.launches: {warps}", flush=True)
+    launches, warps = LAUNCHES["swr_sweep_fwd"], LAUNCHES["swr_warp"]
+    print(f"slice: swr_sweep_fwd launches during the served frames: "
+          f"{launches}; swr_warp launches: {warps}", flush=True)
     if launches <= 0:
         raise AssertionError("the served frames never launched the kernel")
     if warps != len(modes) * len(poses) * 3:
@@ -1104,7 +1076,6 @@ def phase_train(torch, seed, device="cuda"):
     import numpy as np
 
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
     from taichi_nerfs_torch.render.serve import record_config
     from taichi_nerfs_torch.train.metrics import psnr
     from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
@@ -1133,8 +1104,7 @@ def phase_train(torch, seed, device="cuda"):
     loss0 = _fixed_loss(torch, trainer, evals)
     torch.cuda.synchronize()
 
-    chunk_sweep.launches = 0
-    chunk_sweep_bwd.launches = 0
+    n0 = _sweep_launches()
     losses, step_ms, levels = [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1148,7 +1118,7 @@ def phase_train(torch, seed, device="cuda"):
               f"levels (R={trainer.cur_mcfg.grid_res}, lattice "
               f"{trainer.lat_size or tcfg.crop + 16}) loss={loss:.6f} "
               f"psnr={float(m['psnr']):.3f} {step_ms[-1]:.2f} ms", flush=True)
-    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    launches = _sweep_launches(n0)
     print(f"train: launches during the {TRAIN_STEPS} steps: swr_sweep_fwd "
           f"{launches[0]}, swr_sweep_bwd {launches[1]}", flush=True)
     if not all(np.isfinite(losses)):
@@ -1252,7 +1222,6 @@ def phase_default_flags(torch, seed, card):
     from opt import get_opts
 
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
     from taichi_nerfs_torch.train.__main__ import configs
     from taichi_nerfs_torch.train.swr_step import SwrTrainer
 
@@ -1283,8 +1252,7 @@ def phase_default_flags(torch, seed, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    chunk_sweep.launches = 0
-    chunk_sweep_bwd.launches = 0
+    n0 = _sweep_launches()
     losses, step_ms, levels = [], [], []
     for _ in range(DEFAULT_STEPS):
         t0 = time.perf_counter()
@@ -1302,7 +1270,7 @@ def phase_default_flags(torch, seed, card):
         if trainer.slab_window != 0:
             raise AssertionError(f"slab window {trainer.slab_window} in the "
                                  f"phase at R={trainer.cur_mcfg.grid_res}")
-    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    launches = _sweep_launches(n0)
     peak = torch.cuda.max_memory_allocated()
     print(f"default flags: launches during the {DEFAULT_STEPS} steps: "
           f"swr_sweep_fwd {launches[0]}, swr_sweep_bwd {launches[1]}",
@@ -1335,7 +1303,6 @@ def phase_scan(torch, seed, train, card):
 
     from taichi_nerfs_torch.data.cameras import orbit_poses
     from taichi_nerfs_torch.models.pyramid import PyramidConfig
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
     from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
 
     device = torch.device("cuda")
@@ -1343,8 +1310,7 @@ def phase_scan(torch, seed, train, card):
                          deferred=False)
     tcfg = SwrTrainConfig(crop=256, lr=1e-2, max_steps=SCAN_STEPS,
                           n_chunks=16, distortion_w=1e-3)
-    chunk_sweep.launches = 0
-    chunk_sweep_bwd.launches = 0
+    n0 = _sweep_launches()
     trainer = SwrTrainer(mcfg, tcfg, train.rays, train.poses, train.K,
                          train.img_wh, seed=seed, device=device)
     evals = _fixed_crops(torch, trainer, seed, n=SCAN_CROPS)
@@ -1386,7 +1352,7 @@ def phase_scan(torch, seed, train, card):
     lo, hi = float(op.min()), float(op.max())
     if lo < -1e-6 or hi > 1.0 + 1e-6:
         raise AssertionError(f"scan: opacity in [{lo}, {hi}]")
-    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    launches = _sweep_launches(n0)
     if launches != (0, 0):
         raise AssertionError(f"scan: the sweep kernels launched {launches}")
     steady = _median(step_ms[1:])
@@ -1536,7 +1502,6 @@ def phase_window(torch, seed, card):
 
     from taichi_nerfs_torch.data.cameras import look_at
     from taichi_nerfs_torch.models import pyramid as pyr
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep
     from taichi_nerfs_torch.render.serve import record_config
     from taichi_nerfs_torch.render.swr import render_swr, slab_window_bound
 
@@ -1563,7 +1528,7 @@ def phase_window(torch, seed, card):
         for sw in (window, 0):
             render_swr(params, grid, cfg, pose, K_crop, (crop, crop),
                        n_chunks=16, slab_window=sw)  # warm-up
-            chunk_sweep.launches = 0
+            n0 = _sweep_launches()
             times = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -1573,7 +1538,7 @@ def phase_window(torch, seed, card):
                                       slab_window=sw)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            ms[sw], launches[sw] = _median(times), chunk_sweep.launches
+            ms[sw], launches[sw] = _median(times), _sweep_launches(n0)[0]
     a, b = outs[window], outs[0]
     diffs = {k: float((a[k] - b[k]).abs().max()) for k in a}
     op = float(b["opacity"].max())
@@ -1875,7 +1840,7 @@ def phase_bf16_train(torch, seed, train, card):
 
     import numpy as np
 
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.ops._build import LAUNCHES
     from taichi_nerfs_torch.render import swr as rswr
     from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
 
@@ -1900,14 +1865,12 @@ def phase_bf16_train(torch, seed, train, card):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    chunk_sweep.launches = 0
-    chunk_sweep_bwd.launches = 0
-    chunk_sweep_bwd.finish_launches = 0
+    n0, rows0 = _sweep_launches(), LAUNCHES["swr_sweep_bwd_rows"]
     rswr.chunk_sweep = recording
     losses, step_ms, levels, fwd_n, bwd_n = [], [], [], [], []
     try:
         for _ in range(BF16_STEPS):
-            f0, b0 = chunk_sweep.launches, chunk_sweep_bwd.launches
+            step0 = _sweep_launches()
             t0 = time.perf_counter()
             m = trainer.run_step()
             loss = float(m["loss"])  # waits for the step
@@ -1915,8 +1878,9 @@ def phase_bf16_train(torch, seed, train, card):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss)
             levels.append(len(trainer.state.params["levels"]))
-            fwd_n.append(chunk_sweep.launches - f0)
-            bwd_n.append(chunk_sweep_bwd.launches - b0)
+            fwd, bwd = _sweep_launches(step0)
+            fwd_n.append(fwd)
+            bwd_n.append(bwd)
             print(f"bf16 train step {trainer.step - 1}: {levels[-1]} levels "
                   f"(R={trainer.cur_mcfg.grid_res}, lattice "
                   f"{trainer.lat_size or tcfg.crop + 16}) loss={loss:.6f} "
@@ -1925,8 +1889,8 @@ def phase_bf16_train(torch, seed, train, card):
     finally:
         rswr.chunk_sweep = real_sweep
     peak = torch.cuda.max_memory_allocated()
-    launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
-    finish = chunk_sweep_bwd.finish_launches
+    launches = _sweep_launches(n0)
+    finish = LAUNCHES["swr_sweep_bwd_rows"] - rows0
     vol_dtypes = {str(d) for d, _, _, _, _ in seen}
     op_dtypes = {str(o) for _, o, _, _, _ in seen}
     if not all(np.isfinite(losses)):
@@ -2044,14 +2008,14 @@ def phase_bf16_serve(torch, seed, card):
         for name, cap in (("capped", "auto"), ("uncapped", None)):
             rend.render(pose, lat_cap=cap)  # warm-up
             torch.cuda.synchronize()
-            chunk_sweep.launches = 0
+            n0 = _sweep_launches()
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 out = rend.render(pose, lat_cap=cap)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            launches = chunk_sweep.launches
+            launches = _sweep_launches(n0)[0]
             rgb, op = out["rgb"], out["opacity"]
             if not bool(torch.isfinite(rgb).all() and torch.isfinite(
                     op).all()):
@@ -2194,7 +2158,6 @@ def phase_inside(torch, seed, card):
     numbers."""
     import numpy as np
 
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
     from taichi_nerfs_torch.render.serve import PyramidRenderer, record_config
     from taichi_nerfs_torch.train.swr_step import SwrTrainConfig, SwrTrainer
 
@@ -2228,14 +2191,13 @@ def phase_inside(torch, seed, card):
         if k >= INSIDE_STEPS:
             draw = _inside_draw(trainer, draw)
         plan = trainer.plan(draw)
-        before = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+        before = _sweep_launches()
         t0 = time.perf_counter()
         m = trainer.run_step(draw)
         loss = float(m["loss"])  # waits for the step
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        n = (chunk_sweep.launches - before[0],
-             chunk_sweep_bwd.launches - before[1])
+        n = _sweep_launches(before)
         steps.append(dict(inside=plan.inside, ms=ms, loss=loss, launches=n,
                           R=trainer.cur_mcfg.grid_res, k=k))
         print(f"inside step {trainer.step - 1}: "
@@ -2492,7 +2454,6 @@ def phase_files(torch, seed, card):
     from taichi_nerfs_torch.data.transforms_export import (
         export_blender_dataset,
     )
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
     from taichi_nerfs_torch.train import __main__ as entry
 
     t_phase = time.perf_counter()
@@ -2537,12 +2498,11 @@ def phase_files(torch, seed, card):
             "--max_steps", str(FILES_STEPS)]
         os.chdir(tmp)
         try:
-            chunk_sweep.launches = 0
-            chunk_sweep_bwd.launches = 0
+            n0 = _sweep_launches()
             t0 = time.perf_counter()
             manifest = entry.main(pyr_argv)
             pyr_s = time.perf_counter() - t0
-            launches = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+            launches = _sweep_launches(n0)
             t0 = time.perf_counter()
             ngp = entry.main(common + [
                 "--model_name", "ngp", "--exp_name", "files_ngp",
@@ -2634,7 +2594,7 @@ def _profile_ngp_steps(torch, tag, trainer):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from taichi_nerfs_torch.render.serve import report_profile
+    from taichi_nerfs_torch.utils.profiling import report_profile
 
     interval = trainer.cfg.train.update_interval
     while any((trainer.step + i) % interval == 0 for i in range(3)):
@@ -2698,9 +2658,7 @@ def phase_ngp(torch, seed):
           f"{cfg.model.brick.feature_per_level}, batch "
           f"{cfg.train.batch_size}", flush=True)
 
-    from taichi_nerfs_torch.ops.brick_encoder import brick_encode
-
-    launches0 = brick_encode.launches
+    launches0 = _brick_launches()
     losses, step_ms = [], []
     for i in range(NGP_STEPS):
         t0 = time.perf_counter()
@@ -2716,7 +2674,7 @@ def phase_ngp(torch, seed):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"ngp: non-finite loss: {losses}")
     # each step's gather and scatter, and the refreshes' gathers
-    brick_launches = brick_encode.launches - launches0
+    brick_launches = _brick_launches() - launches0
     print(f"ngp: brick_encode launches over {NGP_STEPS} steps: "
           f"{brick_launches}", flush=True)
     if brick_launches < 2 * NGP_STEPS:
@@ -3056,7 +3014,6 @@ def phase_viewer(torch, seed, card, ngp, record):
     import numpy as np
 
     from taichi_nerfs_torch.ops.rays import get_ray_directions, get_rays
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep
     from taichi_nerfs_torch.render.renderer import render_image
     from taichi_nerfs_torch.viewer.gui import NGPGUI
 
@@ -3113,10 +3070,10 @@ def phase_viewer(torch, seed, card, ngp, record):
                  frame_callback=lambda f: (frames.append(f),
                                            dts.append(gui.dt * 1e3)))
     torch.cuda.synchronize()
-    chunk_sweep.launches = 0
+    n0 = _sweep_launches()
     gui.render(max_frames=VIEWER_PYRAMID_FRAMES)
     torch.cuda.synchronize()
-    launches = chunk_sweep.launches
+    launches = _sweep_launches(n0)[0]
     bad = [i for i, o in enumerate(outs) if not bool(torch.isfinite(o).all())]
     again = trainer.render(poses[0], K=trainer.K, img_wh=RECORD_WH)["rgb"]
     d0 = float((again - outs[0]).abs().max())
@@ -3265,10 +3222,10 @@ def phase_aot(torch, seed, card, record):
         res["load_s"] = time.perf_counter() - t0
         worst = 0.0
         torch.cuda.synchronize()
-        sw.chunk_sweep.launches = 0
+        n0 = _sweep_launches()
         loaded = [render(grid, mlp, p) for p in poses]
         torch.cuda.synchronize()
-        res["launches"] = sw.chunk_sweep.launches
+        res["launches"] = _sweep_launches(n0)[0]
         for p, got in zip(poses, loaded):
             want = live(p)
             d = {k: float((got[k] - want[k]).abs().max())
@@ -3337,11 +3294,11 @@ def phase_aot(torch, seed, card, record):
             secs = time.perf_counter() - t0
             with open(os.path.join(two, "metadata.json")) as f:
                 plats = json.load(f)["small"]["platforms"]
-            n0 = sw.chunk_sweep.launches
+            n0 = _sweep_launches()
             a = aot.load_compiled(two, "small", device="cuda")(
                 sgrid, smlp, torch.as_tensor(pose, device=device))["rgb"]
             torch.cuda.synchronize()
-            n_small = sw.chunk_sweep.launches - n0
+            n_small = _sweep_launches(n0)[0]
             b = aot.load_compiled(two, "small", device="cpu")(
                 sgrid.cpu(), {k: v.cpu() for k, v in smlp.items()},
                 torch.as_tensor(pose))["rgb"]
@@ -3693,13 +3650,13 @@ def _diag_frame_vs_plain(torch, mod, path, wh):
         calls.append((a, kw))
         return real_sweep(*a, **kw)
 
-    chunk_sweep.launches = 0
+    n0 = _sweep_launches()
     rswr.chunk_sweep = recording
     try:
         got = mod.render_view(params, grid, cfg, pose, K, wh)
     finally:
         rswr.chunk_sweep = real_sweep
-    launches = chunk_sweep.launches
+    launches = _sweep_launches(n0)[0]
     want = mod.render_view(params, grid, cfg, pose, K, wh,
                            sweep_impl="reference")
     a, kw = calls[len(calls) // 2]
@@ -3734,24 +3691,24 @@ def phase_experiments(torch, seed, card):
     import numpy as np
 
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
+    from taichi_nerfs_torch.ops._build import LAUNCHES
 
     t_phase = time.perf_counter()
     device = torch.device("cuda")
     res = {"launches": {}, "secs": {}}
 
     def run(tag, fn):
-        """``fn()`` with the launch counts set to 0 and stdout captured;
-        its printed lines."""
-        chunk_sweep.launches = 0
-        chunk_sweep_bwd.launches = 0
+        """``fn()`` with the sweep launch counts set to 0 (a script's own
+        launch line counts from there, as in a fresh process) and stdout
+        captured; its printed lines."""
+        LAUNCHES["swr_sweep_fwd"] = LAUNCHES["swr_sweep_bwd"] = 0
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             fn()
         torch.cuda.synchronize()
         res["secs"][tag] = time.perf_counter() - t0
-        res["launches"][tag] = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+        res["launches"][tag] = _sweep_launches()
         lines = buf.getvalue().strip().splitlines()
         for line in lines:
             print(f"experiments: {tag}: {line}", flush=True)
@@ -3965,7 +3922,6 @@ def _parallel_rank(mesh, scene):
     from 0 in this rank, over its pyramid steps."""
     import torch
 
-    from taichi_nerfs_torch.ops.swr_sweep import chunk_sweep, chunk_sweep_bwd
     from taichi_nerfs_torch.parallel import sharded_density_grid_step
     from taichi_nerfs_torch.train.loop import Trainer
     from taichi_nerfs_torch.train.swr_step import SwrTrainer
@@ -3990,9 +3946,9 @@ def _parallel_rank(mesh, scene):
                     scene["img_wh"], seed=3, alphas=scene["alphas"],
                     mesh=mesh)
     out["swr_draws"] = [st.draw_sharded() for _ in range(PAR_SWR_STEPS)]
-    chunk_sweep.launches = chunk_sweep_bwd.launches = 0
+    n0 = _sweep_launches()
     out["swr"] = _timed_steps(torch, st, PAR_SWR_STEPS, out["swr_draws"])
-    out["launches"] = (chunk_sweep.launches, chunk_sweep_bwd.launches)
+    out["launches"] = _sweep_launches(n0)
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
 

@@ -104,7 +104,7 @@ def main(argv=None) -> dict:
 
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
     from taichi_nerfs_torch.models import pyramid as pyr
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.train.metrics import psnr as psnr_fn
     from taichi_nerfs_torch.utils.device import card_line, resolve_device
     from taichi_nerfs_torch.utils.viz import write_png

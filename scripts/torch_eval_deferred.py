@@ -116,7 +116,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     sys.path.insert(0, _REPO)
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.utils.device import card_line, resolve_device
 
     device = resolve_device(args.device, "--device cpu")

@@ -70,19 +70,22 @@ def main(argv=None) -> int:
     from taichi_nerfs_torch.data.cameras import intrinsics
     from taichi_nerfs_torch.models import pyramid as pyr
     from taichi_nerfs_torch.render.serve import (
-        _require_fp32_matmul,
         config_for_params,
         record_config,
     )
     from taichi_nerfs_torch.render.swr import render_swr
     from taichi_nerfs_torch.utils.convert import load_pyramid_npz
-    from taichi_nerfs_torch.utils.device import card_line, resolve_device
+    from taichi_nerfs_torch.utils.device import (
+        card_line,
+        require_fp32_matmul,
+        resolve_device,
+    )
 
     device = resolve_device(args.device, "--device cpu")
     cuda = device.type == "cuda"
     if cuda:
         print(card_line(), flush=True)
-    _require_fp32_matmul()
+    require_fp32_matmul()
     params = load_pyramid_npz(args.ckpt, device)
     cfg = config_for_params(params, record_config())
     R = cfg.grid_res

@@ -54,7 +54,7 @@ def main(argv=None) -> int:
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
     from taichi_nerfs_torch.ops.marching import march_rays, perturb_t_start
     from taichi_nerfs_torch.ops.rays import get_rays, ray_aabb_intersect
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.render.renderer import render_train
     from taichi_nerfs_torch.train.loop import Trainer
     from taichi_nerfs_torch.train.state import tree_leaves

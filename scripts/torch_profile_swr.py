@@ -57,12 +57,11 @@ def main(argv=None) -> int:
     import torch
 
     from taichi_nerfs_torch.models import pyramid as pyr
-    from taichi_nerfs_torch.ops import swr_sweep as sw
+    from taichi_nerfs_torch.ops._build import LAUNCHES, launch_counts
     from taichi_nerfs_torch.render.swr import (
         render_swr_fixed_axis,
         slab_window_bound,
     )
-    from taichi_nerfs_torch.render.serve import _require_fp32_matmul
     from taichi_nerfs_torch.train.state import tree_map
     from taichi_nerfs_torch.train.swr_step import (
         SwrTrainConfig,
@@ -71,13 +70,17 @@ def main(argv=None) -> int:
         make_optimizer,
         swr_train_step,
     )
-    from taichi_nerfs_torch.utils.device import card_line, resolve_device
+    from taichi_nerfs_torch.utils.device import (
+        card_line,
+        require_fp32_matmul,
+        resolve_device,
+    )
     from taichi_nerfs_torch.utils.profiling import spread, time_calls
 
     device = resolve_device(args.device, "--device cpu")
     if device.type == "cuda":
         print(card_line(), flush=True)
-    _require_fp32_matmul()
+    require_fp32_matmul()
 
     def reps(n, warm):
         return (min(n, args.reps), min(warm, args.reps)) if args.reps \
@@ -85,11 +88,11 @@ def main(argv=None) -> int:
 
     def piece(name, fn, n, warm, rays=0):
         n, warm = reps(n, warm)
-        f0, b0 = sw.chunk_sweep.launches, sw.chunk_sweep_bwd.launches
+        f0, b0 = LAUNCHES["swr_sweep_fwd"], LAUNCHES["swr_sweep_bwd"]
         ms = time_calls(fn, n, warm, device)
         calls = n + warm
-        fwd = (sw.chunk_sweep.launches - f0) / calls
-        bwd = (sw.chunk_sweep_bwd.launches - b0) / calls
+        fwd = (LAUNCHES["swr_sweep_fwd"] - f0) / calls
+        bwd = (LAUNCHES["swr_sweep_bwd"] - b0) / calls
         extra = ""
         if rays:
             med_s = sorted(ms)[len(ms) // 2] / 1e3
@@ -219,7 +222,7 @@ def main(argv=None) -> int:
                 ("capdef bf", mcfg_d, "bfloat16", False, grid),
                 ("capdef bf skp", mcfg_d, "bfloat16", True, grid_sparse)):
             piece(f"render {wh}^2 {tag}", frame(mc, rdt, skip, g), 10, 5)
-    print(sw.launch_counts(), flush=True)
+    print(launch_counts(), flush=True)
     return 0
 
 

@@ -43,7 +43,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     sys.path.insert(0, _REPO)
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.utils.device import resolve_device
 
     # copying the manifest needs no device; rendering the view does

@@ -143,7 +143,7 @@ def main(argv=None) -> int:
     import torch
 
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.train.metrics import psnr as psnr_fn
     from taichi_nerfs_torch.train.metrics import ssim as ssim_fn
     from taichi_nerfs_torch.train.swr_step import SwrTrainer

@@ -102,7 +102,7 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, _REPO)
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.utils.device import card_line, resolve_device
 
     device = resolve_device(args.device, "--device cpu")

@@ -66,7 +66,7 @@ def main(argv=None) -> list:
         field_grid,
     )
     from taichi_nerfs_torch.models import pyramid as pyr
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.render import swr
     from taichi_nerfs_torch.utils.device import resolve_device
     from taichi_nerfs_torch.utils.viz import write_png

@@ -50,17 +50,19 @@ def main(argv=None) -> int:
     from taichi_nerfs_torch.data.cameras import intrinsics, orbit_poses
     from taichi_nerfs_torch.models import pyramid as pyr
     from taichi_nerfs_torch.render.serve import (
-        _require_fp32_matmul,
         config_for_params,
         record_config,
     )
     from taichi_nerfs_torch.render.swr import render_swr
     from taichi_nerfs_torch.utils.convert import load_pyramid_npz
-    from taichi_nerfs_torch.utils.device import resolve_device
+    from taichi_nerfs_torch.utils.device import (
+        require_fp32_matmul,
+        resolve_device,
+    )
     from taichi_nerfs_torch.viewer.gui import NGPGUI
 
     device = resolve_device(args.device, "--device cpu")
-    _require_fp32_matmul()
+    require_fp32_matmul()
     params = load_pyramid_npz(args.ckpt, device)
     cfg = config_for_params(params, record_config())
     with torch.no_grad():

@@ -77,7 +77,7 @@ def main(argv=None) -> list:
         _gt_rays,
         field_grid,
     )
-    from taichi_nerfs_torch.ops.swr_sweep import launch_counts
+    from taichi_nerfs_torch.ops._build import launch_counts
     from taichi_nerfs_torch.utils.device import resolve_device
     from taichi_nerfs_torch.utils.viz import write_png
 

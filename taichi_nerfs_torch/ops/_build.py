@@ -6,14 +6,18 @@ compiled on first use for Hopper (``sm_90a``) into
 the hash covers the source, the shared headers ``csrc/*.cuh`` and the
 flags, so an edited source or header rebuilds.
 Nothing is built when the module is imported, and a failed build raises:
-there is no fallback.  The module also holds the operator namespace
-``taichi_nerfs_torch`` (:data:`LIB`) on which the wrappers register their
-kernels, :func:`entry`, which binds a kernel's C entry, and :func:`launch`,
-which calls it on PyTorch's current stream.
+there is no fallback.
+
+The module is also the one boundary between the port and its kernels:
+:func:`declare` makes a C entry the operator ``taichi_nerfs_torch::<name>``
+(on :data:`LIB`), :data:`LAUNCHES` counts every launch, and
+:func:`on_cuda` is the one device rule of the wrappers (CUDA: the operator;
+CPU: the plain version; anything else raises).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -118,22 +122,69 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(path)
 
 
-@functools.lru_cache(maxsize=None)
-def entry(name: str, argtypes: tuple, symbol: str | None = None):
-    """The C entry ``symbol`` (default ``name``) of ``csrc/<name>.cu``
-    (built and loaded if needed): it returns a CUDA error code and takes
-    ``argtypes``, then the stream."""
-    fn = getattr(load(name), symbol or name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    return fn
+# Every launch in this process, by C entry (``swr_sweep_bwd_rows``: the
+# second kernel that the entry ``swr_sweep_bwd`` launches for a bf16 volume
+# or bf16 operands).  A fake (traced) call counts nothing.
+LAUNCHES: collections.Counter = collections.Counter()
 
 
-def launch(name: str, fn, device, *args) -> None:
-    """Call the C entry ``fn`` (of kernel ``name``) with ``args`` and the
-    current stream of ``device``; raise if it returns a CUDA error."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+def launch_counts() -> str:
+    """This process's launches so far, on a line of their own as the
+    scripts print them: ``launches: swr_sweep_fwd=N swr_sweep_bwd=M
+    band_warp=K``."""
+    return (f"launches: swr_sweep_fwd={LAUNCHES['swr_sweep_fwd']} "
+            f"swr_sweep_bwd={LAUNCHES['swr_sweep_bwd']} "
+            f"band_warp={LAUNCHES['swr_warp']}")
+
+
+def on_cuda(t: torch.Tensor, what: str) -> bool:
+    """Whether ``t`` takes the ``what`` kernel: True on CUDA, False on the
+    CPU (the caller runs the plain version); any other device raises, as
+    there is no kernel and no fallback."""
+    kind = t.device.type
+    if kind == "cuda":
+        return True
+    if kind != "cpu":
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    return False
+
+
+def declare(schema: str, library: str, argtypes: tuple, fake, impl,
+            symbol: str | None = None):
+    """Declare the operator ``taichi_nerfs_torch::<name>`` of ``schema`` on
+    the C entry ``symbol`` (default ``library``) of ``csrc/<library>.cu``,
+    which returns a CUDA error code and takes ``argtypes``, then the stream.
+
+    ``fake(*args)`` checks the operator's arguments and allocates its
+    outputs: tracing (``torch.export``) runs it for their shapes, and a
+    CUDA call for the outputs the kernel writes.  ``impl(launch, outputs,
+    *args)`` passes the kernel its pointers and sizes: ``launch(device, *C
+    arguments)``, or nothing with nothing to do.  ``launch`` binds the entry
+    at its first call, launches on ``device``'s current stream, raises on a
+    CUDA error and counts the launch in :data:`LAUNCHES` under ``symbol``.
+    """
+    name = schema[: schema.index("(")]
+    symbol = symbol or library
+    fn = None
+
+    def launch(device, *c_args):
+        nonlocal fn
+        if fn is None:
+            fn = getattr(load(library), symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(*c_args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
+        LAUNCHES[symbol] += 1
+
+    def cuda(*args):
+        out = fake(*args)
+        impl(launch, out, *args)
+        return out
+
+    LIB.define(schema)
+    LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{LIB.ns}::{name}", fake, lib=LIB)

@@ -48,7 +48,7 @@ import torch
 
 from ..config import BrickGridConfig
 from ..utils import profiling
-from ._build import LIB, entry, launch
+from ._build import declare, on_cuda
 from .hash_encoder import fast_hash, level_scales, linear_index
 from .math import as_u32
 
@@ -352,83 +352,61 @@ def _check_kernel_args(corners, bricks, xyz, feats, scales, info):
                              f"fit the tables")
 
 
-def _launch(name, *args):
-    fn = entry("brick_encode", _ARGTYPES[name], name)
-    dev = args[0].device
-    ptrs = [t.data_ptr() for t in args[:4]]
-    launch("brick_encode", fn, dev, *ptrs, *args[4:])
-    brick_encode.launches += 1
-
-
-# pointers (xyz, corners, bricks, out) / (dout, xyz, dcorners, dbricks),
-# then M, L, F (and bf16, forward), then the level table
-_ARGTYPES = {
-    "brick_encode_fwd": ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
-                         + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2),
-    "brick_encode_bwd": ((ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
-                         + (ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 2),
-}
-
-LIB.define(
-    "brick_encode_fwd(Tensor corners, Tensor bricks, Tensor xyz, "
-    "float[] scales, int[] info, bool bf16) -> Tensor")
-LIB.define(
-    "brick_encode_bwd(Tensor dout, Tensor xyz, int n_corners, int n_bricks, "
-    "float[] scales, int[] info) -> (Tensor, Tensor)")
-
-
-def _fwd_op(corners, bricks, xyz, scales, info, bf16):
+def _fwd_fake(corners, bricks, xyz, scales, info, bf16):
     out = xyz.new_empty((xyz.shape[0], len(scales) * corners.shape[1]))
     _check_kernel_args(corners, bricks, xyz, out, scales, info)
+    return out
+
+
+def _fwd_op(launch, out, corners, bricks, xyz, scales, info, bf16):
     # the kernel reads the tables in 16-byte vectors
     if corners.data_ptr() % 16 or bricks.data_ptr() % 16:
         raise ValueError("the brick-encode kernel reads corners and bricks "
                          "16-byte aligned")
     if xyz.shape[0]:
         c_scales, c_info = _c_levels(tuple(scales), tuple(info))
-        _launch("brick_encode_fwd", xyz, corners, bricks, out, xyz.shape[0],
-                len(scales), corners.shape[1], int(bf16),
-                ctypes.addressof(c_scales), ctypes.addressof(c_info))
-    return out
+        launch(xyz.device, xyz.data_ptr(), corners.data_ptr(),
+               bricks.data_ptr(), out.data_ptr(), xyz.shape[0], len(scales),
+               corners.shape[1], int(bf16), ctypes.addressof(c_scales),
+               ctypes.addressof(c_info))
 
 
-def _table_grads(dout, n_corners, n_bricks, scales, empty=torch.zeros):
-    """The (n_corners, F) and (n_bricks, 8F) fp32 table gradients."""
+def _bwd_fake(dout, xyz, n_corners, n_bricks, scales, info):
+    """The (n_corners, F) and (n_bricks, 8F) fp32 table gradients, zeroed
+    (the kernel adds into them)."""
     F = dout.shape[1] // max(len(scales), 1)
-    return (empty((n_corners, F), dtype=torch.float32, device=dout.device),
-            empty((n_bricks, 8 * F), dtype=torch.float32, device=dout.device))
-
-
-def _bwd_op(dout, xyz, n_corners, n_bricks, scales, info):
-    dcorners, dbricks = _table_grads(dout, n_corners, n_bricks, scales)
+    dcorners = torch.zeros((n_corners, F), dtype=torch.float32,
+                           device=dout.device)
+    dbricks = torch.zeros((n_bricks, 8 * F), dtype=torch.float32,
+                          device=dout.device)
     _check_kernel_args(dcorners, dbricks, xyz, dout, scales, info)
+    return dcorners, dbricks
+
+
+def _bwd_op(launch, grads, dout, xyz, n_corners, n_bricks, scales, info):
+    dcorners, dbricks = grads
     if xyz.shape[0]:
         c_scales, c_info = _c_levels(tuple(scales), tuple(info))
-        _launch("brick_encode_bwd", dout, xyz, dcorners, dbricks,
-                xyz.shape[0], len(scales), dcorners.shape[1],
-                ctypes.addressof(c_scales), ctypes.addressof(c_info))
-    return dcorners, dbricks
+        launch(dout.device, dout.data_ptr(), xyz.data_ptr(),
+               dcorners.data_ptr(), dbricks.data_ptr(), xyz.shape[0],
+               len(scales), dcorners.shape[1], ctypes.addressof(c_scales),
+               ctypes.addressof(c_info))
 
 
-@torch.library.register_fake("taichi_nerfs_torch::brick_encode_fwd",
-                             lib=LIB)
-def _(corners, bricks, xyz, scales, info, bf16):
-    out = xyz.new_empty((xyz.shape[0], len(scales) * corners.shape[1]))
-    _check_kernel_args(corners, bricks, xyz, out, scales, info)
-    return out
-
-
-@torch.library.register_fake("taichi_nerfs_torch::brick_encode_bwd",
-                             lib=LIB)
-def _(dout, xyz, n_corners, n_bricks, scales, info):
-    dcorners, dbricks = _table_grads(dout, n_corners, n_bricks, scales,
-                                     torch.empty)
-    _check_kernel_args(dcorners, dbricks, xyz, dout, scales, info)
-    return dcorners, dbricks
-
-
-LIB.impl("brick_encode_fwd", _fwd_op, "CUDA")
-LIB.impl("brick_encode_bwd", _bwd_op, "CUDA")
+# C arguments: pointers (xyz, corners, bricks, out) / (dout, xyz, dcorners,
+# dbricks), then M, L, F (and bf16, forward), then the level table
+declare(
+    "brick_encode_fwd(Tensor corners, Tensor bricks, Tensor xyz, "
+    "float[] scales, int[] info, bool bf16) -> Tensor",
+    "brick_encode", (ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2,
+    _fwd_fake, _fwd_op, symbol="brick_encode_fwd")
+declare(
+    "brick_encode_bwd(Tensor dout, Tensor xyz, int n_corners, int n_bricks, "
+    "float[] scales, int[] info) -> (Tensor, Tensor)",
+    "brick_encode", (ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+    + (ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 2,
+    _bwd_fake, _bwd_op, symbol="brick_encode_bwd")
 
 
 class _BrickEncode(torch.autograd.Function):
@@ -437,12 +415,9 @@ class _BrickEncode(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, corners, bricks, xyz, layout):
-        if xyz.device.type == "cpu":
+        if not on_cuda(xyz, "brick-encode"):
             return _BrickEncodeReference.forward(ctx, corners, bricks, xyz,
                                                  layout)
-        if xyz.device.type != "cuda":
-            raise ValueError(f"no brick-encode kernel for device "
-                             f"{xyz.device}")
         # the cells and weights are recomputed from xyz in the backward
         ctx.save_for_backward(xyz)
         ctx.layout = layout
@@ -454,7 +429,7 @@ class _BrickEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         with profiling.span("ngp.encode"):
-            if dout.device.type == "cpu":
+            if not on_cuda(dout, "brick-encode"):
                 return _BrickEncodeReference.backward(ctx, dout)
             (xyz,) = ctx.saved_tensors
             dcorners, dbricks = torch.ops.taichi_nerfs_torch.brick_encode_bwd(
@@ -473,16 +448,13 @@ def brick_encode(params, xyz: torch.Tensor,
 
     CUDA positions run ``csrc/brick_encode.cu`` (operators
     ``taichi_nerfs_torch::brick_encode_fwd`` / ``::brick_encode_bwd``, each
-    launch counted in ``brick_encode.launches``) and raise where the
-    kernels take no such layout or tensors; CPU positions run the plain
-    version, :func:`brick_encode_reference`'s."""
+    launch counted in ``_build.LAUNCHES``) and raise where the kernels take
+    no such layout or tensors; CPU positions run the plain version,
+    :func:`brick_encode_reference`'s."""
     batch_shape = xyz.shape[:-1]
     out = _BrickEncode.apply(params["corners"], params["bricks"],
                              _flat_positions(xyz), layout)
     return out.reshape(*batch_shape, layout.out_dim)
-
-
-brick_encode.launches = 0
 
 
 def brick_encode_reference(params, xyz: torch.Tensor,

@@ -39,8 +39,8 @@ import ctypes
 import torch
 
 from ._build import LIB as _LIB
-from ._build import entry, launch
-from .warp import band_warp, interp_kernel
+from ._build import LAUNCHES, declare, on_cuda
+from .warp import interp_kernel
 
 _KINDS = {"linear": 0, "cubic": 1}
 _KERNEL_F = (4, 8, 16)
@@ -222,22 +222,6 @@ def _check_bwd_args(vol_cs, frames, g, nq):
             raise ValueError(f"{name} must be contiguous")
 
 
-# each kernel's C arguments before the stream: pointers, then (n_chunks,
-# dc, F, Rb, Rc, nq, kind, vol dtype, operand dtype)
-_ARGTYPES = {
-    name: (ctypes.c_void_p,) * n_ptr + (ctypes.c_int,) * 9
-    for name, n_ptr in (("swr_sweep_fwd", 5), ("swr_sweep_bwd", 8))
-}
-
-
-def _kernel_fn(name: str):
-    return entry(name, _ARGTYPES[name])
-
-
-def _launch(name: str, device, *args) -> None:
-    launch(name, _kernel_fn(name), device, *args)
-
-
 def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
                               kind="linear", dtype=torch.float32):
     """Plain PyTorch backward: autograd of :func:`chunk_sweep_reference`,
@@ -249,75 +233,69 @@ def chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g, nq,
     return dvol
 
 
-# The kernels as registered operators on ``_build.LIB`` (see there).  The
-# implementations launch the kernels and count the launches; they are
-# registered for CUDA tensors only (the CPU branches of the wrappers below
-# run the plain versions outside the operators: autograd does not run
-# inside an operator's implementation).  Neither mutates its inputs.
-_LIB.define(
-    "swr_sweep_fwd(Tensor vol_cs, Tensor rs_par, Tensor z_rel, "
-    "Tensor ch_par, int nq, str kind, ScalarType dtype) -> Tensor")
-_LIB.define(
-    "swr_sweep_bwd(Tensor vol_cs, Tensor rs_par, Tensor z_rel, "
-    "Tensor ch_par, Tensor frames, Tensor g, int nq, str kind, "
-    "ScalarType dtype) -> Tensor")
+# The kernels as registered operators (``_build.declare``), for CUDA tensors
+# only: the CPU branches of the wrappers below run the plain versions
+# outside the operators (autograd does not run inside an operator's
+# implementation).  Neither mutates its inputs.  Each kernel's C arguments
+# before the stream: pointers, then (n_chunks, dc, F, Rb, Rc, nq, kind, vol
+# dtype, operand dtype).
 
 
-def _sweep_fwd_op(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
-    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
-    nc, dc, F, Rb, Rc = vol_cs.shape
-    out = torch.empty(
-        (nc, F + 2, nq, nq), dtype=torch.float32, device=vol_cs.device
-    )
-    _launch(
-        "swr_sweep_fwd", vol_cs.device,
-        vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
-        ch_par.data_ptr(), out.data_ptr(),
-        nc, dc, F, Rb, Rc, nq, _KINDS[kind], _DTYPES[vol_cs.dtype],
-        _DTYPES[dtype],
-    )
-    chunk_sweep.launches += 1
-    return out
-
-
-@torch.library.register_fake("taichi_nerfs_torch::swr_sweep_fwd", lib=_LIB)
-def _(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
+def _sweep_fwd_fake(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype):
     _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
     nc, _, F = vol_cs.shape[:3]
     return vol_cs.new_empty((nc, F + 2, nq, nq), dtype=torch.float32)
 
 
-def _sweep_bwd_op(vol_cs, rs_par, z_rel, ch_par, frames, g, nq, kind, dtype):
+def _sweep_fwd_op(launch, out, vol_cs, rs_par, z_rel, ch_par, nq, kind,
+                  dtype):
+    nc, dc, F, Rb, Rc = vol_cs.shape
+    launch(
+        vol_cs.device,
+        vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
+        ch_par.data_ptr(), out.data_ptr(),
+        nc, dc, F, Rb, Rc, nq, _KINDS[kind], _DTYPES[vol_cs.dtype],
+        _DTYPES[dtype],
+    )
+
+
+def _sweep_bwd_fake(vol_cs, rs_par, z_rel, ch_par, frames, g, nq, kind,
+                    dtype):
     _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
     _check_bwd_args(vol_cs, frames, g, nq)
+    return torch.empty_like(vol_cs)
+
+
+def _sweep_bwd_op(launch, dvol, vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
+                  kind, dtype):
     nc, dc, F, Rb, Rc = vol_cs.shape
-    dvol = torch.empty_like(vol_cs)
     scratch = None
     if torch.bfloat16 in (vol_cs.dtype, dtype):
         scratch = torch.empty((nc, dc, F, nq, Rc), dtype=torch.float32,
                               device=vol_cs.device)
-    _launch(
-        "swr_sweep_bwd", vol_cs.device,
+    launch(
+        vol_cs.device,
         vol_cs.data_ptr(), rs_par.data_ptr(), z_rel.data_ptr(),
         ch_par.data_ptr(), frames.data_ptr(), g.data_ptr(), dvol.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         nc, dc, F, Rb, Rc, nq, _KINDS[kind], _DTYPES[vol_cs.dtype],
         _DTYPES[dtype],
     )
-    chunk_sweep_bwd.launches += 1
-    chunk_sweep_bwd.finish_launches += int(scratch is not None)
-    return dvol
+    if scratch is not None:  # the entry ran the rows kernel too
+        LAUNCHES["swr_sweep_bwd_rows"] += 1
 
 
-@torch.library.register_fake("taichi_nerfs_torch::swr_sweep_bwd", lib=_LIB)
-def _(vol_cs, rs_par, z_rel, ch_par, frames, g, nq, kind, dtype):
-    _check_kernel_args(vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
-    _check_bwd_args(vol_cs, frames, g, nq)
-    return torch.empty_like(vol_cs)
-
-
-_LIB.impl("swr_sweep_fwd", _sweep_fwd_op, "CUDA")
-_LIB.impl("swr_sweep_bwd", _sweep_bwd_op, "CUDA")
+declare(
+    "swr_sweep_fwd(Tensor vol_cs, Tensor rs_par, Tensor z_rel, "
+    "Tensor ch_par, int nq, str kind, ScalarType dtype) -> Tensor",
+    "swr_sweep_fwd", (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9,
+    _sweep_fwd_fake, _sweep_fwd_op)
+declare(
+    "swr_sweep_bwd(Tensor vol_cs, Tensor rs_par, Tensor z_rel, "
+    "Tensor ch_par, Tensor frames, Tensor g, int nq, str kind, "
+    "ScalarType dtype) -> Tensor",
+    "swr_sweep_bwd", (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9,
+    _sweep_bwd_fake, _sweep_bwd_op)
 
 
 def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
@@ -329,21 +307,18 @@ def chunk_sweep_bwd(vol_cs, rs_par, z_rel, ch_par, frames, g, nq,
     stream or raises, through the operator
     ``taichi_nerfs_torch::swr_sweep_bwd``: a memset and the sweep kernel,
     which adds the tiles' sums with atomics (so the last bits may differ
-    from run to run), counted in ``chunk_sweep_bwd.launches``.  With an
-    fp32 ``vol_cs`` and fp32 operands the sums are ``dvol``'s.  With a bf16
-    ``vol_cs`` or bf16 operands they are the transposed pass's ``t``, added
-    into an fp32 scratch ``(n_chunks, dc, F, nq, Rc)``, and a second kernel
-    (``swr_sweep_bwd_rows_kernel``, counted in
-    ``chunk_sweep_bwd.finish_launches``) rounds each ``t`` once (bf16
-    operands) and resamples them back along b into ``dvol``, each voxel
-    stored once in ``vol_cs``'s dtype.  On a CPU tensor it runs
+    from run to run).  With an fp32 ``vol_cs`` and fp32 operands the sums
+    are ``dvol``'s.  With a bf16 ``vol_cs`` or bf16 operands they are the
+    transposed pass's ``t``, added into an fp32 scratch ``(n_chunks, dc, F,
+    nq, Rc)``, and a second kernel (``swr_sweep_bwd_rows_kernel``, counted
+    in ``_build.LAUNCHES`` under ``swr_sweep_bwd_rows``) rounds each ``t``
+    once (bf16 operands) and resamples them back along b into ``dvol``,
+    each voxel stored once in ``vol_cs``'s dtype.  On a CPU tensor it runs
     :func:`chunk_sweep_bwd_reference` (``frames`` unused there).
     """
-    if vol_cs.device.type == "cpu":
+    if not on_cuda(vol_cs, "sweep"):
         return chunk_sweep_bwd_reference(vol_cs, rs_par, z_rel, ch_par, g,
                                          nq, kind, dtype)
-    if vol_cs.device.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {vol_cs.device}")
     # the kernel indexes g[c, ch, i, j] directly: a cotangent that reaches
     # here as a strided view of the fold's frame slices is copied once
     return torch.ops.taichi_nerfs_torch.swr_sweep_bwd(
@@ -388,29 +363,13 @@ def chunk_sweep(
     or bf16; ``dtype`` is the resample operand dtype (the JAX
     ``chunk_sweep``'s ``dtype``).  On a CUDA tensor it launches
     ``csrc/swr_sweep_fwd.cu`` on the current stream (counted in
-    ``chunk_sweep.launches``) or raises, through the operator
+    ``_build.LAUNCHES``) or raises, through the operator
     ``taichi_nerfs_torch::swr_sweep_fwd``, and a gradient asked of
     ``vol_cs`` runs :func:`chunk_sweep_bwd`'s kernel; on a CPU tensor it
     runs :func:`chunk_sweep_reference` under autograd.
     """
-    if vol_cs.device.type == "cpu":
+    if not on_cuda(vol_cs, "sweep"):
         return chunk_sweep_reference(vol_cs, rs_par, z_rel, ch_par, nq, kind,
                                      dtype)
-    if vol_cs.device.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {vol_cs.device}")
     return torch.ops.taichi_nerfs_torch.swr_sweep_fwd(
         vol_cs, rs_par, z_rel, ch_par, nq, kind, dtype)
-
-
-chunk_sweep.launches = 0
-chunk_sweep_bwd.launches = 0
-chunk_sweep_bwd.finish_launches = 0
-
-
-def launch_counts() -> str:
-    """This process's kernel launches so far, on a line of their own as the
-    scripts print them: ``launches: swr_sweep_fwd=N swr_sweep_bwd=M
-    band_warp=K``."""
-    return (f"launches: swr_sweep_fwd={chunk_sweep.launches} "
-            f"swr_sweep_bwd={chunk_sweep_bwd.launches} "
-            f"band_warp={band_warp.launches}")

@@ -33,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as nnf
 
-from ._build import LIB, entry, launch
+from ._build import declare, on_cuda
 
 
 def residual_window(
@@ -322,34 +322,25 @@ def _check_band_warp_args(img, lj, behind, geo, axis, warp, dtype):
             raise ValueError(f"{name} must be contiguous")
 
 
-# pointers (img, lj, behind, geo, out), then (C, nq, H, W, axis, warp,
-# operand dtype)
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
-
-LIB.define(
-    "swr_band_warp(Tensor img, Tensor lj, Tensor behind, Tensor geo, "
-    "int axis, str warp, ScalarType dtype) -> Tensor")
-
-
-def _band_warp_op(img, lj, behind, geo, axis, warp, dtype):
-    _check_band_warp_args(img, lj, behind, geo, axis, warp, dtype)
-    (h, w), (c, nq) = lj.shape, img.shape[:2]
-    out = torch.empty((c, h, w), dtype=torch.float32, device=img.device)
-    launch("swr_warp", entry("swr_warp", _ARGTYPES), img.device,
-           img.data_ptr(), lj.data_ptr(), behind.data_ptr(), geo.data_ptr(),
-           out.data_ptr(), c, nq, h, w, axis, _WARPS[warp],
-           _OP_DTYPES[dtype])
-    band_warp.launches += 1
-    return out
-
-
-@torch.library.register_fake("taichi_nerfs_torch::swr_band_warp", lib=LIB)
-def _(img, lj, behind, geo, axis, warp, dtype):
+def _band_warp_fake(img, lj, behind, geo, axis, warp, dtype):
     _check_band_warp_args(img, lj, behind, geo, axis, warp, dtype)
     return img.new_empty((img.shape[0], *lj.shape), dtype=torch.float32)
 
 
-LIB.impl("swr_band_warp", _band_warp_op, "CUDA")
+def _band_warp_op(launch, out, img, lj, behind, geo, axis, warp, dtype):
+    (h, w), (c, nq) = lj.shape, img.shape[:2]
+    launch(img.device, img.data_ptr(), lj.data_ptr(), behind.data_ptr(),
+           geo.data_ptr(), out.data_ptr(), c, nq, h, w, axis, _WARPS[warp],
+           _OP_DTYPES[dtype])
+
+
+# C arguments: pointers (img, lj, behind, geo, out), then (C, nq, H, W,
+# axis, warp, operand dtype)
+declare(
+    "swr_band_warp(Tensor img, Tensor lj, Tensor behind, Tensor geo, "
+    "int axis, str warp, ScalarType dtype) -> Tensor",
+    "swr_warp", (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7,
+    _band_warp_fake, _band_warp_op)
 
 
 def band_warp(img, lj, behind, pose, K, frame, axis, warp,
@@ -361,20 +352,15 @@ def band_warp(img, lj, behind, pose, K, frame, axis, warp,
     every served frame) runs
     ``csrc/swr_warp.cu`` on the current stream through the operator
     ``taichi_nerfs_torch::swr_band_warp``, counted in
-    ``band_warp.launches``: only the two nonzero tents of each pass, with
+    ``_build.LAUNCHES``: only the two nonzero tents of each pass, with
     the per-frame scalars packed into one small device tensor (no host
     read).  The kernel has no backward: a frame under autograd (a training
     step) and a CPU frame run :func:`band_warp_reference`.
     """
-    if img.device.type == "cpu" or img.requires_grad:
+    if img.requires_grad or not on_cuda(img, "band-warp"):
         return band_warp_reference(img, lj, behind, pose, K, frame, axis,
                                    warp, rs_dtype)
-    if img.device.type != "cuda":
-        raise ValueError(f"no band-warp kernel for device {img.device}")
     geo = torch.cat([pose.reshape(-1), K.reshape(-1),
                      *(x.reshape(1) for x in frame)])
     return torch.ops.taichi_nerfs_torch.swr_band_warp(
         img, lj, behind, geo, axis, warp, rs_dtype)
-
-
-band_warp.launches = 0

@@ -119,7 +119,7 @@ def make_mesh(n_devices: int | None = None, *, device,
 def _rank_main(rank: int, payload: bytes, n: int, device, backend: str,
                init_file: str, out_dir: str) -> None:
     # a spawned process starts from torch's defaults: keep the renderer's
-    # full-fp32 matmuls (render/serve.py:_require_fp32_matmul)
+    # full-fp32 matmuls (utils/device.py:require_fp32_matmul)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = _rank_device(device, rank)

@@ -40,16 +40,8 @@ import torch
 
 from ..models import pyramid as pyr
 from ..utils import profiling
-from ..utils.device import resolve_device
+from ..utils.device import require_fp32_matmul, resolve_device
 from .swr import _RS_DTYPES, _host_f32, render_swr, render_swr_inside
-
-
-def _require_fp32_matmul():
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is on; the renderer "
-            "needs full-fp32 matmuls"
-        )
 
 
 class PyramidRenderer:
@@ -124,7 +116,7 @@ class PyramidRenderer:
         if self._grid is None:
             from ..train.swr_step import apply_sigma_keep, camera_keep_mask
 
-            _require_fp32_matmul()
+            require_fp32_matmul()
             cfg = self.cfg
             with torch.no_grad():
                 grid = pyr.bake(self.params, cfg, _RS_DTYPES[self.bake_dtype])
@@ -159,7 +151,7 @@ class PyramidRenderer:
         """
         from ..train.swr_step import is_inside
 
-        _require_fp32_matmul()
+        require_fp32_matmul()
         cfg = self.cfg
         if lat_cap == "auto":
             lat_cap = int(1.25 * cfg.grid_res) + 16
@@ -302,35 +294,8 @@ def _profile(rend, poses, lat_cap, device, out_dir):
         if cuda:
             torch.cuda.synchronize(device)
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, f"{len(poses)} frames", cuda, out_dir)
-
-
-def report_profile(prof, wall_us: float, what: str, cuda: bool,
-                   out_dir: str | None) -> float:
-    """Print a finished profile's op table (by self device time on the
-    card, self CPU time otherwise) and, on the card, the device-busy share
-    of ``wall_us``; write ``trace.json`` to ``out_dir`` (if given).
-    Returns the device-busy microseconds (0 off the card)."""
-    from torch.autograd import DeviceType
-
-    avgs = prof.key_averages()
-    key = "self_device_time_total" if cuda else "self_cpu_time_total"
-    print(avgs.table(sort_by=key, row_limit=25), flush=True)
-    busy_us = 0.0
-    if cuda:
-        # kernel time only: the spans' device-side ranges (user
-        # annotations) would count their kernels twice
-        busy_us = sum(
-            e.self_device_time_total for e in avgs
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-        )
-        print(f"profile: {what} in {wall_us / 1e3:.3f} ms wall, "
-              f"device busy {busy_us / 1e3:.3f} ms "
-              f"({100.0 * busy_us / wall_us:.1f}%)", flush=True)
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    return busy_us
+    profiling.report_profile(prof, wall_us, f"{len(poses)} frames", cuda,
+                             out_dir)
 
 
 if __name__ == "__main__":

@@ -206,7 +206,7 @@ def _fit(trainer, max_steps, profile_dir, device, n_prof=3):
         return trainer.fit(max_steps)
     from torch.profiler import ProfilerActivity, profile
 
-    from ..render.serve import report_profile
+    from ..utils.profiling import report_profile
 
     n = min(n_prof, max_steps)
     if max_steps > n:

@@ -29,8 +29,8 @@ import torch
 
 from ..config import Config
 from ..models.occupancy import all_cells, mark_invisible_cells
-from ..render.serve import _require_fp32_matmul
 from ..utils import profiling
+from ..utils.device import require_fp32_matmul
 from .state import TrainState, create_train_state
 from .step import Batch, density_grid_step, draw_step, train_step
 
@@ -165,7 +165,7 @@ class Trainer:
         """One step (opening with the scheduled refresh), inside the span
         ``ngp.step``."""
         with profiling.span("ngp.step"):
-            _require_fp32_matmul()
+            require_fp32_matmul()
             cfg = self.cfg
             if self.step % cfg.train.update_interval == 0:
                 warmup = self.step < cfg.train.warmup_steps

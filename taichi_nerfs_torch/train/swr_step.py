@@ -56,7 +56,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models import pyramid as pyr
-from ..render.serve import _require_fp32_matmul
 from ..render.swr import (
     _RS_DTYPES,
     _as_f32,
@@ -72,7 +71,7 @@ from ..render.swr import (
 )
 from ..utils import profiling
 from ..utils.convert import load_pyramid_npz
-from ..utils.device import resolve_device
+from ..utils.device import require_fp32_matmul, resolve_device
 from .state import Adam, AdamState, tree_leaves, tree_map
 from .state import trainable as _trainable
 
@@ -763,7 +762,7 @@ class SwrTrainer:
         :meth:`draw_sharded`, if None)."""
         with profiling.span("swr.step"):
             with profiling.span("swr.plan"):
-                _require_fp32_matmul()
+                require_fp32_matmul()
                 self._advance_phases()
                 if self.mesh is not None:
                     draw = draw or self.draw_sharded()
@@ -836,7 +835,7 @@ class SwrTrainer:
         resample operands are fp32, as the JAX trainer renders.  A camera
         inside the grid renders through :func:`render_swr_inside`, with no
         early exit."""
-        _require_fp32_matmul()
+        require_fp32_matmul()
         if self._grid_cache[0] != self.step:
             with torch.no_grad():
                 grid = pyr.bake(self.state.params, self.cur_mcfg,

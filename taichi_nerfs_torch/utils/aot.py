@@ -254,8 +254,8 @@ def load_pyramid_renderer(out_dir: str, device=None) -> Callable:
     with TF32 matmuls on (``RuntimeError``: the fold is a matmul, and the
     switch is a runtime setting that the artifact does not carry).
     """
-    from ..render.serve import _require_fp32_matmul
     from ..render.swr import _host_f32
+    from .device import require_fp32_matmul
 
     fns = {(a, f): load_compiled(out_dir, _entry_name(a, f), device)
            for a in range(3) for f in (0, 1)}
@@ -264,7 +264,7 @@ def load_pyramid_renderer(out_dir: str, device=None) -> Callable:
     scale = float(meta[_entry_name(0, 0)]["scale"])
 
     def render(grid, rgb_mlp, pose):
-        _require_fp32_matmul()
+        require_fp32_matmul()
         p = _host_f32(pose).reshape(3, 4)
         axis = int(np.argmax(np.abs(p[:, 2])))
         flip = int(p[axis, 3] > 0)

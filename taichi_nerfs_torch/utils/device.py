@@ -22,6 +22,16 @@ def resolve_device(device, how_to_ask_for_cpu: str) -> torch.device:
     return dev
 
 
+def require_fp32_matmul() -> None:
+    """Raise if TF32 matmuls are on: the renderer and the trainers need
+    full-fp32 matmuls (PyTorch's default)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on; the renderer "
+            "needs full-fp32 matmuls"
+        )
+
+
 def card_line() -> str:
     """The first card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them."""

@@ -1,5 +1,7 @@
 """The port's tracing: named profiler ranges that cost nothing with no
-profiler, and host timers of device work.
+profiler, host timers of device work, and :func:`report_profile`, the op
+table and device-busy share that the entries' ``--profile`` /
+``--profile_dir`` print.
 
 :func:`span` and :func:`backward_span` are the ranges the benchmark reads
 (``benchmark/harness/trace.py`` charges each kernel to the ranges open on
@@ -13,6 +15,7 @@ turns the profiler on.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import List, Sequence
 
@@ -122,3 +125,31 @@ def spread(ms: List[float]) -> str:
     med = s[mid] if len(s) % 2 else 0.5 * (s[mid - 1] + s[mid])
     return (f"median {med:8.3f} ms (min {s[0]:.3f}, max {s[-1]:.3f}, "
             f"{len(s)} runs)")
+
+
+def report_profile(prof, wall_us: float, what: str, cuda: bool,
+                   out_dir: str | None) -> float:
+    """Print a finished profile's op table (by self device time on the
+    card, self CPU time otherwise) and, on the card, the device-busy share
+    of ``wall_us``; write ``trace.json`` to ``out_dir`` (if given).
+    Returns the device-busy microseconds (0 off the card)."""
+    from torch.autograd import DeviceType
+
+    avgs = prof.key_averages()
+    key = "self_device_time_total" if cuda else "self_cpu_time_total"
+    print(avgs.table(sort_by=key, row_limit=25), flush=True)
+    busy_us = 0.0
+    if cuda:
+        # kernel time only: the spans' device-side ranges (user
+        # annotations) would count their kernels twice
+        busy_us = sum(
+            e.self_device_time_total for e in avgs
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+        )
+        print(f"profile: {what} in {wall_us / 1e3:.3f} ms wall, "
+              f"device busy {busy_us / 1e3:.3f} ms "
+              f"({100.0 * busy_us / wall_us:.1f}%)", flush=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    return busy_us

@@ -38,6 +38,7 @@ from torch_port_helpers import (
 from taichi_nerfs_torch.data.cameras import look_at
 from taichi_nerfs_torch.models import pyramid as tpyr
 from taichi_nerfs_torch.ops import swr_sweep as tsw
+from taichi_nerfs_torch.ops._build import LAUNCHES
 from taichi_nerfs_torch.render import swr as tswr
 from taichi_nerfs_torch.utils import aot as taot
 from taichi_nerfs_torch.utils.convert import pyramid_params_from_numpy
@@ -256,7 +257,7 @@ def test_fake_ops_match_plain_shapes(F, vol_dtype):
     g = torch.ones_like(frames)
     dvol = tsw.chunk_sweep_bwd_reference(*cpu, g, nq, "cubic",
                                          torch.bfloat16)
-    launches = (tsw.chunk_sweep.launches, tsw.chunk_sweep_bwd.launches)
+    launches = (LAUNCHES["swr_sweep_fwd"], LAUNCHES["swr_sweep_bwd"])
     with FakeTensorMode():
         fake = [torch.empty(x.shape, dtype=x.dtype, device="cuda")
                 for x in cpu]
@@ -268,8 +269,7 @@ def test_fake_ops_match_plain_shapes(F, vol_dtype):
     assert (tuple(d.shape), d.dtype, d.device.type) == (
         tuple(dvol.shape), dvol.dtype, "cuda")
     # a fake run launches nothing
-    assert (tsw.chunk_sweep.launches,
-            tsw.chunk_sweep_bwd.launches) == launches
+    assert (LAUNCHES["swr_sweep_fwd"], LAUNCHES["swr_sweep_bwd"]) == launches
 
 
 def test_fake_op_checks_its_arguments():
@@ -388,10 +388,10 @@ def test_artifact_for_two_platforms_on_card(cuda_device, tmp_path):
     pose = _pose(EYES[0])
     rc = taot.load_pyramid_renderer(out, device="cuda")
     rcpu = taot.load_pyramid_renderer(out, device="cpu")
-    n0 = tsw.chunk_sweep.launches
+    n0 = LAUNCHES["swr_sweep_fwd"]
     a = rc(grid, params["rgb_mlp"], pose)["rgb"]
     torch.cuda.synchronize()
-    assert tsw.chunk_sweep.launches == n0 + 1
+    assert LAUNCHES["swr_sweep_fwd"] == n0 + 1
     b = rcpu(grid.cpu(), {k: v.cpu() for k, v in params["rgb_mlp"].items()},
              pose)["rgb"]
     np.testing.assert_allclose(np32(a), np32(b), rtol=JAX_TOL, atol=JAX_TOL)

@@ -25,6 +25,7 @@ from torch_port_helpers import numpy_pyramid_params
 from taichi_nerfs_torch.data.cameras import look_at
 from taichi_nerfs_torch.models import pyramid as tpyr
 from taichi_nerfs_torch.ops import warp as tw
+from taichi_nerfs_torch.ops._build import LAUNCHES
 from taichi_nerfs_torch.render import swr as tswr
 from taichi_nerfs_torch.utils.convert import pyramid_params_from_numpy
 
@@ -297,11 +298,11 @@ def test_two_tap_sums_equal_the_reference(cpu_inputs, case, warp, dtype):
 
 def test_wrapper_takes_the_reference_on_the_cpu(cpu_inputs):
     a = cpu_inputs["camera_x"]
-    n = tw.band_warp.launches
+    n = LAUNCHES["swr_warp"]
     got = _call(tw.band_warp, a, "matmul", torch.float32)
     assert torch.equal(got, _call(tw.band_warp_reference, a, "matmul",
                                   torch.float32))
-    assert tw.band_warp.launches == n
+    assert LAUNCHES["swr_warp"] == n
 
 
 def test_wrapper_takes_the_reference_under_autograd(cpu_inputs):
@@ -340,6 +341,26 @@ def test_fake_gives_the_shape_and_dtype(warp, dtype):
     out = torch.ops.taichi_nerfs_torch.swr_band_warp(*args)
     assert out.device.type == "meta"
     assert out.shape == (5, 7, 11) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("warp", WARPS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_operator_hands_the_kernel_its_arguments(warp, dtype):
+    """What the operator passes to the C entry, recorded on CPU tensors by
+    the ``launch`` the implementation is given, the output allocated by the
+    fake version: the device, the pointers (img, lj, behind, geo, out), then
+    (C, nq, H, W, axis, warp, operand dtype)."""
+    args = [torch.zeros((5, 13, 13)), torch.zeros((7, 11)),
+            torch.zeros((7, 11), dtype=torch.bool),
+            torch.zeros((tw.GEO_LEN,)), 2, warp, DTYPES[dtype]]
+    seen = []
+    out = tw._band_warp_fake(*args)
+    tw._band_warp_op(lambda device, *a: seen.append((device, a)), out, *args)
+    ((device, a),) = seen
+    assert device == args[0].device
+    assert out.shape == (5, 7, 11) and out.dtype == torch.float32
+    assert a == (*(t.data_ptr() for t in (*args[:4], out)), 5, 13, 7, 11, 2,
+                 WARPS.index(warp), int(dtype == "bfloat16"))
 
 
 def _bad(k, v):
@@ -398,10 +419,10 @@ def test_kernel_matches_reference_on_card(cuda_device, nq, C, warp, dtype):
     cameras (one wide, with pixels behind the plane)."""
     for eye, focal in (EYES["z"], EYES["y_wide"]):
         a = _captured(cuda_device, nq, (800, 800), eye, focal, C, seed=nq)
-        n = tw.band_warp.launches
+        n = LAUNCHES["swr_warp"]
         got = _call(tw.band_warp, a, warp, DTYPES[dtype])
         torch.cuda.synchronize()
-        assert tw.band_warp.launches == n + 1
+        assert LAUNCHES["swr_warp"] == n + 1
         want = _call(tw.band_warp_reference, a, warp, DTYPES[dtype])
         lim = KERNEL_TOL * float(a["img"].abs().max())
         err = float((got - want).abs().max())
@@ -444,9 +465,9 @@ def _served(device):
 def test_served_frame_matches_the_reference_path(cuda_device, lat_cap):
     rend, poses = _served(cuda_device)
     for pose in poses:
-        n = tw.band_warp.launches
+        n = LAUNCHES["swr_warp"]
         got = rend.render(pose, lat_cap=lat_cap)["rgb"]
-        assert tw.band_warp.launches == n + 1
+        assert LAUNCHES["swr_warp"] == n + 1
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(tswr, "band_warp", tw.band_warp_reference)
             want = rend.render(pose, lat_cap=lat_cap)["rgb"]
@@ -465,8 +486,8 @@ def test_training_step_never_launches_the_kernel(cuda_device):
         tpyr.PyramidConfig(resolutions=(16, 32), features=8, deferred=True),
         SwrTrainConfig(crop=64, n_chunks=4, resample_kind="cubic"),
         ds.rays, ds.poses, ds.K, ds.img_wh, device=cuda_device)
-    n = tw.band_warp.launches
+    n = LAUNCHES["swr_warp"]
     for _ in range(3):
         trainer.run_step()
     torch.cuda.synchronize()
-    assert tw.band_warp.launches == n
+    assert LAUNCHES["swr_warp"] == n

@@ -25,6 +25,7 @@ import torch
 
 from taichi_nerfs_torch.config import BrickGridConfig
 from taichi_nerfs_torch.ops import brick_encoder as tb
+from taichi_nerfs_torch.ops._build import LAUNCHES
 from taichi_nerfs_torch.ops.hash_encoder import fast_hash
 from taichi_nerfs_torch.ops.math import as_u32
 
@@ -254,37 +255,49 @@ def test_argument_checks_raise(case):
 
 
 def test_operators_hand_the_kernels_their_arguments():
-    """What the operators pass to the C entries, recorded on CPU tensors
-    in place of the launch: the tensors in the entries' order, the sizes,
-    the bf16 flag and the level table as C arrays."""
+    """What the operators pass to the C entries, recorded on CPU tensors by
+    the ``launch`` the implementations are given, the outputs allocated by
+    the fake versions: the device, the tensors' pointers in the entries'
+    order, the sizes, the bf16 flag and the level table as C arrays; with
+    no positions, nothing is launched."""
     layout = _layout("F4_bf16")
     params = _params(layout)
     xyz = _positions(100, seed=5)
     scales, info = tb._kernel_levels(layout)
     seen = []
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tb, "_launch", lambda name, *a: seen.append((name, a)))
-        out = tb._fwd_op(params["corners"], params["bricks"], xyz, scales,
-                         info, True)
-        dc, db = tb._bwd_op(out, xyz, *(params[k].shape[0] for k in
-                                        ("corners", "bricks")),
-                            scales, info)
-    (fname, fa), (bname, ba) = seen
-    assert fname == "brick_encode_fwd" and bname == "brick_encode_bwd"
-    assert [t is x for t, x in zip(fa[:4], (xyz, params["corners"],
-                                             params["bricks"], out))] == [
-        True] * 4
+
+    def launch(device, *args):
+        seen.append((device, args))
+
+    def run(xyz):
+        fwd = (params["corners"], params["bricks"], xyz, scales, info, True)
+        out = tb._fwd_fake(*fwd)
+        tb._fwd_op(launch, out, *fwd)
+        bwd = (out, xyz, *(params[k].shape[0] for k in ("corners", "bricks")),
+               scales, info)
+        grads = tb._bwd_fake(*bwd)
+        tb._bwd_op(launch, grads, *bwd)
+        return out, grads
+
+    out, (dc, db) = run(xyz)
+    (fdev, fa), (bdev, ba) = seen
+    assert fdev == bdev == xyz.device
+    assert fa[:4] == tuple(t.data_ptr() for t in (
+        xyz, params["corners"], params["bricks"], out))
     assert fa[4:8] == (100, layout.levels, layout.F, 1)
-    assert ba[0] is out and ba[1] is xyz and ba[2] is dc and ba[3] is db
+    assert ba[:4] == tuple(t.data_ptr() for t in (out, xyz, dc, db))
     assert ba[4:7] == (100, layout.levels, layout.F)
     assert dc.shape == params["corners"].shape
     assert db.shape == params["bricks"].shape
+    assert not dc.any() and not db.any()  # the kernel adds into them
     for args in (fa[-2:], ba[-2:]):
         c_scales, c_info = tb._c_levels(scales, info)
         assert args == (ctypes.addressof(c_scales),
                         ctypes.addressof(c_info))
         assert tuple(c_info) == info
         assert tuple(c_scales) == scales
+    run(xyz[:0])
+    assert len(seen) == 2
 
 
 def test_unaligned_tables_raise():
@@ -296,10 +309,13 @@ def test_unaligned_tables_raise():
     scales, info = tb._kernel_levels(layout)
     flat = torch.zeros(params["corners"].numel() + 1)
     corners = flat[1:].view_as(params["corners"])
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tb, "_launch", lambda *a: pytest.fail("launched"))
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            tb._fwd_op(corners, params["bricks"], xyz, scales, info, False)
+    args = (corners, params["bricks"], xyz, scales, info, False)
+
+    def launch(*a):
+        pytest.fail("launched")
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tb._fwd_op(launch, tb._fwd_fake(*args), *args)
 
 
 def test_no_kernel_off_the_card():
@@ -312,6 +328,11 @@ def test_no_kernel_off_the_card():
 
 
 # ---- on the card ----------------------------------------------------------
+
+
+def _brick_launches():
+    """The gathers and the scatters launched so far."""
+    return LAUNCHES["brick_encode_fwd"], LAUNCHES["brick_encode_bwd"]
 
 
 @pytest.fixture
@@ -332,12 +353,12 @@ def test_kernels_match_the_reference_on_card(cuda_device, name, m):
     dout = torch.randn((m, layout.out_dim), device=cuda_device)
     want, (dc, db) = _reference_and_grads(params, xyz, dout, layout)
     leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-    n = tb.brick_encode.launches
+    before = _brick_launches()
     got = tb.brick_encode(leaves, xyz, layout)
     gc, gb = torch.autograd.grad(torch.sum(got * dout),
                                  (leaves["corners"], leaves["bricks"]))
     torch.cuda.synchronize()
-    assert tb.brick_encode.launches == n + 2
+    assert _brick_launches() == (before[0] + 1, before[1] + 1)
     assert float((got - want).abs().max()) <= FEATURE_TOL
     assert _rel(gc, dc) <= GRAD_REL_TOL
     if layout.hashed_rows:
@@ -349,13 +370,13 @@ def test_no_positions_no_launch(cuda_device):
     layout = _layout("F4")
     leaves = {k: v.requires_grad_() for k, v in
               _params(layout, cuda_device).items()}
-    n = tb.brick_encode.launches
+    before = dict(LAUNCHES)
     out = tb.brick_encode(leaves, torch.empty((0, 3), device=cuda_device),
                           layout)
     assert out.shape == (0, layout.out_dim)
     gc, gb = torch.autograd.grad(out.sum(), (leaves["corners"],
                                              leaves["bricks"]))
-    assert tb.brick_encode.launches == n
+    assert dict(LAUNCHES) == before
     assert not gc.any() and not gb.any()
 
 
@@ -372,10 +393,11 @@ def test_training_step_runs_the_kernels(cuda_device):
                                 variant="checker", device=cuda_device)
     trainer = Trainer(config_for_scene(0.5), ds.as_batch(cuda_device), ds.K,
                       ds.img_wh, device=cuda_device)
-    n = tb.brick_encode.launches
+    before = _brick_launches()
     trainer.run_step()
     torch.cuda.synchronize()
-    assert tb.brick_encode.launches >= n + 2
+    after = _brick_launches()
+    assert after[0] >= before[0] + 1 and after[1] >= before[1] + 1
 
     layout = tb.build_brick_layout(BrickGridConfig())
     params = _params(layout, cuda_device)

@@ -107,6 +107,57 @@ def test_no_file_of_the_package_names_jax():
     assert not offenders, offenders
 
 
+_BUILD = os.path.join(PKG, "ops", "_build.py")
+
+
+def _kernel_boundary_offences(path):
+    """Where ``path`` declares or binds a kernel outside ``ops/_build.py``
+    (``LIB.define`` / ``LIB.impl``, ``register_fake``, a library opened by
+    ``ctypes.CDLL`` or a C entry given its ``argtypes`` / ``restype``) or
+    counts launches in an attribute of its own (``f.launches = 0``)."""
+    import ast
+
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    out = []
+    for node in ast.walk(tree):
+        what = None
+        if isinstance(node, ast.Attribute) and (
+                node.attr in ("define", "impl") and isinstance(
+                    node.value, ast.Name) and node.value.id.endswith("LIB")
+                or node.attr in ("register_fake", "CDLL", "LoadLibrary")):
+            what = f"uses .{node.attr}"
+        elif isinstance(node, ast.Name) and node.id in ("register_fake",
+                                                        "CDLL"):
+            what = f"uses {node.id}"
+        elif isinstance(node, (ast.Assign, ast.AugAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [
+                node.target]
+            attrs = {t.attr for t in targets if isinstance(t, ast.Attribute)}
+            if attrs & {"argtypes", "restype"}:
+                what = "binds a C entry"
+            elif any(a.endswith("launches") for a in attrs):
+                what = "counts launches in an attribute"
+        if what:
+            out.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {what}")
+    return out
+
+
+def test_kernels_cross_one_boundary():
+    """Only ``ops/_build.py`` declares operators, registers their fake
+    versions and binds C entries; every launch is counted in its one
+    registry (``_build.LAUNCHES``), never in a function's attribute.  The
+    package, the port scripts and ``chip_smoke.py`` are checked."""
+    paths = [p for p in _port_files() if p.endswith(".py") and p != _BUILD]
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    offenders = [o for p in paths for o in _kernel_boundary_offences(p)]
+    assert not offenders, offenders
+    # the check sees what it looks for: the boundary itself holds each
+    assert {o.split(" ", 1)[1] for o in _kernel_boundary_offences(_BUILD)
+            } >= {"uses .define", "uses .impl", "uses .register_fake",
+                  "uses .CDLL", "binds a C entry"}
+
+
 @pytest.fixture(scope="module")
 def tiny():
     kw = dict(resolutions=(8, 16), features=4, rgb_width=16, deferred=True)

@@ -20,6 +20,7 @@ import torch
 from torch_port_helpers import np32, rand_sweep_inputs, t32
 
 from taichi_nerfs_torch.ops import swr_sweep as tsw
+from taichi_nerfs_torch.ops._build import LAUNCHES
 
 KINDS = ["linear", "cubic"]
 TOL = 2e-5
@@ -86,11 +87,11 @@ def test_chunk_sweep_on_cpu_is_the_reference():
         t32(a) if isinstance(a, np.ndarray) else a
         for a in rand_sweep_inputs(seed=1)
     )
-    before = tsw.chunk_sweep.launches
+    before = LAUNCHES["swr_sweep_fwd"]
     got = tsw.chunk_sweep(vol, rs, z_rel, ch, nq, "cubic")
     want = tsw.chunk_sweep_reference(vol, rs, z_rel, ch, nq, "cubic")
     assert torch.equal(got, want)
-    assert tsw.chunk_sweep.launches == before  # no kernel launched
+    assert LAUNCHES["swr_sweep_fwd"] == before  # no kernel launched
 
 
 def _args(**over):
@@ -147,11 +148,11 @@ def test_kernel_matches_reference_on_card(cuda_device, kind, F):
                                                Rc=33, F=F, nq=37)
     args = [torch.as_tensor(a, device=cuda_device)
             for a in (vol, rs, z_rel, ch)]
-    before = tsw.chunk_sweep.launches
+    before = LAUNCHES["swr_sweep_fwd"]
     got = tsw.chunk_sweep(*args, nq, kind)
     want = tsw.chunk_sweep_reference(*args, nq, kind)
     torch.cuda.synchronize()
-    assert tsw.chunk_sweep.launches == before + 1
+    assert LAUNCHES["swr_sweep_fwd"] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     # with a gradient asked for, the same kernel runs under autograd (its
     # backward is tested in tests/test_torch_swr_sweep_bwd.py)

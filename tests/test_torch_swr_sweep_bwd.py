@@ -26,6 +26,7 @@ from test_torch_swr_sweep import (
     _edge_inputs,
 )
 from taichi_nerfs_torch.ops import swr_sweep as tsw
+from taichi_nerfs_torch.ops._build import LAUNCHES
 from taichi_nerfs_torch.ops.warp import interp_kernel
 
 KINDS = ["linear", "cubic"]
@@ -131,11 +132,11 @@ def test_chunk_sweep_bwd_on_cpu_is_the_reference():
     args = [t32(a) for a in (vol, rs, z_rel, ch)]
     g = t32(_cotangent(vol, nq))
     frames = tsw.chunk_sweep(*args, nq, "cubic")
-    before = tsw.chunk_sweep_bwd.launches
+    before = LAUNCHES["swr_sweep_bwd"]
     got = tsw.chunk_sweep_bwd(*args, frames, g, nq, "cubic")
     want = tsw.chunk_sweep_bwd_reference(*args, g, nq, "cubic")
     assert torch.equal(got, want)
-    assert tsw.chunk_sweep_bwd.launches == before  # no kernel launched
+    assert LAUNCHES["swr_sweep_bwd"] == before  # no kernel launched
 
 
 @pytest.mark.parametrize(
@@ -154,6 +155,48 @@ def test_bwd_arg_checks(over, exc):
     a.update(over(a))
     with pytest.raises(exc):
         tsw._check_bwd_args(**a)
+
+
+@pytest.mark.parametrize("vol_dtype,op_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("kind", KINDS)
+def test_operators_hand_the_kernels_their_arguments(kind, vol_dtype,
+                                                    op_dtype):
+    """What both sweep operators pass to their C entries, recorded on CPU
+    tensors by the ``launch`` the implementations are given, the outputs
+    allocated by the fake versions: the device, the pointers in the
+    entries' order, (n_chunks, dc, F, Rb, Rc, nq, kind, volume dtype,
+    operand dtype); the backward's scratch (and its count of the rows
+    kernel) exactly with a bf16 volume or bf16 operands."""
+    vol, rs, z_rel, ch, nq = rand_sweep_inputs(seed=3, nc=2, dc=3, Rb=9,
+                                               Rc=7, F=8, nq=11)
+    args = [t32(vol).to(getattr(torch, vol_dtype)), t32(rs), t32(z_rel),
+            t32(ch)]
+    dtype = getattr(torch, op_dtype)
+    seen = []
+
+    def launch(device, *c_args):
+        seen.append((device, c_args))
+
+    fwd = (*args, nq, kind, dtype)
+    frames = tsw._sweep_fwd_fake(*fwd)
+    tsw._sweep_fwd_op(launch, frames, *fwd)
+    bwd = (*args, frames, torch.zeros_like(frames), nq, kind, dtype)
+    dvol = tsw._sweep_bwd_fake(*bwd)
+    rows = LAUNCHES["swr_sweep_bwd_rows"]
+    tsw._sweep_bwd_op(launch, dvol, *bwd)
+    bf16 = "bfloat16" in (vol_dtype, op_dtype)
+    assert LAUNCHES["swr_sweep_bwd_rows"] == rows + bf16
+    (fdev, fa), (bdev, ba) = seen
+    assert fdev == bdev == args[0].device
+    assert frames.shape == (2, 10, nq, nq) and frames.dtype == torch.float32
+    assert dvol.shape == args[0].shape and dvol.dtype == args[0].dtype
+    sizes = (2, 3, 8, 9, 7, nq, {"linear": 0, "cubic": 1}[kind],
+             int(vol_dtype == "bfloat16"), int(op_dtype == "bfloat16"))
+    assert fa == (*(t.data_ptr() for t in (*args, frames)), *sizes)
+    assert ba[:7] == tuple(t.data_ptr() for t in (*args, frames, bwd[5],
+                                                  dvol))
+    assert (ba[7] is not None) == bf16 and ba[8:] == sizes
 
 
 @pytest.fixture
@@ -181,12 +224,12 @@ def test_kernel_grad_matches_reference_on_card(cuda_device, kind, F):
     args, g, nq = _card_case(cuda_device, seed=4, nc=3, dc=5, Rb=40, Rc=33,
                              F=F, nq=37)
     vol = args[0].clone().requires_grad_(True)
-    f0, b0 = tsw.chunk_sweep.launches, tsw.chunk_sweep_bwd.launches
+    f0, b0 = LAUNCHES["swr_sweep_fwd"], LAUNCHES["swr_sweep_bwd"]
     tsw.chunk_sweep(vol, *args[1:], nq, kind).backward(g)
     want = tsw.chunk_sweep_bwd_reference(*args, g, nq, kind)
     torch.cuda.synchronize()
-    assert tsw.chunk_sweep.launches == f0 + 1
-    assert tsw.chunk_sweep_bwd.launches == b0 + 1
+    assert LAUNCHES["swr_sweep_fwd"] == f0 + 1
+    assert LAUNCHES["swr_sweep_bwd"] == b0 + 1
     torch.testing.assert_close(vol.grad, want, rtol=TOL, atol=TOL)
 
 
@@ -277,11 +320,11 @@ def test_bwd_cases_reach_each_path(case):
     assert (paths["float4"] > 0) == (case != "ragged_card")
 
 
-# the bf16 instances (chip_smoke.py's limits, from
-# scripts/torch_sweep_bf16_tol.py): frames with fp32 / bf16 operands, max
-# abs (a bf16 operand rounding can land on the neighbouring bf16 value
-# where the two sum the taps in another order) and, with bf16 operands,
-# relative norm; d vol, relative norm
+# the bf16 instances (chip_smoke.py's limits, set on the H100 against
+# copies of the kernels built without the operand rounding): frames with
+# fp32 / bf16 operands, max abs (a bf16 operand rounding can land on the
+# neighbouring bf16 value where the two sum the taps in another order)
+# and, with bf16 operands, relative norm; d vol, relative norm
 BF16_FWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BF16_FWD_REL_TOL = 3e-4
 BF16_DVOL_TOL = 2.5e-4
@@ -307,17 +350,17 @@ def test_bf16_kernels_match_reference_on_card(cuda_device, vol_dtype,
     args[0] = args[0].to(getattr(torch, vol_dtype))
     dt = getattr(torch, op_dtype)
     v = args[0].clone().requires_grad_(True)
-    f0, b0 = tsw.chunk_sweep.launches, tsw.chunk_sweep_bwd.launches
-    r0 = tsw.chunk_sweep_bwd.finish_launches
+    f0, b0 = LAUNCHES["swr_sweep_fwd"], LAUNCHES["swr_sweep_bwd"]
+    r0 = LAUNCHES["swr_sweep_bwd_rows"]
     out = tsw.chunk_sweep(v, *args[1:], nq, kind, dtype=dt)
     out.backward(g)
     want = tsw.chunk_sweep_reference(*args, nq, kind, dtype=dt)
     want_d = tsw.chunk_sweep_bwd_reference(*args, g, nq, kind, dtype=dt)
     torch.cuda.synchronize()
-    assert tsw.chunk_sweep.launches == f0 + 1
-    assert tsw.chunk_sweep_bwd.launches == b0 + 1
+    assert LAUNCHES["swr_sweep_fwd"] == f0 + 1
+    assert LAUNCHES["swr_sweep_bwd"] == b0 + 1
     bf16 = "bfloat16" in (vol_dtype, op_dtype)
-    assert tsw.chunk_sweep_bwd.finish_launches == r0 + bf16
+    assert LAUNCHES["swr_sweep_bwd_rows"] == r0 + bf16
     assert float((out.detach() - want).abs().max()) <= BF16_FWD_TOL[op_dtype]
     if op_dtype == "bfloat16":
         frel = torch.linalg.norm(out.detach() - want) / torch.linalg.norm(
