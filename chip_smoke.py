@@ -28,7 +28,13 @@ phases:
    proxy's surface and a 1 M-point refresh batch (features within 1e-6,
    table gradients within 1e-5 of their largest entry, a second run's
    gradient beside it), timed the same way beside the encoder's bound
-   (``benchmark/counts/ngp.py:encode_bound``) and the plain version;
+   (``benchmark/counts/ngp.py:encode_bound``) and the plain version; the
+   NGP march (``ngp_march``) against ``_march_rays_intervals`` at the NGP
+   cell's step shape (8,192 rays of the lego rig through the lego proxy's
+   128^3 grid, at the cap the trainer would set and at 1024; bit-equal,
+   one launch a march), timed the same way beside the plain version, the
+   whole march span (box, jitter, kernel) and its bound (the rays and the
+   bitfield read once, the outputs written once);
 4. serve: ``PyramidRenderer`` renders 4 orbit views at 800x800, capped and
    uncapped, with cubic resampling; the outputs are checked, the forward
    kernel's launch count during those frames must be > 0 and the band
@@ -100,8 +106,8 @@ phases:
    bitfield and draws (equal counts on >= 99.9 % of rays, rgb within
    2e-2); ``render_image`` renders an 800x800 test view (finite, opacity in
    [0, 1]); 3 steady steps run under ``torch.profiler``.  The brick
-   encoder's kernels must launch in every step (the JAX package has no TPU
-   kernel on this path);
+   encoder's kernels must launch in every step and the march kernel once a
+   step (the JAX package has no TPU kernel on this path);
 14. ngp_models: the tri-plane encoder (``config_for_scene(0.5,
    pos_encoder_type="triplane")``, the default ``TriPlaneConfig``: a
    3 x 1024^2 x 4 table) and the svox voxel grid (``--grid_size 256
@@ -872,6 +878,157 @@ def phase_brick_encode(torch):
             res[tag] = r
             del dout, idx
     return res
+
+
+# the march phase: the NGP cell's step (8,192 rays of the lego rig's 100
+# 800x800 views, the 128^3 grid at scale 0.5), and the march's own timed
+# span beside the kernel: the box, the jitter and the march
+MARCH_RAYS, MARCH_VIEWS, MARCH_WH = 8192, 100, 800
+
+
+def _lego_rig_rays(torch, seed):
+    """``MARCH_RAYS`` rays of the cell's scene: (view, pixel) pairs drawn
+    from ``seed`` over the lego proxy's training rig (``data/synthetic.py``:
+    the same poses, no images rendered), and a t-start jitter a ray."""
+    import numpy as np
+
+    from taichi_nerfs_torch.data.cameras import look_at
+    from taichi_nerfs_torch.ops.rays import get_ray_directions, get_rays
+
+    rng = np.random.RandomState(0)
+    poses = []
+    for i in range(MARCH_VIEWS):
+        theta = 2 * np.pi * i / MARCH_VIEWS + rng.uniform(0, 0.3)
+        phi = rng.uniform(0.06, 1.15)
+        eye = 1.2 * np.array([np.cos(theta) * np.cos(phi),
+                              np.sin(theta) * np.cos(phi), np.sin(phi)])
+        poses.append(look_at(eye, np.array([0.0, 0.0, -0.12]),
+                             np.array([0.0, 0.0, 1.0])))
+    K = np.array([[0.9 * MARCH_WH, 0, MARCH_WH / 2],
+                  [0, 0.9 * MARCH_WH, MARCH_WH / 2], [0, 0, 1]], np.float32)
+    poses = torch.as_tensor(np.stack(poses), dtype=torch.float32,
+                            device="cuda")
+    dirs = get_ray_directions(MARCH_WH, MARCH_WH, K, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.randint(0, MARCH_VIEWS, (MARCH_RAYS,), generator=gen,
+                        device="cuda")
+    pix = torch.randint(0, MARCH_WH * MARCH_WH, (MARCH_RAYS,), generator=gen,
+                        device="cuda")
+    rays_o, rays_d = get_rays(dirs[pix], poses[img])
+    noise = torch.rand((MARCH_RAYS,), generator=gen, device="cuda")
+    return rays_o, rays_d, noise
+
+
+def _lego_grid(torch, cfg):
+    """The lego proxy's own field at the grid's cell centres, morton-ordered
+    and thresholded at the trainer's density threshold: the grid a settled
+    training run's approaches."""
+    from taichi_nerfs_torch.data.synthetic import lego_density
+    from taichi_nerfs_torch.models.occupancy import all_cells
+    from taichi_nerfs_torch.ops.math import packbits_u32
+
+    G, scale = cfg.model.grid_size, cfg.model.scale
+    coords, idx = all_cells(G, "cuda")
+    centre = ((coords.float() + 0.5) / G * 2.0 - 1.0) * scale
+    dens = torch.empty((G**3,), device="cuda")
+    dens[idx] = lego_density(centre)
+    return packbits_u32(dens, cfg.train.density_threshold())
+
+
+def phase_ngp_march(torch):
+    """The NGP march's kernel (``ngp_march``) against the plain
+    ``_march_rays_intervals`` at the NGP cell's step: ``MARCH_RAYS`` rays
+    of the lego rig through the lego proxy's grid, at the sample cap the
+    trainer would set from these rays (the next power of two above the
+    most samples a ray) and at 1024; the outputs must be bit-equal and the
+    kernel launched once a march.  Each is timed warm and cold beside the
+    plain version and the bound (the rays and bitfield read once, the
+    outputs written once), and so is the training step's whole march span
+    (box, jitter, march) through the kernel."""
+    from taichi_nerfs_torch.config import config_for_scene
+    from taichi_nerfs_torch.ops import marching as tm
+    from taichi_nerfs_torch.ops._build import LAUNCHES
+    from taichi_nerfs_torch.ops.rays import ray_aabb_intersect
+    from taichi_nerfs_torch.train.loop import MIN_CAP, _next_pow2
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    cfg = config_for_scene(0.5)
+    m, r = cfg.model, cfg.render
+    rays_o, rays_d, noise = _lego_rig_rays(torch, 31)
+    bitfield = _lego_grid(torch, cfg)
+    hits = ray_aabb_intersect(rays_o, rays_d, m.scale)
+    t_start = tm.perturb_t_start(hits, noise, r.exp_step_factor, m.grid_size,
+                                 m.scale)
+    # the kernel's inputs as march_rays hands them over (the origins are a
+    # strided view of the per-ray poses)
+    t_end, dense_o = hits[:, 1].contiguous(), rays_o.contiguous()
+    kw = dict(scale=m.scale, grid_size=m.grid_size)
+    full = tm._march_rays_intervals(rays_o, rays_d, t_start, t_end, bitfield,
+                                    sample_cap=1024, **kw)
+    most = int(full.counts.max())
+    step_cap = max(_next_pow2(most + 1), MIN_CAP)
+    print(f"march: {MARCH_RAYS} lego-rig rays, grid {m.grid_size}^3 with "
+          f"{100.0 * _occupied_share(torch, bitfield):.2f}% occupied: "
+          f"{float(full.counts.float().mean()):.2f} samples a ray, at most "
+          f"{most}; the trainer's cap {step_cap}", flush=True)
+    res = {}
+    for cap in (step_cap, 1024):
+        n = LAUNCHES["ngp_march"]
+        got = tm.march_rays(rays_o, rays_d, t_start, t_end, bitfield,
+                            cascades=1, exp_step_factor=0.0,
+                            sample_cap=cap, **kw)
+        want = tm._march_rays_intervals(rays_o, rays_d, t_start, t_end,
+                                        bitfield, sample_cap=cap, **kw)
+        torch.cuda.synchronize()
+        launched = LAUNCHES["ngp_march"] - n
+        equal = all(torch.equal(a.view(torch.int32)
+                                if a.dtype == torch.float32 else a,
+                                b.view(torch.int32)
+                                if b.dtype == torch.float32 else b)
+                    for a, b in zip(got, want))
+        ok = equal and launched == 1
+        print(f"kernel ngp_march S={cap}: bit-equal to the plain version "
+              f"{equal}; {launched} launch {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"ngp_march S={cap}: equal {equal}, "
+                                 f"{launched} launches")
+
+        def kern(cap=cap):
+            return torch.ops.taichi_nerfs_torch.ngp_march(
+                dense_o, rays_d, t_start, t_end, bitfield, m.scale,
+                m.grid_size, cap)
+
+        def plain(cap=cap):
+            return tm._march_rays_intervals(rays_o, rays_d, t_start, t_end,
+                                            bitfield, sample_cap=cap, **kw)
+
+        def span(cap=cap):
+            h = ray_aabb_intersect(rays_o, rays_d, m.scale)
+            t0 = tm.perturb_t_start(h, noise, r.exp_step_factor,
+                                    m.grid_size, m.scale)
+            return tm.march_rays(rays_o, rays_d, t0, h[:, 1], bitfield,
+                                 cascades=1, exp_step_factor=0.0,
+                                 sample_cap=cap, **kw)
+
+        t = dict(warm=_time_ms(torch, kern, 20),
+                 cold=_time_ms(torch, kern, 20, flush),
+                 span=_time_ms(torch, span, 20),
+                 plain=_time_ms(torch, plain, 5))
+        # the rays (o, d, t_start, t_end) and the bitfield read once; ts,
+        # deltas, counts and t_final written once
+        nbytes = (MARCH_RAYS * (8 * 4 + 2 * 4 * cap + 8)
+                  + 4 * bitfield.numel())
+        t["bound"] = bound_ms(nbytes, 0.0)[0]
+        print(f"  time ngp_march S={cap}: kernel warm {t['warm']:.4f} ms, "
+              f"cold {t['cold']:.4f} ms; the march span (box, jitter, "
+              f"kernel) {t['span']:.4f} ms; plain {t['plain']:.4f} ms "
+              f"(medians, CUDA events); bound {t['bound']:.4f} ms (bytes: "
+              f"{nbytes / 1e6:.1f} MB), share warm "
+              f"{t['bound'] / t['warm']:.1%}, cold "
+              f"{t['bound'] / t['cold']:.1%}", flush=True)
+        res[cap] = t
+    return res, step_cap
 
 
 def _device_ms_by_kernel(torch, fn, reps=5):
@@ -2631,6 +2788,7 @@ def phase_ngp(torch, seed):
 
     from taichi_nerfs_torch.config import config_for_scene
     from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.ops._build import LAUNCHES
     from taichi_nerfs_torch.ops.rays import get_rays
     from taichi_nerfs_torch.render.renderer import render_image
     from taichi_nerfs_torch.train.loop import Trainer
@@ -2659,6 +2817,7 @@ def phase_ngp(torch, seed):
           f"{cfg.train.batch_size}", flush=True)
 
     launches0 = _brick_launches()
+    marches0 = LAUNCHES["ngp_march"]
     losses, step_ms = [], []
     for i in range(NGP_STEPS):
         t0 = time.perf_counter()
@@ -2680,6 +2839,13 @@ def phase_ngp(torch, seed):
     if brick_launches < 2 * NGP_STEPS:
         raise AssertionError(f"ngp: {brick_launches} brick_encode launches "
                              f"in {NGP_STEPS} steps")
+    # one march a step, none in a refresh
+    march_launches = LAUNCHES["ngp_march"] - marches0
+    print(f"ngp: ngp_march launches over {NGP_STEPS} steps: "
+          f"{march_launches}", flush=True)
+    if march_launches != NGP_STEPS:
+        raise AssertionError(f"ngp: {march_launches} ngp_march launches in "
+                             f"{NGP_STEPS} steps")
     last = float(np.mean(losses[-16:]))
     print(f"ngp: loss first {losses[0]:.6f}, mean of the last 16 {last:.6f} "
           f"(ratio {last / losses[0]:.4f}, must be < {NGP_LOSS_FALL})",
@@ -2731,7 +2897,8 @@ def phase_ngp(torch, seed):
     busy = _profile_ngp_steps(torch, "ngp", trainer)
     return {"warm_ms": warm, "steady_ms": steady, "frame_ms": frame_ms[1],
             "busy": busy, "occupied": occ, "trainer": trainer,
-            "test": test, "brick_launches": brick_launches}
+            "test": test, "brick_launches": brick_launches,
+            "march_launches": march_launches}
 
 
 # the ngp_models phase: the tri-plane encoder at the default TriPlaneConfig
@@ -4285,6 +4452,7 @@ def main(argv=None):
     worst_bwd, bwd_timing = phase_bwd_kernels(torch)
     warp_timing = phase_warp(torch)
     brick_timing = phase_brick_encode(torch)
+    march_timing, march_cap = phase_ngp_march(torch)
     serve_launches, serve_warps, frame_ms = phase_slice(
         torch, args.ckpt_path, args.seed)
     print(f"slice: 800x800 cubic frame median: capped "
@@ -4323,7 +4491,7 @@ def main(argv=None):
     inside = phase_inside(torch, args.seed, card)
     files = phase_files(torch, args.seed, card)
     ngp = phase_ngp(torch, args.seed)
-    ngp_launches = ngp["brick_launches"]
+    ngp_launches, ngp_marches = ngp["brick_launches"], ngp["march_launches"]
     brick_step = brick_timing[f"step M={BRICK_SAMPLES} float32"]
     print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
           f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
@@ -4514,6 +4682,22 @@ def main(argv=None):
         "ms_by_shape": {k: {p: t[p] for p in ("fwd", "bwd", "bound",
                                               "share_warm") if p in t}
                         for k, t in sorted(brick_timing.items())},
+    }, {
+        "name": "ngp_march",
+        "route": "cuda",
+        "source": "taichi_nerfs_torch/csrc/ngp_march.cu",
+        "replaces": None,  # the JAX package's marcher is XLA ops
+        "launches": ngp_marches,
+        "launches_by_path": {"train_ngp": ngp_marches},
+        "max_abs_err": 0.0,  # bit-equal to the plain version
+        # the NGP cell's step at the trainer's cap, warm
+        "ms": march_timing[march_cap]["warm"],
+        "plain_ms": march_timing[march_cap]["plain"],
+        "bound_ms": march_timing[march_cap]["bound"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes the march
+        "ms_by_shape": {f"step S={cap}": t
+                        for cap, t in sorted(march_timing.items())},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

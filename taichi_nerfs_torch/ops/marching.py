@@ -16,15 +16,25 @@ keys, and the unoccupied ones (tied at 0) are masked out afterwards, so the
 result is "the first S occupied candidates in ascending order".  The port
 computes exactly that with a cumulative sum and one scatter
 (:func:`_first_occupied`): static shapes, no sort, no host read.
+
+The cell-interval marcher has two implementations of the one function:
+CUDA rays run the hand-written kernel of ``csrc/ngp_march.cu`` (operator
+``taichi_nerfs_torch::ngp_march``: one launch walks each ray's cell
+crossings in order and writes its first ``S`` samples), bit-equal to the
+plain version on the card; CPU rays run the plain version,
+:func:`_march_rays_intervals`.  The lattice marcher is plain PyTorch on
+every device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
+from ._build import declare, on_cuda
 from .math import (
     SQRT3_2,
     SQRT3_MAX_SAMPLES,
@@ -197,6 +207,85 @@ def _march_rays_intervals(rays_o, rays_d, t_start, t_end, bitfield, *,
     return MarchResult(ts=ts, deltas=deltas, counts=counts, t_final=t_final)
 
 
+# ---- the kernel (csrc/ngp_march.cu) --------------------------------------
+
+
+def _kernel_lattice(scale: float, grid_size: int):
+    """The cell side ``h``, the lattice step ``dt`` and ``E`` (the most
+    lattice points of one interval) as :func:`_march_rays_intervals`
+    computes them, Python floats that the kernel rounds to fp32 as
+    PyTorch's ops round their scalar operands."""
+    dt = SQRT3_MAX_SAMPLES
+    h = 2.0 * scale / grid_size
+    return h, dt, int(math.ceil((h * math.sqrt(3.0)) / dt)) + 1
+
+
+def _check_march_args(rays_o, rays_d, t_start, t_end, bitfield, scale,
+                      grid_size, sample_cap):
+    """Raise unless the kernel takes these."""
+    if grid_size < 2 or grid_size > 1024 or grid_size & (grid_size - 1):
+        raise ValueError(f"no ngp-march kernel for grid_size={grid_size} "
+                         "(a power of two, 2 to 1024)")
+    if sample_cap < 1:
+        raise ValueError(f"sample_cap must be >= 1, got {sample_cap}")
+    if not 0.0 < scale < math.inf:
+        raise ValueError(f"scale must be positive and finite, got {scale}")
+    n = rays_o.shape[0]
+    for name, t, shape, dtype in (
+            ("rays_o", rays_o, (n, 3), torch.float32),
+            ("rays_d", rays_d, (n, 3), torch.float32),
+            ("t_start", t_start, (n,), torch.float32),
+            ("t_end", t_end, (n,), torch.float32),
+            ("bitfield", bitfield, (bitfield.numel(),), torch.int32)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != rays_o.device:
+            raise ValueError(f"{name} is on {t.device}, rays_o on "
+                             f"{rays_o.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}; the ngp-march kernel "
+                            f"takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if bitfield.numel() * 32 < grid_size**3:
+        raise ValueError(f"bitfield has {bitfield.numel()} words, a "
+                         f"{grid_size}^3 grid needs {grid_size**3 // 32}")
+
+
+def _march_fake(rays_o, rays_d, t_start, t_end, bitfield, scale, grid_size,
+                sample_cap):
+    """``MarchResult``'s tensors: ts, deltas (N, S), counts (N,) int32,
+    t_final (N,)."""
+    _check_march_args(rays_o, rays_d, t_start, t_end, bitfield, scale,
+                      grid_size, sample_cap)
+    n = rays_o.shape[0]
+    return (rays_o.new_empty((n, sample_cap)),
+            rays_o.new_empty((n, sample_cap)),
+            rays_o.new_empty((n,), dtype=torch.int32),
+            rays_o.new_empty((n,)))
+
+
+def _march_op(launch, out, rays_o, rays_d, t_start, t_end, bitfield, scale,
+              grid_size, sample_cap):
+    if rays_o.shape[0]:
+        h, dt, e_max = _kernel_lattice(scale, grid_size)
+        ptrs = (t.data_ptr() for t in (rays_o, rays_d, t_start, t_end,
+                                       bitfield, *out))
+        launch(rays_o.device, *ptrs, rays_o.shape[0], grid_size, sample_cap,
+               e_max, scale, h, dt)
+
+
+# C arguments: pointers (rays_o, rays_d, t_start, t_end, bitfield, ts,
+# deltas, counts, t_final), then N, G, S, E, then scale, h and dt
+declare(
+    "ngp_march(Tensor rays_o, Tensor rays_d, Tensor t_start, Tensor t_end, "
+    "Tensor bitfield, float scale, int grid_size, int sample_cap) -> "
+    "(Tensor, Tensor, Tensor, Tensor)",
+    "ngp_march", (ctypes.c_void_p,) * 9 + (ctypes.c_longlong,)
+    + (ctypes.c_int,) * 3 + (ctypes.c_double,) * 3,
+    _march_fake, _march_op)
+
+
 def march_rays(rays_o, rays_d, t_start, t_end, bitfield, *, cascades: int,
                scale: float, exp_step_factor: float, grid_size: int,
                sample_cap: int, n_candidates: int | None = None
@@ -206,8 +295,15 @@ def march_rays(rays_o, rays_d, t_start, t_end, bitfield, *, cascades: int,
 
     ``n_candidates``: the probe window (default: a full AABB traversal).
     With one cascade, constant ``dt`` and no window, the cell-interval
-    marcher runs."""
+    marcher runs: on CUDA rays the kernel (``csrc/ngp_march.cu``, each
+    launch counted in ``_build.LAUNCHES``), on CPU rays the plain
+    version."""
     if n_candidates is None and cascades == 1 and exp_step_factor == 0.0:
+        if on_cuda(rays_o, "ngp-march"):
+            return MarchResult(*torch.ops.taichi_nerfs_torch.ngp_march(
+                rays_o.contiguous(), rays_d.contiguous(),
+                t_start.contiguous(), t_end.contiguous(), bitfield, scale,
+                grid_size, sample_cap))
         return _march_rays_intervals(
             rays_o, rays_d, t_start, t_end, bitfield, scale=scale,
             grid_size=grid_size, sample_cap=sample_cap,
