@@ -13,13 +13,16 @@ is unsigned; the port computes all of it in int64 with
 The corner reduction is an fp32 sum over the corner axis (the JAX code
 runs it as a selector matmul at HIGHEST precision, which TF32 would round).
 
-Gradient.  fp32 tables take plain autograd (the gather's backward is a
-scatter-add).  A bf16 table is gathered and widened to fp32 exactly, and
-its gradient accumulates in fp32 and is cast to bf16 once
-(:class:`_GatherBF16`): the semantics of the JAX package's packed-pair
-gather ``_gather_pair_bf16``, whose packing is a TPU issue-rate device the
-port does not need.  The port does this for every F (the JAX package only
-for F == 2; for other F its bf16 scatter accumulates in bf16).
+Gradient.  One autograd Function (:class:`_Gather`) gathers fp32 and bf16
+tables alike: the entries widened to fp32 (exactly), and in the backward
+an fp32 ``index_add_`` of the 8 corners' cotangents, cast once to the
+table's dtype, inside the span ``ngp.encode`` on the thread that runs it.
+For an fp32 table that is autograd's scatter-add of the gather with the
+sums in another order; for a bf16 table it is the semantics of the JAX
+package's packed-pair gather ``_gather_pair_bf16``, whose packing is a TPU
+issue-rate device the port does not need.  The port does this for every F
+(the JAX package only for F == 2; for other F its bf16 scatter accumulates
+in bf16).
 """
 
 from __future__ import annotations
@@ -109,14 +112,15 @@ def init_hash_table(layout: HashGridLayout,
                       device=device)
 
 
-class _GatherBF16(torch.autograd.Function):
-    """``table[:, idx]`` of a bf16 table, widened to fp32.  Backward: the
-    scatter-add accumulates in fp32; the sum is cast to bf16 once."""
+class _Gather(torch.autograd.Function):
+    """``table[:, idx]`` of an fp32 or bf16 table, as fp32.  Backward: the
+    scatter-add accumulates in fp32, inside ``ngp.encode``; the sum is cast
+    to the table's dtype once."""
 
     @staticmethod
     def forward(ctx, table, idx):
         ctx.save_for_backward(idx)
-        ctx.n = table.shape[1]
+        ctx.n, ctx.dtype = table.shape[1], table.dtype
         return table[:, idx].float()
 
     @staticmethod
@@ -127,7 +131,7 @@ class _GatherBF16(torch.autograd.Function):
             acc = torch.zeros((F, ctx.n), dtype=torch.float32,
                               device=g.device)
             acc.index_add_(1, idx.reshape(-1), g.reshape(F, -1))
-            return acc.to(torch.bfloat16), None
+            return acc.to(ctx.dtype), None
 
 
 def fast_hash(cx: torch.Tensor, cy: torch.Tensor,
@@ -197,15 +201,12 @@ def hash_encode(table: torch.Tensor, xyz: torch.Tensor,
                 layout: HashGridLayout) -> torch.Tensor:
     """(..., 3) positions in [0, 1] -> (..., L * F) features, level-major.
 
-    ``table``: (F, n_entries), fp32 or bf16 (bf16 is gathered through
-    :class:`_GatherBF16`)."""
+    ``table``: (F, n_entries), fp32 or bf16, gathered through
+    :class:`_Gather`."""
     L, F = layout.levels, layout.feature_per_level
     batch_shape = xyz.shape[:-1]
     x = xyz.reshape(-1, 3)
     idx, w = hash_indices(x, layout)
-    if table.dtype == torch.bfloat16:
-        chans = _GatherBF16.apply(table, idx)  # (F, M, L, 8) fp32
-    else:
-        chans = table[:, idx]
+    chans = _Gather.apply(table, idx)  # (F, M, L, 8) fp32
     out = torch.sum(w[None] * chans, dim=-1)  # (F, M, L)
     return out.permute(1, 2, 0).reshape(*batch_shape, L * F)

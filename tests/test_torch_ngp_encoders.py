@@ -10,12 +10,14 @@ the MLP test in ``tests/test_torch_ops.py``.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 from torch_port_helpers import np32, t32
 
 from taichi_nerfs_torch import config as tconfig
@@ -117,6 +119,85 @@ def test_hash_encode_and_grad(F, dtype):
             np.max(np.abs(np32(tg) - jg) / _bf16_ulp(jg))
     else:
         np.testing.assert_allclose(np32(tg), jg, rtol=0, atol=1e-5)
+
+
+def _plain_hash_encode(table, x, layout):
+    """The hash encoding through plain autograd of ``table[:, idx]``, the
+    gather widened to fp32."""
+    idx, w = thash.hash_indices(x, layout)
+    chans = table[:, idx].float()
+    out = torch.sum(w[None] * chans, dim=-1)
+    return out.permute(1, 2, 0).reshape(x.shape[0], -1)
+
+
+def _gather_case(F, dtype, seed=10):
+    tc, _ = _hash_cfg(F, dtype)
+    layout = thash.build_layout(tc)
+    table = thash.init_hash_table(layout, torch.Generator().manual_seed(seed))
+    x = t32(_positions(seed + 1))
+    cot = torch.randn((x.shape[0], layout.out_dim),
+                      generator=torch.Generator().manual_seed(seed + 2))
+    return layout, table.to(getattr(torch, dtype)), x, cot
+
+
+@pytest.mark.parametrize("F,dtype", [(2, "float32"), (4, "float32"),
+                                     (2, "bfloat16"), (4, "bfloat16")])
+def test_hash_gather_features_and_table_gradient(F, dtype):
+    """``hash_encode`` gathers through ``_Gather`` for both table dtypes:
+    its features are bit-equal to the plain gather's.  Its table gradient
+    is an fp32 ``index_add_`` cast once to the table's dtype (bit for bit
+    for bf16); for an fp32 table it differs from plain autograd's
+    scatter-add only by the order of fp32 sums, each entry's by at most 8
+    ulps of the sum of its terms' magnitudes."""
+    layout, table, x, cot = _gather_case(F, dtype)
+    leaf = table.clone().requires_grad_()
+    got = thash.hash_encode(leaf, x, layout)
+    (g,) = torch.autograd.grad(torch.sum(got * cot), leaf)
+    plain = table.clone().requires_grad_()
+    want = _plain_hash_encode(plain, x, layout)
+    assert torch.equal(got, want)
+    assert g.dtype == table.dtype
+    if dtype == "bfloat16":
+        idx, w = thash.hash_indices(x, layout)
+        # the corners' cotangents scattered in fp32, cast to bf16 once
+        gch = w[None] * cot.reshape(-1, layout.levels, F).permute(
+            2, 0, 1)[..., None]
+        acc = torch.zeros((F, layout.n_entries))
+        acc.index_add_(1, idx.reshape(-1), gch.reshape(F, -1))
+        assert torch.equal(g, acc.to(torch.bfloat16))
+        return
+    (wg,) = torch.autograd.grad(torch.sum(want * cot), plain)
+    idx, w = thash.hash_indices(x, layout)
+    mag = torch.zeros((F, layout.n_entries))
+    terms = (w[None] * cot.reshape(-1, layout.levels, F).permute(
+        2, 0, 1)[..., None]).abs()
+    mag.index_add_(1, idx.reshape(-1), terms.reshape(F, -1))
+    assert torch.all((g - wg).abs() <= 8 * 2.0**-24 * mag)
+    assert float(mag.max()) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hash_backward_opens_the_encode_span(dtype, tmp_path):
+    """Under the profiler the hash encoder's backward opens ``ngp.encode``
+    on the thread that runs it, around its scatter (as the brick's
+    does), so the benchmark charges the table gradient to the encoder."""
+    layout, table, x, cot = _gather_case(2, dtype, seed=20)
+    leaf = table.clone().requires_grad_()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y = thash.hash_encode(leaf, x, layout)
+        torch.autograd.grad(torch.sum(y * cot), leaf)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in ev
+             if e.get("cat") == "user_annotation"
+             and e["name"] == "ngp.encode"]
+    adds = [(e["ts"], e["tid"]) for e in ev if e.get("cat") == "cpu_op"
+            and e["name"] == "aten::index_add_"]
+    assert len(spans) == 1 and len(adds) == 1
+    (a, b, tid), (t, add_tid) = spans[0], adds[0]
+    assert a <= t <= b and tid == add_tid
 
 
 BRICK_CASES = [(2, "float32"), (4, "float32"), (4, "bfloat16"),

@@ -1,11 +1,12 @@
 """The port's Instant-NGP against the benchmark's plain reference
-(``benchmark/reference/ngp.py``) on the CPU, at a tiny size, on seeded
-random weights: the brick and the hash encoders (forward and table
-gradient), the march's sample sets, the composite, one step's loss and
-gradients, one sampled refresh and three Adam steps; then the benchmark's
-own comparison of the NGP cell (``benchmark/systems/ngp.py``) at its tiny
-size, which every planted fault (``benchmark/tests/families/ngp.py``)
-fails.  The reference imports neither the port nor JAX.
+(``benchmark/reference/ngp.py``, and ``ngp_hash.py`` for the hash grid) on
+the CPU, at a tiny size, on seeded random weights: the brick and the hash
+encoders (forward and table gradient), the march's sample sets, the
+composite, and on either grid one step's loss and gradients, one sampled
+refresh and three Adam steps; then the benchmark's own comparison of each
+NGP cell (``benchmark/systems/ngp.py``, ``ngp_hash.py``) at its tiny size,
+which every planted fault (``benchmark/tests/families/ngp.py``,
+``ngp_hash.py``) fails.  The references import neither the port nor JAX.
 """
 
 from __future__ import annotations
@@ -24,8 +25,11 @@ from torch_port_helpers import t32  # noqa: F401  (caps torch's threads)
 
 from benchmark.harness.spec import CHECKOUT, Spec
 from benchmark.reference import ngp as ref_ngp
+from benchmark.reference import ngp_hash as ref_hash
 from benchmark.systems import ngp as system
+from benchmark.systems import ngp_hash as hash_system
 from benchmark.tests.families import ngp as family
+from benchmark.tests.families import ngp_hash as hash_family
 from taichi_nerfs_torch.config import (BrickGridConfig, HashGridConfig,
                                        config_for_scene)
 from taichi_nerfs_torch.models.occupancy import draw_grid_inputs
@@ -40,12 +44,17 @@ from taichi_nerfs_torch.train.step import (Batch, density_grid_step,
 
 CELL = "ngp_brick_8x4.train"
 SPEC = Spec(CHECKOUT)
+# by grid: the configuration, its system, reference and CPU family
+GRIDS = {"brick": ("ngp_brick_8x4", system, ref_ngp.NGPReference, family),
+         "hash": ("ngp_hash_16x2", hash_system, ref_hash.NGPHashReference,
+                  hash_family)}
 
 
-def _config() -> dict:
+def _config(grid: str = "brick") -> dict:
     """The cell's configuration, shrunk as the benchmark's CPU tests shrink
     it."""
-    return family.shrink_config(copy.deepcopy(SPEC.config("ngp_brick_8x4")))
+    name, _, _, fam = GRIDS[grid]
+    return fam.shrink_config(copy.deepcopy(SPEC.config(name)))
 
 
 def _rel(a, b) -> float:
@@ -202,14 +211,14 @@ def test_composite():
 # ------------------------------------------------------- step and refresh
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(grid: str):
     """A tiny trainer's state on the lego proxy (seeded weights, a
-    refreshed grid), its data and the reference."""
+    refreshed grid), its data, the reference and the grid's system."""
     from benchmark.scene import lego
 
-    config = _config()
-    cfg = system.program_config(config, 11)
+    config = _config(grid)
+    _, sys_, ref_cls, _ = GRIDS[grid]
+    cfg = sys_.program_config(config, 11)
     sc = config["scene"]
     w, h = sc["img_wh"]
     K = lego.intrinsics(w, h)
@@ -222,12 +231,22 @@ def setup():
                  torch.as_tensor(get_ray_directions_np(h, w, K)))
     state = create_train_state(cfg)
     with torch.no_grad():
-        mine = system.make_params(config, 5, "cpu")
-        for k, p in system.leaves(state.params).items():
+        mine = sys_.make_params(config, 5, "cpu")
+        for k, p in sys_.leaves(state.params).items():
             p.copy_(mine[k])
     gen = torch.Generator().manual_seed(12)
     state = density_grid_step(state, cfg, True, gen)
-    return config, cfg, data, state, u8, K, w
+    return config, cfg, data, state, u8, K, w, sys_, ref_cls(config)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("brick")
+
+
+@pytest.fixture(scope="module")
+def hash_setup():
+    return _setup("hash")
 
 
 def _draws(cfg, data, seed):
@@ -238,12 +257,21 @@ def test_one_step_loss_and_gradients(setup):
     """The loss and every leaf's gradient of one step, the reference taken
     at the program's samples (whose march is held to the reference's in
     ``test_march_sample_sets``), and its own march's count."""
-    config, cfg, data, state, u8, K, w = setup
+    _check_one_step(setup)
+
+
+def test_one_step_loss_and_gradients_hash(hash_setup):
+    """The same on the hash grid: the table's gradient is the scatter of
+    its 16 x 8 corners a sample."""
+    _check_one_step(hash_setup)
+
+
+def _check_one_step(setup):
+    config, cfg, data, state, u8, K, w, sys_, ref = setup
     draws = _draws(cfg, data, 13)
     loss, _, res, grads = loss_and_grads(state, data, cfg, 128, None, draws)
-    ref = ref_ngp.NGPReference(config)
     params = {k: v.detach().clone().requires_grad_(True)
-              for k, v in system.leaves(state.params).items()}
+              for k, v in sys_.leaves(state.params).items()}
     o, d = ref.rays(data.poses, K, w, draws.img_idxs, draws.pix_idxs)
     gt = u8[draws.img_idxs, draws.pix_idxs].float() / 255.0
     theirs = ref_ngp.March(res["ts"], res["valid"], res["counts"],
@@ -259,18 +287,25 @@ def test_one_step_loss_and_gradients(setup):
     # a sample on a cell boundary may fall either way (see the march)
     assert abs(int(res["rm_samples"]) - int(own.counts.sum())) <= 2
     assert int(own.counts.sum()) > 0
-    for k, g in system.leaves(grads).items():
+    for k, g in sys_.leaves(grads).items():
         # bf16 operands: a sum in another order may round one the other way
         assert _rel(g, rgrads[k]) < 1e-3, k
 
 
 def test_one_sampled_refresh(setup):
-    config, cfg, data, state, u8, K, w = setup
+    _check_one_refresh(setup)
+
+
+def test_one_sampled_refresh_hash(hash_setup):
+    _check_one_refresh(hash_setup)
+
+
+def _check_one_refresh(setup):
+    config, cfg, data, state, u8, K, w, sys_, ref = setup
     draws = draw_grid_inputs(cfg.model, False, torch.Generator().manual_seed(
         14))
     new = density_grid_step(state, cfg, False, draws=draws)
-    ref = ref_ngp.NGPReference(config)
-    params = system.leaves(state.params)
+    params = sys_.leaves(state.params)
     grid, bits = ref.refresh(params, state.occupancy.density_grid[0],
                              draws[0].coords1, draws[0].keys, draws[0].noise)
     seen = grid >= 0
@@ -281,14 +316,21 @@ def test_one_sampled_refresh(setup):
 
 
 def test_three_adam_steps(setup):
-    config, cfg, _, state, _, _, _ = setup
+    _check_three_adam_steps(setup)
+
+
+def test_three_adam_steps_hash(hash_setup):
+    _check_three_adam_steps(hash_setup)
+
+
+def _check_three_adam_steps(setup):
+    config, cfg, _, state, _, _, _, sys_, ref = setup
     opt = Adam(cfg.train.lr, cfg.train.max_steps, 1.0 / cfg.train.lr_final_div,
                cfg.train.adam_eps)
-    params = {k: v.detach().clone() for k, v in system.leaves(
+    params = {k: v.detach().clone() for k, v in sys_.leaves(
         state.params).items()}
     tree = {"p": {k: v.clone() for k, v in params.items()}}
     st = opt.init(tree, sched_count=40)
-    ref = ref_ngp.NGPReference(config)
     mine = {k: v.clone() for k, v in params.items()}
     mu = {k: torch.zeros_like(v) for k, v in params.items()}
     nu = {k: torch.zeros_like(v) for k, v in params.items()}
@@ -311,13 +353,42 @@ def test_configuration_is_the_default_command():
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
+def test_hash_configuration_is_the_encoder_flag():
+    """The hash cell's configuration is ``config_for_scene(0.5,
+    pos_encoder_type="hash")``, the program's ``--encoder_type hash``, field
+    for field: the published 16 x 2 grid, T=2^19, 16 to 1024, an fp32
+    table; and its leaves are the program's parameters, shape for shape."""
+    config = SPEC.config("ngp_hash_16x2")
+    want = config_for_scene(0.5, pos_encoder_type="hash")
+    got = hash_system.program_config(config, want.train.seed)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.model.grid == HashGridConfig()
+    layout = hash_encoder.build_layout(got.model.grid)
+    geo = ref_ngp.HashGeometry.of(config["model"]["grid"])
+    assert (geo.res, geo.size, geo.start) == (
+        layout.resolutions, layout.map_sizes, layout.offsets)
+    assert geo.hashed.index(True) == layout.begin_fast_hash_level == 6
+    assert layout.feature_per_level * layout.n_entries == 11_420_064
+    # what the train entry builds from ``train.py``'s flags
+    if CHECKOUT not in sys.path:
+        sys.path.insert(0, CHECKOUT)
+    from opt import get_opts
+
+    from taichi_nerfs_torch.config import config_from_opts
+
+    hp = get_opts(["--root_dir", "synthetic://lego", "--encoder_type",
+                   "hash"])
+    assert config_from_opts(hp).model == got.model
+
+
 # ------------------------------------------- the cell's comparison, faults
 
 
-def _session():
-    traffic = family.shrink_traffic(copy.deepcopy(SPEC.traffic(
-        "settled_rays")))
-    s = system.TrainSession(_config(), traffic, 2 ** 31 + 21, "cpu")
+def _session(grid: str = "brick"):
+    name, sys_, _, fam = GRIDS[grid]
+    traffic = fam.shrink_traffic(copy.deepcopy(SPEC.traffic(
+        SPEC.cell(f"{name}.train")["traffic"])))
+    s = sys_.TrainSession(_config(grid), traffic, 2 ** 31 + 21, "cpu")
     s.release()
     return s
 
@@ -331,6 +402,21 @@ def test_cell_comparison_and_planted_faults(fault):
     with family.planted()[fault]:
         gaps = _session().check()
     assert any(v > family.LIMITS[k] for k, v in gaps.items()), (fault, gaps)
+
+
+@pytest.mark.parametrize("fault", [None] + sorted(hash_family.planted()))
+def test_hash_cell_comparison_and_planted_faults(fault):
+    """The hash cell's comparison at its tiny size: the program agrees
+    with the reference; a bf16 table, a wrong prime and a dense level
+    indexed as hashed each read past a limit."""
+    limits = hash_family.LIMITS
+    if fault is None:
+        gaps = _session("hash").check()
+        assert all(v <= limits[k] for k, v in gaps.items()), gaps
+        return
+    with hash_family.planted()[fault]:
+        gaps = _session("hash").check()
+    assert any(v > limits[k] for k, v in gaps.items()), (fault, gaps)
 
 
 # --------------------------------------------------------- independence
@@ -360,13 +446,16 @@ def _benchmark_imports(path, seen):
 
 
 def test_reference_imports_neither_the_port_nor_jax():
-    path = os.path.join(CHECKOUT, "benchmark", "reference", "ngp.py")
-    tops = _benchmark_imports(path, set())
-    assert "torch" in tops and not tops & set(FORBIDDEN)
-    code = ("import sys, torch; import benchmark.reference.ngp as r; "
-            "r.NGPReference({'model': {'scale': 0.5, 'grid_size': 8, "
+    for name in ("ngp.py", "ngp_hash.py"):
+        path = os.path.join(CHECKOUT, "benchmark", "reference", name)
+        tops = _benchmark_imports(path, set())
+        assert "torch" in tops and not tops & set(FORBIDDEN), name
+    code = ("import sys, torch; import benchmark.reference.ngp_hash as r; "
+            "r.NGPHashReference({'model': {'scale': 0.5, 'grid_size': 8, "
             "'brick': {'levels': 2, 'feature_per_level': 2, 'log2_rows': 6,"
-            " 'base_res': 2, 'max_res': 4}}, 'render': {}, 'train': {}}); "
+            " 'base_res': 2, 'max_res': 4}, 'grid': {'levels': 2, "
+            "'feature_per_level': 2, 'log2_T': 6, 'base_res': 2, "
+            "'max_res': 4}}, 'render': {}, 'train': {}}); "
             "assert not torch.backends.cuda.matmul.allow_tf32; "
             "assert not torch.backends.cudnn.allow_tf32; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
