@@ -29,6 +29,14 @@ phases:
    table gradients within 1e-5 of their largest entry, a second run's
    gradient beside it), timed the same way beside the encoder's bound
    (``benchmark/counts/ngp.py:encode_bound``) and the plain version; the
+   hash encoder's gather and scatter (``hash_encode_fwd`` / ``_bwd``)
+   against ``hash_encode_reference`` at the hash cell's layout (16 x 2,
+   T = 2^19; fp32 and bf16 tables) on ~259 K such positions and a 1 M-point
+   refresh batch (the limits of ``ops/hash_encoder.py``: features within
+   1e-6 of their largest, each gradient entry within 16 fp32 roundings of
+   the sum of its terms' magnitudes, a bf16 entry within a bf16 rounding
+   besides; each scatter's transpose counted), timed the same way beside
+   ``benchmark/counts/ngp_hash.py:encode_bound`` and the plain version; the
    NGP march (``ngp_march``) against ``_march_rays_intervals`` at the NGP
    cell's step shape (8,192 rays of the lego rig through the lego proxy's
    128^3 grid, at the cap the trainer would set and at 1024; bit-equal,
@@ -107,7 +115,11 @@ phases:
    2e-2); ``render_image`` renders an 800x800 test view (finite, opacity in
    [0, 1]); 3 steady steps run under ``torch.profiler``.  The brick
    encoder's kernels must launch in every step and the march kernel once a
-   step (the JAX package has no TPU kernel on this path);
+   step (the JAX package has no TPU kernel on this path).  Then the hash
+   grid's model (``pos_encoder_type="hash"``) trains 64 steps on such views:
+   every step launches one hash scatter and its transpose, and one gather
+   (more on a step that opens with the grid's refresh), counted into the
+   ``hash_encode`` entry of the kernels line;
 14. ngp_models: the tri-plane encoder (``config_for_scene(0.5,
    pos_encoder_type="triplane")``, the default ``TriPlaneConfig``: a
    3 x 1024^2 x 4 table) and the svox voxel grid (``--grid_size 256
@@ -844,8 +856,8 @@ def phase_brick_encode(torch):
             # the forward, and in a step the backward and its second run
             launched = _brick_launches() - n
             ok = ok and launched == (3 if step else 1)
-            print(f"{line}; {launched} launches {'ok' if ok else 'FAIL'}",
-                  flush=True)
+            print(f"{line}; launches (gather, scatter, transpose) "
+                  f"{launched} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"brick_encode {tag}: {r}, {launched} "
                                      f"launches")
@@ -877,6 +889,145 @@ def phase_brick_encode(torch):
                      share_cold=bound / cold)
             res[tag] = r
             del dout, idx
+    return res
+
+
+# the hash encoder phase: the hash cell's ~259 K samples a step (~31.6 a
+# ray over 8,192 rays), the refresh batch; the kernels' limits against
+# hash_encode_reference are ops/hash_encoder.py's (FEATURE_REL_TOL,
+# kernel_grad_room), which tests/test_torch_hash_kernel.py holds them to
+HASH_SAMPLES = 259_000
+# the hash-grid NGP run: steps of config_for_scene(0.5, pos_encoder_type=
+# "hash") on the ngp phase's kind of views, refreshes at steps 0, 16, ...
+HASH_NGP_STEPS = 64
+
+
+def _hash_launches():
+    """The hash encoder's launches so far: gathers, scatters and the
+    scatters' transposes."""
+    from taichi_nerfs_torch.ops._build import LAUNCHES
+
+    return (LAUNCHES["hash_encode_fwd"], LAUNCHES["hash_encode_bwd"],
+            LAUNCHES["hash_encode_bwd_transpose"])
+
+
+def _hash_launches_since(n0):
+    return tuple(b - a for a, b in zip(n0, _hash_launches()))
+
+
+def phase_hash_encode(torch):
+    """The hash encoder's kernels against ``hash_encode_reference`` at the
+    hash cell's layout, fp32 and bf16 tables: the training step's samples
+    (forward, gradient, a second run's gradient) and a refresh batch
+    (forward), each timed warm and cold beside the plain version's time and
+    the encoder's bound (``counts/ngp_hash.py:encode_bound``: the
+    forward's, and the step's forward and backward together against the
+    two entries' sum)."""
+    import dataclasses
+
+    from benchmark.counts.ngp_hash import encode_bound
+    from benchmark.reference.ngp import HashGeometry
+    from taichi_nerfs_torch.config import HashGridConfig
+    from taichi_nerfs_torch.ops import hash_encoder as th
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    ops = torch.ops.taichi_nerfs_torch
+    cfg = HashGridConfig()
+    geo = HashGeometry.of(dataclasses.asdict(cfg))
+    layout = th.build_layout(cfg)
+    args = th._kernel_args(layout)
+    n, L, F = layout.n_entries, layout.levels, layout.feature_per_level
+    shell = _shell_positions(torch, 31)[:HASH_SAMPLES].contiguous()
+    g = torch.Generator(device="cuda").manual_seed(32)
+    refresh = torch.rand((BRICK_REFRESH, 3), generator=g, device="cuda")
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = th.init_hash_table(
+            layout, torch.Generator().manual_seed(33)).cuda().to(dtype)
+        for label, xyz in (("step", shell), ("refresh", refresh)):
+            tag = f"{label} M={xyz.shape[0]} {str(dtype)[6:]}"
+            step = label == "step"
+            M = xyz.shape[0]
+            dout = torch.randn((M, layout.out_dim), generator=g,
+                               device="cuda")
+            leaf = table.clone().requires_grad_()
+            n0 = _hash_launches()
+            out = th.hash_encode(leaf, xyz, layout)
+            want = th.hash_encode_reference(leaf, xyz, layout)
+            top = float(want.detach().abs().max())
+            r = {"feat_rel": float((out - want).abs().max().detach()) / top}
+            ok = r["feat_rel"] <= th.FEATURE_REL_TOL
+            line = (f"kernel hash_encode {tag}: features max_abs/max="
+                    f"{r['feat_rel']:.3e} (limit {th.FEATURE_REL_TOL:.0e})")
+            if step:
+                (got,) = torch.autograd.grad(torch.sum(out * dout), leaf)
+                (ref,) = torch.autograd.grad(torch.sum(want * dout), leaf)
+                room = th.kernel_grad_room(xyz, dout, layout, ref)
+                got, ref = got.float(), ref.float()
+                gtop = float(ref.abs().max())
+                again = ops.hash_encode_bwd(dout, xyz, n, dtype, *args)
+                for key, g_ in (("", got), ("_rerun", again)):
+                    diff = (g_.float() - ref).abs()
+                    r[f"grad_rel{key}"] = float(diff.max()) / gtop
+                    r[f"grad_of_room{key}"] = float(
+                        (diff / room.clamp_min(1e-30)).max())
+                    ok = ok and r[f"grad_of_room{key}"] <= 1.0
+                line += "".join(
+                    f"; gradient{k.replace('_', ' ')} max_abs/max="
+                    f"{r['grad_rel' + k]:.3e}, of its limit "
+                    f"{r['grad_of_room' + k]:.3f}" for k in ("", "_rerun"))
+                del room, again
+            torch.cuda.synchronize()
+            # the forward, and in a step the backward and its second run,
+            # each with its transpose
+            launched = _hash_launches_since(n0)
+            ok = ok and launched == ((1, 2, 2) if step else (1, 0, 0))
+            print(f"{line}; launches (gather, scatter, transpose) "
+                  f"{launched} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"hash_encode {tag}: {r}, {launched} "
+                                     f"launches")
+            del out, want, leaf
+            idx, w = th.hash_indices(xyz, layout)
+
+            def plain_fwd():
+                with torch.no_grad():
+                    return th.hash_encode_reference(table, xyz, layout)
+
+            def plain_bwd():
+                # _Gather's backward after the corner sum's: the products,
+                # the fp32 index_add_ and the cast
+                gch = w[None] * dout.reshape(M, L, F).permute(2, 0, 1)[
+                    ..., None]
+                acc = torch.zeros((F, n), dtype=torch.float32, device="cuda")
+                acc.index_add_(1, idx.reshape(-1), gch.reshape(F, -1))
+                return acc.to(dtype)
+
+            parts = [("fwd", lambda: ops.hash_encode_fwd(table, xyz, *args),
+                      plain_fwd)]
+            if step:
+                parts.append(("bwd", lambda: ops.hash_encode_bwd(
+                    dout, xyz, n, dtype, *args), plain_bwd))
+            for part, kern, plain in parts:
+                r[part] = dict(warm=_time_ms(torch, kern, 20),
+                               cold=_time_ms(torch, kern, 20, flush),
+                               plain=_time_ms(torch, plain, 5))
+                print(f"  time {tag} {part}: kernel warm "
+                      f"{r[part]['warm']:.4f} ms, cold "
+                      f"{r[part]['cold']:.4f} ms; plain "
+                      f"{r[part]['plain']:.4f} ms (medians, CUDA events)",
+                      flush=True)
+            bound, by, nbytes, _ = encode_bound(xyz, geo, backward=step)
+            used = [p for p, _, _ in parts]
+            warm = sum(r[p]["warm"] for p in used)
+            cold = sum(r[p]["cold"] for p in used)
+            print(f"  bound {tag} ({'+'.join(used)}): {bound:.4f} ms ({by}: "
+                  f"{nbytes / 1e6:.1f} MB), share warm {bound / warm:.1%}, "
+                  f"cold {bound / cold:.1%}", flush=True)
+            r.update(bound=bound, by=by, share_warm=bound / warm,
+                     share_cold=bound / cold)
+            res[tag] = r
+            del dout, idx, w
     return res
 
 
@@ -2901,6 +3052,57 @@ def phase_ngp(torch, seed):
             "march_launches": march_launches}
 
 
+def phase_ngp_hash(torch):
+    """The hash-grid NGP model (``config_for_scene(0.5,
+    pos_encoder_type="hash")``) trained ``HASH_NGP_STEPS`` steps on 8
+    checker views: every step launches one scatter and its transpose, and
+    one gather, or more on a step that opens with the grid's refresh (its
+    probes are gathers too); the losses stay finite.  Returns the launches
+    by C entry and the median step after the first 16."""
+    import numpy as np
+
+    from taichi_nerfs_torch.config import config_for_scene
+    from taichi_nerfs_torch.data.synthetic import SyntheticSphereDataset
+    from taichi_nerfs_torch.train.loop import Trainer
+
+    device = torch.device("cuda")
+    cfg = config_for_scene(0.5, pos_encoder_type="hash")
+    train = SyntheticSphereDataset(n_images=8, img_wh=(256, 256),
+                                   variant="checker", device=device)
+    trainer = Trainer(cfg, train.as_batch(device), train.K, train.img_wh,
+                      device=device)
+    interval = cfg.train.update_interval
+    n_start = _hash_launches()
+    losses, step_ms, bad = [], [], []
+    for i in range(HASH_NGP_STEPS):
+        n0 = _hash_launches()
+        t0 = time.perf_counter()
+        m = trainer.run_step()
+        losses.append(float(m["loss"]))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        fwd, bwd, tr = _hash_launches_since(n0)
+        refresh = i % interval == 0
+        if bwd != 1 or tr != 1 or (fwd < 2 if refresh else fwd != 1):
+            bad.append((i, fwd, bwd, tr))
+    total = dict(zip(("hash_encode_fwd", "hash_encode_bwd",
+                      "hash_encode_bwd_transpose"),
+                     _hash_launches_since(n_start)))
+    steady = _median(step_ms[16:])
+    print(f"ngp_hash: {HASH_NGP_STEPS} steps of the {cfg.model.grid.levels}"
+          f"x{cfg.model.grid.feature_per_level} hash grid (T=2^"
+          f"{cfg.model.grid.log2_T}), launches {total}; median step after "
+          f"16 {steady:.3f} ms; loss {losses[0]:.6f} -> {losses[-1]:.6f}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"ngp_hash: steps with other launches than "
+                             f"one gather (more on a refresh), one scatter "
+                             f"and one transpose (step, gather, scatter, "
+                             f"transpose): {bad}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ngp_hash: non-finite loss: {losses}")
+    return {"launches": total, "steady_ms": steady}
+
+
 # the ngp_models phase: the tri-plane encoder at the default TriPlaneConfig
 # and the svox grid at opt.py's defaults (--grid_size 256 --sh_degree 2
 # --grid_radius 0.0125), each trained NGP_STEPS steps on the ngp phase's views
@@ -4452,6 +4654,7 @@ def main(argv=None):
     worst_bwd, bwd_timing = phase_bwd_kernels(torch)
     warp_timing = phase_warp(torch)
     brick_timing = phase_brick_encode(torch)
+    hash_timing = phase_hash_encode(torch)
     march_timing, march_cap = phase_ngp_march(torch)
     serve_launches, serve_warps, frame_ms = phase_slice(
         torch, args.ckpt_path, args.seed)
@@ -4492,6 +4695,8 @@ def main(argv=None):
     files = phase_files(torch, args.seed, card)
     ngp = phase_ngp(torch, args.seed)
     ngp_launches, ngp_marches = ngp["brick_launches"], ngp["march_launches"]
+    hash_ngp = phase_ngp_hash(torch)["launches"]
+    hash_step = hash_timing[f"step M={HASH_SAMPLES} float32"]
     brick_step = brick_timing[f"step M={BRICK_SAMPLES} float32"]
     print(f"ngp: steady step {ngp['steady_ms']:.3f} ms, warmup step "
           f"{ngp['warm_ms']:.3f} ms, 800x800 frame "
@@ -4682,6 +4887,32 @@ def main(argv=None):
         "ms_by_shape": {k: {p: t[p] for p in ("fwd", "bwd", "bound",
                                               "share_warm") if p in t}
                         for k, t in sorted(brick_timing.items())},
+    }, {
+        "name": "hash_encode",
+        "route": "cuda",
+        "source": "taichi_nerfs_torch/csrc/hash_encode.cu",
+        "replaces": None,  # the JAX package's hash encoder is XLA ops
+        # the C entries' launches (gathers and scatters), and the second
+        # kernel of each scatter under a key of its own
+        "launches": (hash_ngp["hash_encode_fwd"]
+                     + hash_ngp["hash_encode_bwd"]),
+        "launches_by_path": {"train_ngp_hash": hash_ngp["hash_encode_fwd"]
+                             + hash_ngp["hash_encode_bwd"]},
+        "transpose_launches_by_path": {
+            "train_ngp_hash": hash_ngp["hash_encode_bwd_transpose"]},
+        # features and gradients, relative to their largest
+        "max_rel_err": max(t.get(k, 0.0) for t in hash_timing.values()
+                           for k in ("feat_rel", "grad_rel",
+                                     "grad_rel_rerun")),
+        # the hash cell's step: forward and backward, fp32 table, warm
+        "ms": hash_step["fwd"]["warm"] + hash_step["bwd"]["warm"],
+        "plain_ms": hash_step["fwd"]["plain"] + hash_step["bwd"]["plain"],
+        "bound_ms": hash_step["bound"],
+        "bound_by": hash_step["by"],
+        "library_ms": None,  # no single PyTorch call computes the encoder
+        "ms_by_shape": {k: {p: t[p] for p in ("fwd", "bwd", "bound",
+                                              "share_warm") if p in t}
+                        for k, t in sorted(hash_timing.items())},
     }, {
         "name": "ngp_march",
         "route": "cuda",

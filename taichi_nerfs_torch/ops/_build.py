@@ -122,9 +122,11 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(path)
 
 
-# Every launch in this process, by C entry (``swr_sweep_bwd_rows``: the
-# second kernel that the entry ``swr_sweep_bwd`` launches for a bf16 volume
-# or bf16 operands).  A fake (traced) call counts nothing.
+# Every launch in this process, by C entry, and the second kernels of two
+# entries under keys of their own: ``swr_sweep_bwd_rows``, which the entry
+# ``swr_sweep_bwd`` launches for a bf16 volume or bf16 operands, and
+# ``hash_encode_bwd_transpose``, which ``hash_encode_bwd`` launches after
+# its scatter.  A fake (traced) call counts nothing.
 LAUNCHES: collections.Counter = collections.Counter()
 
 

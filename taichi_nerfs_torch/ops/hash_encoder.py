@@ -5,28 +5,51 @@ the same spatial hash (primes 1 / 2654435761 / 805459861) and linear index
 for dense levels, and the same U[0, 1) table.  The table is ``(F,
 n_entries)``, feature-major, as the JAX code uses it.
 
+Two implementations of the one function, :func:`hash_encode`:
+
+* CUDA positions run the hand-written kernels of ``csrc/hash_encode.cu``
+  (operators ``taichi_nerfs_torch::hash_encode_fwd`` / ``_bwd``): one
+  gather a call, which computes each position's cells, table entries and
+  weights in registers and reads its corners where they lie in the table,
+  and one scatter of the gradient, recomputed from the saved positions,
+  into entry-major fp32 sums that the same C entry's second kernel
+  transposes into the (F, n_entries) gradient (counted in
+  ``_build.LAUNCHES`` as ``hash_encode_bwd_transpose``).
+  They take F in :data:`KERNEL_F`, up to :data:`MAX_LEVELS` levels, a
+  contiguous fp32 or bf16 table, and raise on anything else: there is no
+  fallback.  Each call reads the layout's levels and the primes
+  (:data:`_PRIMES`) it is given at call time.
+* CPU positions, and :func:`hash_encode_reference` on any device, run the
+  plain version below: int64 ``(M, L, 8)`` indices and fp32 weights from
+  :func:`hash_indices`, a gather and an ``index_add_`` backward.
+
 uint32 arithmetic.  Cell coordinates become uint32 (a negative int32
 coordinate wraps), the hash multiplies wrap mod 2**32 and ``h % map_size``
-is unsigned; the port computes all of it in int64 with
-:func:`~taichi_nerfs_torch.ops.math.mul_u32`, bit-equal to JAX.
+is unsigned; the plain version computes all of it in int64 with
+:func:`~taichi_nerfs_torch.ops.math.mul_u32`, bit-equal to JAX, and the
+kernels in uint32.  Both compute the cells, entries and weights in the same
+fp32 roundings; they differ in the order of the 8-corner sum and of the
+gradient's sums.
 
 The corner reduction is an fp32 sum over the corner axis (the JAX code
 runs it as a selector matmul at HIGHEST precision, which TF32 would round).
 
-Gradient.  One autograd Function (:class:`_Gather`) gathers fp32 and bf16
-tables alike: the entries widened to fp32 (exactly), and in the backward
-an fp32 ``index_add_`` of the 8 corners' cotangents, cast once to the
-table's dtype, inside the span ``ngp.encode`` on the thread that runs it.
-For an fp32 table that is autograd's scatter-add of the gather with the
-sums in another order; for a bf16 table it is the semantics of the JAX
-package's packed-pair gather ``_gather_pair_bf16``, whose packing is a TPU
-issue-rate device the port does not need.  The port does this for every F
-(the JAX package only for F == 2; for other F its bf16 scatter accumulates
-in bf16).
+Gradient.  The plain version's one autograd Function (:class:`_Gather`)
+gathers fp32 and bf16 tables alike: the entries widened to fp32 (exactly),
+and in the backward an fp32 ``index_add_`` of the 8 corners' cotangents,
+cast once to the table's dtype; the kernels' backward adds in fp32 and
+rounds once too.  Both backwards run inside the span ``ngp.encode`` on the
+thread that runs them.  For an fp32 table that is autograd's scatter-add of
+the gather with the sums in another order; for a bf16 table it is the
+semantics of the JAX package's packed-pair gather ``_gather_pair_bf16``,
+whose packing serves the TPU's instruction rate, which the port does not
+need.  The port does this for every F (the JAX package only for F == 2; for
+other F its bf16 scatter accumulates in bf16).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -37,6 +60,7 @@ import torch
 
 from ..config import HashGridConfig
 from ..utils import profiling
+from ._build import LAUNCHES, declare, on_cuda
 from .math import U32, as_u32, mul_u32
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -197,12 +221,11 @@ def hash_indices(xyz: torch.Tensor, layout: HashGridLayout):
     return h % sizes + offs, w
 
 
-def hash_encode(table: torch.Tensor, xyz: torch.Tensor,
-                layout: HashGridLayout) -> torch.Tensor:
-    """(..., 3) positions in [0, 1] -> (..., L * F) features, level-major.
-
-    ``table``: (F, n_entries), fp32 or bf16, gathered through
-    :class:`_Gather`."""
+def hash_encode_reference(table: torch.Tensor, xyz: torch.Tensor,
+                          layout: HashGridLayout) -> torch.Tensor:
+    """:func:`hash_encode` in plain PyTorch on any device: (..., 3)
+    positions -> (..., L * F) features, level-major; ``table`` (F,
+    n_entries), fp32 or bf16, gathered through :class:`_Gather`."""
     L, F = layout.levels, layout.feature_per_level
     batch_shape = xyz.shape[:-1]
     x = xyz.reshape(-1, 3)
@@ -210,3 +233,212 @@ def hash_encode(table: torch.Tensor, xyz: torch.Tensor,
     chans = _Gather.apply(table, idx)  # (F, M, L, 8) fp32
     out = torch.sum(w[None] * chans, dim=-1)  # (F, M, L)
     return out.permute(1, 2, 0).reshape(*batch_shape, L * F)
+
+
+# How far the kernels may lie from the plain version.  Features: the
+# 8-corner sum runs in another order than torch.sum, at most 7 roundings of
+# a sum below 1 (weights sum to 1, table values < 1), ~4.2e-7, relative to
+# the largest feature.  Gradient: its sums run in another order (by
+# atomics), so each entry lies within GRAD_ULPS fp32 roundings (2^-24) of
+# the sum of its terms' magnitudes, the bound of a sum's rounding that does
+# not depend on its order (the CPU's index_add_ against autograd's takes 8:
+# tests/test_torch_ngp_encoders.py); a bf16 gradient may round an entry to
+# the neighbouring bf16 value besides (2^-7 of the entry).
+FEATURE_REL_TOL = 1e-6
+GRAD_ULPS = 16
+BF16_ENTRY_TOL = 2.0**-7
+
+
+def kernel_grad_room(xyz: torch.Tensor, dout: torch.Tensor,
+                     layout: HashGridLayout,
+                     want_g: torch.Tensor) -> torch.Tensor:
+    """How far each entry of the kernels' (F, n_entries) table gradient may
+    lie from the plain version's ``want_g`` for positions ``xyz`` and
+    cotangent ``dout`` (M, L F): :data:`GRAD_ULPS` roundings of the sum of
+    its terms' magnitudes, and for a bf16 gradient a bf16 rounding."""
+    idx, w = hash_indices(xyz, layout)
+    L, F = layout.levels, layout.feature_per_level
+    terms = w[None] * dout.reshape(-1, L, F).permute(2, 0, 1)[..., None]
+    mag = torch.zeros((F, layout.n_entries), device=xyz.device)
+    mag.index_add_(1, idx.reshape(-1), terms.abs().reshape(F, -1))
+    room = GRAD_ULPS * 2.0**-24 * mag
+    if want_g.dtype == torch.bfloat16:
+        room = room + BF16_ENTRY_TOL * want_g.float().abs()
+    return room
+
+
+# ---- the kernels (csrc/hash_encode.cu) -----------------------------------
+
+# the feature widths the kernels are built for, and the most levels they take
+KERNEL_F = (1, 2, 4, 8)
+MAX_LEVELS = 16
+_TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_levels(layout: HashGridLayout):
+    """The layout as the kernels take it: the fp32 scale of each level and,
+    per level, (cells a side, table size, first entry, 1 if hashed)."""
+    info = []
+    for lv in range(layout.levels):
+        info += [layout.resolutions[lv], layout.map_sizes[lv],
+                 layout.offsets[lv], int(lv >= layout.begin_fast_hash_level)]
+    return tuple(level_scales(layout).tolist()), tuple(info)
+
+
+def _kernel_args(layout: HashGridLayout):
+    """``(scales, info, primes)`` for the operators: the layout's levels and
+    the primes :data:`_PRIMES` holds at the call."""
+    return (*_kernel_levels(layout), tuple(_PRIMES))
+
+
+@functools.lru_cache(maxsize=32)
+def _c_levels(scales, info, primes):
+    """The level table as C arrays (cached: a step passes the same one)."""
+    return ((ctypes.c_float * len(scales))(*scales),
+            (ctypes.c_longlong * len(info))(*info),
+            (ctypes.c_longlong * len(primes))(*primes))
+
+
+def _check_kernel_args(F, n, xyz, feats, scales, info, primes):
+    """Raise unless the kernels take these: a table (F, ``n``), positions
+    ``xyz`` and ``feats``, the (M, L F) output (forward) or its cotangent
+    (backward)."""
+    L = len(scales)
+    if not 1 <= L <= MAX_LEVELS or len(info) != 4 * L:
+        raise ValueError(f"no hash-encode kernel for {L} levels (1 to "
+                         f"{MAX_LEVELS}, 4 numbers each in info)")
+    if F not in KERNEL_F:
+        raise ValueError(f"no hash-encode kernel for F={F} (built for "
+                         f"{KERNEL_F})")
+    if not 1 <= n < 2**32:
+        raise ValueError(f"no hash-encode kernel for {n} table entries")
+    M = xyz.shape[0]
+    for name, t, shape in (("xyz", xyz, (M, 3)),
+                           ("features", feats, (M, L * F))):
+        if t.dim() != 2 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != xyz.device:
+            raise ValueError(f"{name} is on {t.device}, xyz on {xyz.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the hash-encode kernels "
+                            "take float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for lv in range(L):
+        res, size, start, hashed = info[4 * lv : 4 * lv + 4]
+        if (not 1 <= res < 2**32 or size < 1 or start < 0
+                or start + size > n or hashed not in (0, 1)):
+            raise ValueError(f"level {lv} ({res}, {size}, {start}, {hashed}) "
+                             f"does not fit the table of {n} entries")
+    if len(primes) != 3 or not all(0 <= p < 2**32 for p in primes):
+        raise ValueError(f"the hash takes three uint32 primes, got {primes}")
+
+
+def _fwd_fake(table, xyz, scales, info, primes):
+    if table.dim() != 2:
+        raise ValueError(f"table must be (F, n_entries), got "
+                         f"{tuple(table.shape)}")
+    if table.dtype not in _TABLE_DTYPES:
+        raise TypeError(f"table is {table.dtype}; the hash-encode kernels "
+                        "take float32 or bfloat16")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+    if table.device != xyz.device:
+        raise ValueError(f"table is on {table.device}, xyz on {xyz.device}")
+    F, n = table.shape
+    out = xyz.new_empty((xyz.shape[0], len(scales) * F))
+    _check_kernel_args(F, n, xyz, out, scales, info, primes)
+    return out
+
+
+def _fwd_op(launch, out, table, xyz, scales, info, primes):
+    if xyz.shape[0]:
+        F, n = table.shape
+        c_levels = _c_levels(tuple(scales), tuple(info), tuple(primes))
+        launch(xyz.device, xyz.data_ptr(), table.data_ptr(), out.data_ptr(),
+               xyz.shape[0], n, len(scales), F,
+               int(table.dtype == torch.bfloat16),
+               *(ctypes.addressof(a) for a in c_levels))
+
+
+def _bwd_fake(dout, xyz, n, dtype, scales, info, primes):
+    """The (F, n) table gradient in ``dtype`` (the table's)."""
+    if dtype not in _TABLE_DTYPES:
+        raise TypeError(f"no hash-encode kernel for a {dtype} table")
+    F = dout.shape[1] // max(len(scales), 1)
+    grad = torch.empty((F, n), dtype=dtype, device=dout.device)
+    _check_kernel_args(F, n, xyz, dout, scales, info, primes)
+    return grad
+
+
+def _bwd_op(launch, grad, dout, xyz, n, dtype, scales, info, primes):
+    if not xyz.shape[0]:
+        grad.zero_()
+        return
+    F = grad.shape[0]
+    # the entry-major fp32 sums the scatter adds into (one vector a corner);
+    # the C entry's second launch transposes them into ``grad``
+    acc = torch.zeros((n, F), dtype=torch.float32, device=grad.device)
+    c_levels = _c_levels(tuple(scales), tuple(info), tuple(primes))
+    launch(dout.device, dout.data_ptr(), xyz.data_ptr(), acc.data_ptr(),
+           grad.data_ptr(), xyz.shape[0], n, len(scales), F,
+           int(dtype == torch.bfloat16),
+           *(ctypes.addressof(a) for a in c_levels))
+    LAUNCHES["hash_encode_bwd_transpose"] += 1  # the entry's second kernel
+
+
+# C arguments: pointers (xyz, table, out) / (dout, xyz, acc, grad), then M,
+# n, L, F and the bf16 flag, then the level table and the primes
+declare(
+    "hash_encode_fwd(Tensor table, Tensor xyz, float[] scales, int[] info, "
+    "int[] primes) -> Tensor",
+    "hash_encode", (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 2
+    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 3,
+    _fwd_fake, _fwd_op, symbol="hash_encode_fwd")
+declare(
+    "hash_encode_bwd(Tensor dout, Tensor xyz, int n, ScalarType dtype, "
+    "float[] scales, int[] info, int[] primes) -> Tensor",
+    "hash_encode", (ctypes.c_void_p,) * 4 + (ctypes.c_longlong,) * 2
+    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 3,
+    _bwd_fake, _bwd_op, symbol="hash_encode_bwd")
+
+
+class _HashEncode(torch.autograd.Function):
+    """(table (F, n_entries), xyz (M, 3)) -> (M, L * F) through the
+    kernels; the backward returns the table's gradient alone."""
+
+    @staticmethod
+    def forward(ctx, table, xyz, layout):
+        args = _kernel_args(layout)
+        # the entries and weights are recomputed from xyz in the backward,
+        # with the levels and primes of the forward
+        ctx.save_for_backward(xyz)
+        ctx.args, ctx.n, ctx.dtype = args, table.shape[1], table.dtype
+        return torch.ops.taichi_nerfs_torch.hash_encode_fwd(table, xyz, *args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with profiling.span("ngp.encode"):
+            (xyz,) = ctx.saved_tensors
+            grad = torch.ops.taichi_nerfs_torch.hash_encode_bwd(
+                dout.contiguous(), xyz, ctx.n, ctx.dtype, *ctx.args)
+            return grad, None, None
+
+
+def hash_encode(table: torch.Tensor, xyz: torch.Tensor,
+                layout: HashGridLayout) -> torch.Tensor:
+    """(..., 3) positions in [0, 1] -> (..., L * F) features, level-major.
+
+    ``table``: (F, n_entries), fp32 or bf16.  CUDA positions run
+    ``csrc/hash_encode.cu`` (operators ``taichi_nerfs_torch::
+    hash_encode_fwd`` / ``::hash_encode_bwd``, each launch counted in
+    ``_build.LAUNCHES``) and raise where the kernels take no such layout or
+    tensors; CPU positions run the plain version,
+    :func:`hash_encode_reference`'s."""
+    if not on_cuda(xyz, "hash-encode"):
+        return hash_encode_reference(table, xyz, layout)
+    batch_shape = xyz.shape[:-1]
+    out = _HashEncode.apply(table, xyz.reshape(-1, 3).contiguous(), layout)
+    return out.reshape(*batch_shape, layout.out_dim)

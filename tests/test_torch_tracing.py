@@ -14,10 +14,10 @@ other range of the step and all its ops, with ``ngp.encode`` in the
 field's forward (and the refresh's) and again in the brick backward,
 inside ``ngp.backward`` on its thread.  The ``cuda``-marked tests check on
 the card that ``swr.backward`` is open on the thread that launches the
-sweep backward's kernel, that the brick backward's ``ngp.encode`` is open
-on autograd's device thread where its kernels are launched, and that the
-kernels launched while ``ngp.step`` is open (on its thread or autograd's)
-take 99 % or more of the step's kernel time:
+sweep backward's kernel, that the brick and hash backwards' ``ngp.encode``
+is open on autograd's device thread where their kernels are launched, and
+that the kernels launched while ``ngp.step`` is open (on its thread or
+autograd's) take 99 % or more of the step's kernel time:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_tracing.py
@@ -401,7 +401,17 @@ def test_ngp_backward_encode_on_autograd_thread(cuda_device, tmp_path):
     device thread, with its kernels launched inside it; the kernels launched
     while ``ngp.step`` is open, on either thread, take 99 % or more of the
     step's kernel time."""
-    trainer = _ngp_trainer("brick", cuda_device)
+    _check_encode_on_autograd_thread("brick", cuda_device, tmp_path)
+
+
+@pytest.mark.cuda
+def test_ngp_hash_backward_encode_on_autograd_thread(cuda_device, tmp_path):
+    """The same for the hash encoder's backward kernels."""
+    _check_encode_on_autograd_thread("hash", cuda_device, tmp_path)
+
+
+def _check_encode_on_autograd_thread(encoder, device, tmp_path):
+    trainer = _ngp_trainer(encoder, device)
     trainer.run_step()
     ev = _traced(trainer.run_step, tmp_path, cuda=True)
     (step,) = _ranges(ev, "ngp.step")
